@@ -1,0 +1,97 @@
+"""Step-aware layers over time-folded (T*N, C, H, W) tensors.
+
+Counterparts of ``spiking_diffusion_tpu/models/layers.py``. The JAX
+package keeps (T, N, H, W, C) and folds T into the batch around each
+stateless layer (``seq_apply``); the port keeps T folded all the way,
+in PyTorch's NCHW, so row t*N + n holds step t of sample n. Convolutions
+are ``conv2d``/``conv_transpose2d`` with torch padding semantics.
+BatchNorm runs in eval mode from its running statistics with the JAX
+package's arithmetic, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+in fp32, which ``nn.BatchNorm2d`` does not promise.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams, lif_multi_step
+
+
+class SeqConv(nn.Module):
+    """Conv2d over a time-folded sequence; weight (Cout, Cin, kH, kW)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.weight = nn.Parameter(
+            torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class SeqConvTranspose(nn.Module):
+    """ConvTranspose2d over a time-folded sequence; weight (Cin, Cout, kH, kW).
+
+    Output size (H - 1) * stride - 2 * padding + kernel + output_padding.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, output_padding: int = 0):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.output_padding = output_padding
+        self.weight = nn.Parameter(
+            torch.zeros(in_ch, out_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                  self.padding, self.output_padding)
+
+
+class SeqBatchNorm(nn.Module):
+    """Eval-mode BatchNorm over channel axis 1 of (T*N, C, H, W).
+
+    Statistics are the running ones, gathered over T*N jointly in
+    training, so one class serves the plain and the sequence case.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(self.var + self.eps) * self.scale
+        return ((x - self.mean.reshape(shape)) * mul.reshape(shape)
+                + self.bias.reshape(shape))
+
+
+class LIF(nn.Module):
+    """LIF spiking activation over a time-folded (T*N, ...) sequence.
+
+    Stateless: the membrane starts at v_reset on every call.
+    """
+
+    def __init__(self, params: NeuronParams, num_steps: int,
+                 backend: str = "auto"):
+        super().__init__()
+        self.params = params
+        self.num_steps = num_steps
+        self.backend = backend
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_seq = x.reshape((self.num_steps, -1) + tuple(x.shape[1:]))
+        s_seq = lif_multi_step(x_seq, params=self.params, backend=self.backend)
+        return s_seq.reshape(x.shape)

@@ -1,0 +1,90 @@
+"""The PyTorch port stands alone and runs on the card unless told otherwise.
+
+* Importing every module of ``spiking_diffusion_tpu_torch`` and
+  ``chip_smoke.py`` loads neither ``jax`` nor any module of the JAX
+  package ``spiking_diffusion_tpu``.
+* The entry points' device defaults to ``"cuda"``: with no card they
+  raise instead of running on the CPU.
+* ``chip_smoke.py`` exits non-zero, without its result line, when there is
+  no CUDA device or when it stands alone without the port.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from spiking_diffusion_tpu_torch import generate
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.models import weights
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import spiking_diffusion_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
+             or k.startswith("spiking_diffusion_tpu."))
+print(len(names), "modules;", "leaked:", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    torch.set_num_threads(1)
+
+
+def _run(args, cwd, **env):
+    full_env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    full_env.update(env)
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=full_env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    out = _run(["-c", IMPORT_ALL], REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "leaked: []" in out.stdout
+    assert int(out.stdout.split()[0]) >= 15  # every module was imported
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dcfg = DiffusionConfig(denoiser_channels=(4, 4, 4, 4, 4), num_steps=2)
+    vcfg = VQVAEConfig(dec_channels=(4, 4), num_steps=2)
+    gen = torch.Generator().manual_seed(0)
+    dvars = weights.init_denoiser_variables(dcfg, gen)
+    vvars = weights.init_vqvae_decode_variables(vcfg, gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weights.load_denoiser(*dvars, dcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weights.load_vqvae(*vvars, vcfg)
+    den = weights.load_denoiser(*dvars, dcfg, device="cpu")
+    vq = weights.load_vqvae(*vvars, vcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.sample_codes(den, dcfg, 2, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.generate(den, vq, dcfg, 2, generator=gen)
+
+
+def test_chip_smoke_fails_without_card():
+    out = _run(["chip_smoke.py"], REPO, CUDA_VISIBLE_DEVICES="")
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    out = _run(["chip_smoke.py"], str(tmp_path))
+    assert out.returncode != 0
+    assert "spiking_diffusion_tpu_torch" in out.stderr
+    assert '"ok": true' not in out.stdout
