@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
+from spiking_diffusion_tpu_torch.device import resolve_device
 
 # denoise_fn: (tokens (N, h, w) int, t (N,) int) -> logits (N, h, w, K)
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -91,16 +92,18 @@ def sample(
     unmask_mode: str = "random",
     choice_temperature: float = 1.0,
     spacing: str = "linear",
-    device="cpu",
+    device="cuda",
 ) -> torch.Tensor:
     """All-mask start, progressive unmasking; returns (N, h, w) int32 codes.
 
-    ``noise`` yields one (u, g) pair per step of :func:`schedule`. In
+    Runs on the card unless ``device="cpu"`` is passed. ``noise`` yields
+    one (u, g) pair per step of :func:`schedule`. In
     'confidence' mode, u feeds the Gumbel noise of the reveal order
     (the JAX sampler's ``uniform(minval=1e-20)`` of the same bits).
     """
     if unmask_mode not in UNMASK_MODES:
         raise ValueError(f"unknown unmask_mode {unmask_mode!r}")
+    device = resolve_device(device)
     h = cfg.latent_size
     big_t = cfg.num_timesteps
     t_input, p_unmask, n_reveal = schedule(cfg, sample_steps, spacing)

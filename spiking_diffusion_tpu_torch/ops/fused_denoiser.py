@@ -1,0 +1,365 @@
+"""K2: the whole spiking denoiser in one kernel launch per call (fused sampler).
+
+Counterpart of ``spiking_diffusion_tpu/ops/fused_denoiser.py``. The
+denoiser's BatchNorms are folded into its convolutions
+(:func:`fold_denoiser_weights`); the first conv runs once per call on the
+constant (token, t) map (:func:`first_preactivation`); then
+:func:`fused_denoise` runs the T-step loop of every LIF layer, the skip
+concat and the firing-rate readout in one launch of the hand-written CUDA
+kernel ``csrc/fused_denoiser.cu`` for a tensor on a CUDA device, and takes
+:func:`fused_denoise_reference`, its plain PyTorch version, only for a
+tensor on the CPU. ``LAUNCHES`` counts the kernel's launches.
+
+Weights come in fp32, bf16 (rounded to nearest even) or int8 (symmetric,
+one scale per kernel row and output channel, the JAX package's default
+``SD_INT8_SCALES=row`` with an int8 readout). Membranes, biases and logits
+are fp32. Every conv is three kernel-row partial sums combined in the
+order centre, top, bottom, then bias (int8: each partial times its
+scale), the JAX mirror's int8 order; in int8 the partials are exact
+integers, so kernel and plain version agree bitwise.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import dataclasses
+import warnings
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from spiking_diffusion_tpu_torch.config import DiffusionConfig
+from spiking_diffusion_tpu_torch.models.diffusion import DenoiseFn
+from spiking_diffusion_tpu_torch.ops import _build
+from spiking_diffusion_tpu_torch.snn.functional import fuse_conv_bn
+from spiking_diffusion_tpu_torch.snn.neuron import lif_step
+
+SOURCE = "fused_denoiser"
+LAUNCHES = 0
+# weight dtype -> the kernel's template selector
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+MAX_LAYERS = 8  # LIF conv blocks the kernel takes
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        fn = _build.load(SOURCE).fused_denoiser_fwd
+        fn.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldedDenoiser:
+    """BN-folded weights of a ``SpikingDenoiser`` for the fused sampler.
+
+    ``k1`` (C1, 2, 3, 3) and ``b1`` (C1,): the first conv, fp32. Then one
+    entry per conv of the kernel, blocks 2..L and the readout last:
+    ``weights[i]`` (3, 3 * Cin, Cout) in ``dtype``, rows grouped by kernel
+    row dy and then (dx, cin); ``biases[i]`` (1, Cout) fp32, or for int8
+    (4, Cout): the bias and one dequant scale per kernel row.
+    """
+
+    k1: torch.Tensor
+    b1: torch.Tensor
+    weights: Tuple[torch.Tensor, ...]
+    biases: Tuple[torch.Tensor, ...]
+    dtype: torch.dtype
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 convolutions and matrix products without TF32, whatever the
+    caller's global setting (cuDNN's default is TF32 on)."""
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def _quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with one scale per kernel row and output channel.
+
+    ``s = max(amax / 127, 1e-12)`` over each (kw, cin) group, then
+    ``clip(round(w / s), -127, 127)``; ``torch.round`` rounds half to even
+    as ``jnp.round`` does. Returns (int8 weights, (3, Cout) scales).
+    """
+    amax = w.abs().amax(dim=1)  # (3, Cout)
+    s = torch.clamp(amax / 127.0, min=1e-12)
+    wq = torch.clamp(torch.round(w / s[:, None, :]), -127, 127).to(torch.int8)
+    return wq, s
+
+
+def _kernel_rows(weight: torch.Tensor) -> torch.Tensor:
+    """torch (Cout, Cin, 3, 3) -> (3, 3 * Cin, Cout), rows (dy; dx, cin)."""
+    cout, cin = weight.shape[:2]
+    return weight.permute(2, 3, 1, 0).reshape(3, 3 * cin, cout).contiguous()
+
+
+@torch.no_grad()
+def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
+    """Fold the BN of convs 1..L into them and cast or quantize for K2.
+
+    Counterpart of the JAX ``_extract_folded_weights`` with
+    ``folded_conv_params``. The readout conv has no BN and is not folded;
+    it is cast or quantized like the others.
+    """
+    if dtype not in DTYPES:
+        raise TypeError(f"fused sampler dtype must be one of {list(DTYPES)}, got {dtype}")
+    folded = [fuse_conv_bn(conv.weight, conv.bias, bn.scale, bn.bias, bn.mean,
+                           bn.var, bn.eps)
+              for conv, bn in zip(denoiser.convs, denoiser.bns)]
+    folded.append((denoiser.readout.weight.detach().float(),
+                   denoiser.readout.bias.detach().float()))
+    k1, b1 = folded[0]
+    weights, biases = [], []
+    for w, b in folded[1:]:
+        w = _kernel_rows(w)
+        b = b.reshape(1, -1)
+        if dtype == torch.int8:
+            w, s = _quantize_rows(w)
+            b = torch.cat([b, s], dim=0)
+        weights.append(w.to(dtype).contiguous())
+        biases.append(b.contiguous())
+    return FoldedDenoiser(k1.contiguous(), b1.contiguous(), tuple(weights),
+                          tuple(biases), dtype)
+
+
+def first_preactivation(tokens: torch.Tensor, t: torch.Tensor,
+                        k1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """The folded first conv on the direct-coded (token, t) map: (N, h*w, C1).
+
+    Runs once per call; its output is the LIF-1 current at every step.
+    Counterpart of the JAX ``_first_preactivation`` (conv, then + b1).
+    """
+    x = tokens.float().unsqueeze(1)
+    x = torch.cat([x, t.float().reshape(-1, 1, 1, 1).expand_as(x)], dim=1)
+    with _full_fp32():
+        a1 = F.conv2d(x, k1, None, 1, 1) + b1.reshape(1, -1, 1, 1)
+    n, c = a1.shape[:2]
+    return a1.reshape(n, c, -1).transpose(1, 2).contiguous()
+
+
+def denoiser_cost(cfg: DiffusionConfig, n: int, itemsize: int = 2,
+                  useful_only: bool = False) -> Tuple[float, float]:
+    """(flops, device-memory bytes) of one fused denoiser call at batch n.
+
+    Flops: the T-step matrix work of every conv block and the readout,
+    plus the first conv once; ``useful_only`` counts only the taps inside
+    the grid (361 of 441 at 7x7), else all 9 taps at every position.
+    Bytes: a1 in, logits out, the weights once at ``itemsize`` bytes each.
+    """
+    hw = cfg.latent_size
+    hw2 = hw * hw
+    ch = tuple(cfg.denoiser_channels)
+    k = cfg.num_embeddings
+    r = n * hw2
+    tap = 1.0
+    if useful_only:
+        valid = sum((hw - abs(dy)) * (hw - abs(dx))
+                    for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+        tap = valid / (9.0 * hw2)
+    flops = tap * 2.0 * r * 9 * 2 * ch[0]
+    per_t = sum(2.0 * r * 9 * ch[i - 1] * ch[i] for i in range(1, len(ch)))
+    per_t += 2.0 * r * 9 * (ch[-1] + ch[0]) * k
+    flops += tap * per_t * cfg.num_steps
+    w_elems = sum(9 * ch[i - 1] * ch[i] for i in range(1, len(ch)))
+    w_elems += 9 * (ch[-1] + ch[0]) * k
+    return flops, r * ch[0] * 4.0 + r * k * 4.0 + w_elems * float(itemsize)
+
+
+# --- the plain version -------------------------------------------------------
+
+
+def _conv_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n: int,
+               hw: int) -> torch.Tensor:
+    """3x3 SAME conv of (n*hw*hw, Cin) spikes as three kernel-row products.
+
+    Each partial is one fp32 product of the zero-padded, x-shifted spikes
+    (n*hw*hw, 3 * Cin) with ``w[dy]``; they combine centre, top, bottom,
+    then bias (each times its scale when ``b`` has 4 rows).
+    """
+    cin = x.shape[1]
+    xp = F.pad(x.reshape(n, hw, hw, cin), (0, 0, 1, 1, 1, 1))
+    wf = w.float()
+    parts = []
+    for dy in range(3):
+        big = torch.cat([xp[:, dy:dy + hw, dx:dx + hw] for dx in range(3)], dim=-1)
+        parts.append(big.reshape(n * hw * hw, 3 * cin) @ wf[dy])
+    if b.shape[0] == 4:
+        out = parts[1] * b[2]
+        out = out + parts[0] * b[1]
+        out = out + parts[2] * b[3]
+    else:
+        out = parts[1] + parts[0]
+        out = out + parts[2]
+    return out + b[0]
+
+
+def fused_denoise_reference(a1: torch.Tensor, folded: FoldedDenoiser,
+                            cfg: DiffusionConfig) -> torch.Tensor:
+    """Plain PyTorch version of K2: (N, h*w, C1) a1 -> (N, h*w, K) logits.
+
+    Counterpart of the JAX ``mirror_denoise_fn`` after the first conv:
+    the same folded computation, fp32 membranes and logits, spikes as
+    exact 0/1 fp32, TF32 off.
+    """
+    n, hw2, c1 = a1.shape
+    hw = cfg.latent_size
+    p = cfg.lif.to_params()
+    x1 = a1.reshape(n * hw2, c1).float()
+    chans = [c1] + [w.shape[2] for w in folded.weights[:-1]]
+    vs = [torch.full((n * hw2, c), p.v_reset, dtype=torch.float32,
+                     device=a1.device) for c in chans]
+    acc = torch.zeros((n * hw2, folded.weights[-1].shape[2]),
+                      dtype=torch.float32, device=a1.device)
+    with _full_fp32():
+        for _ in range(cfg.num_steps):
+            vs[0], s1 = lif_step(vs[0], x1, p)
+            x = s1
+            for i in range(1, len(chans)):
+                z = _conv_rows(x, folded.weights[i - 1], folded.biases[i - 1], n, hw)
+                vs[i], x = lif_step(vs[i], z, p)
+            cat = torch.cat([x, s1], dim=-1)
+            acc = acc + _conv_rows(cat, folded.weights[-1], folded.biases[-1], n, hw)
+    return (acc / cfg.num_steps).reshape(n, hw2, -1)
+
+
+# --- the kernel's wrapper ----------------------------------------------------
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _check(a1: torch.Tensor, folded: FoldedDenoiser, cfg: DiffusionConfig):
+    """Raise on inputs that neither K2 nor its plain version takes."""
+    chans = tuple(cfg.denoiser_channels)
+    hw2 = cfg.latent_size ** 2
+    if a1.dtype != torch.float32:
+        raise TypeError(f"a1 must be float32, got {a1.dtype}")
+    if a1.ndim != 3 or a1.shape[0] < 1 or tuple(a1.shape[1:]) != (hw2, chans[0]):
+        raise ValueError(f"a1 must be (N >= 1, {hw2}, {chans[0]}), got "
+                         f"{tuple(a1.shape)}")
+    if folded.dtype not in DTYPES:
+        raise TypeError(f"weights must be one of {list(DTYPES)}, got {folded.dtype}")
+    if not 2 <= len(chans) <= MAX_LAYERS:
+        raise ValueError(f"K2 takes 2..{MAX_LAYERS} conv blocks, got {len(chans)}")
+    cins = chans[:-1] + (chans[-1] + chans[0],)
+    couts = chans[1:] + (cfg.num_embeddings,)
+    bias_rows = 4 if folded.dtype == torch.int8 else 1
+    if len(folded.weights) != len(couts) or len(folded.biases) != len(couts):
+        raise ValueError(f"need {len(couts)} weights and biases")
+    for w, b, cin, cout in zip(folded.weights, folded.biases, cins, couts):
+        if w.dtype != folded.dtype or b.dtype != torch.float32:
+            raise TypeError(f"weights {w.dtype} / bias {b.dtype}: need "
+                            f"{folded.dtype} / float32")
+        if tuple(w.shape) != (3, 3 * cin, cout) or tuple(b.shape) != (bias_rows, cout):
+            raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)}: "
+                             f"need (3, {3 * cin}, {cout}) / ({bias_rows}, {cout})")
+    for x in folded.weights + folded.biases:
+        if x.device != a1.device:
+            raise ValueError(f"a1 on {a1.device}, weights on {x.device}")
+
+
+def fused_denoise(a1: torch.Tensor, folded: FoldedDenoiser,
+                  cfg: DiffusionConfig) -> torch.Tensor:
+    """The denoiser after its first conv: (N, h*w, C1) a1 -> (N, h*w, K).
+
+    A CPU tensor takes :func:`fused_denoise_reference`; a CUDA tensor
+    launches K2 once, or raises.
+    """
+    global LAUNCHES
+    _check(a1, folded, cfg)
+    if a1.device.type == "cpu":
+        return fused_denoise_reference(a1, folded, cfg)
+    if not _on_card(a1):
+        raise ValueError(f"fused_denoise runs on CUDA or CPU, not {a1.device}")
+    tensors = (a1,) + folded.weights + folded.biases
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("fused_denoise needs contiguous a1, weights and biases")
+    chans = tuple(cfg.denoiser_channels)
+    n, hw2 = a1.shape[:2]
+    p = cfg.lif.to_params()
+    v = torch.empty((n, hw2 * sum(chans)), dtype=torch.float32, device=a1.device)
+    out = torch.empty((n, hw2, cfg.num_embeddings), dtype=torch.float32,
+                      device=a1.device)
+    n_l = len(chans)
+    c_chans = (ctypes.c_int * n_l)(*chans)
+    w_ptrs = (ctypes.c_longlong * n_l)(*[w.data_ptr() for w in folded.weights])
+    b_ptrs = (ctypes.c_longlong * n_l)(*[b.data_ptr() for b in folded.biases])
+    fn = _kernel()
+    with torch.cuda.device(a1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(DTYPES[folded.dtype], n, cfg.latent_size, n_l, c_chans,
+                cfg.num_embeddings, cfg.num_steps, a1.data_ptr(), w_ptrs,
+                b_ptrs, v.data_ptr(), out.data_ptr(), p.decay, p.v_threshold,
+                p.v_reset, int(p.decay_input), int(p.hard_reset), stream)
+    if rc == -2:
+        raise RuntimeError(f"fused_denoiser: channels {chans} need more shared "
+                           "memory than one block may use")
+    if rc != 0:
+        raise RuntimeError(f"fused_denoiser launch failed: code {rc}")
+    LAUNCHES += 1
+    return out
+
+
+# --- the sampler's denoise functions ----------------------------------------
+
+
+def make_fused_denoise_fn(denoiser, cfg: DiffusionConfig,
+                          dtype=torch.float32) -> DenoiseFn:
+    """(tokens (N, h, w), t (N,)) -> (N, h, w, K) logits through K2.
+
+    Folds the weights on every call, as the JAX package does, so the
+    function follows the module's current weights.
+    """
+    if dtype not in DTYPES:
+        raise TypeError(f"fused sampler dtype must be one of {list(DTYPES)}, got {dtype}")
+    hw, k = cfg.latent_size, cfg.num_embeddings
+
+    @torch.no_grad()
+    def denoise(tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        folded = fold_denoiser_weights(denoiser, dtype)
+        a1 = first_preactivation(tokens, t, folded.k1, folded.b1)
+        return fused_denoise(a1, folded, cfg).reshape(tokens.shape[0], hw, hw, k)
+
+    return denoise
+
+
+def make_denoise_fn(denoiser, cfg: DiffusionConfig, fused="auto",
+                    dtype=torch.float32) -> DenoiseFn:
+    """The one place that picks the sampler's denoiser.
+
+    ``fused``: True (K2, or its plain version for a denoiser on the CPU),
+    False (the layerwise ``SpikingDenoiser``) or "auto" (K2 when the
+    denoiser lies on a CUDA device). The layerwise path runs fp32 and
+    warns when ``dtype`` asks for another type.
+    """
+    if fused not in (True, False, "auto"):
+        raise ValueError(f"fused must be True, False or 'auto', got {fused!r}")
+    on_card = next(denoiser.parameters()).is_cuda
+    if fused is True or (fused == "auto" and on_card):
+        return make_fused_denoise_fn(denoiser, cfg, dtype)
+    if dtype != torch.float32:
+        warnings.warn(
+            f"sampler dtype {dtype} needs the fused sampler (fused=True, or "
+            "'auto' on a CUDA device); the layerwise path runs fp32 and the "
+            "dtype has no effect here.", stacklevel=2)
+    return denoiser

@@ -3,8 +3,9 @@
 * Importing every module of ``spiking_diffusion_tpu_torch`` and
   ``chip_smoke.py`` loads neither ``jax`` nor any module of the JAX
   package ``spiking_diffusion_tpu``.
-* The entry points' device defaults to ``"cuda"``: with no card they
-  raise instead of running on the CPU.
+* The entry points' device defaults to ``"cuda"`` (the sampler's and
+  the fused sampler's too): with no card they raise instead of running
+  on the CPU.
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -19,7 +20,7 @@ import torch
 
 from spiking_diffusion_tpu_torch import generate
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
-from spiking_diffusion_tpu_torch.models import weights
+from spiking_diffusion_tpu_torch.models import diffusion, weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -74,6 +75,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
         generate.sample_codes(den, dcfg, 2, generator=gen)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         generate.generate(den, vq, dcfg, 2, generator=gen)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate.sample_codes(den, dcfg, 2, generator=gen, fused=True,
+                              dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        diffusion.sample(den, dcfg, 2, noise=[])
 
 
 def test_chip_smoke_fails_without_card():

@@ -102,7 +102,8 @@ def test_sampler_matches_jax_fed_same_noise(mode, steps, spacing, temperature):
     n_steps = len(diffusion.schedule(cfg, steps, spacing)[0])
     codes = diffusion.sample(
         den, cfg, n, _jax_noise(key, jcfg, n, n_steps), temperature=temperature,
-        sample_steps=steps, unmask_mode=mode, spacing=spacing).numpy()
+        sample_steps=steps, unmask_mode=mode, spacing=spacing,
+        device="cpu").numpy()
     assert codes.dtype == np.int32
     assert codes.min() >= 0 and codes.max() < cfg.num_embeddings
     assert len(np.unique(codes)) > 1
