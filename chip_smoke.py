@@ -11,9 +11,9 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
 0. device: needs a CUDA device (exits non-zero without one); prints the
    card's name and power limit; turns TF32 off and cuDNN deterministic on,
    so that the kernel and plain runs compute the same convolutions.
-1. build: compiles every CUDA source of the port with ``nvcc`` (into
-   ``build/``), all at once, and prints the build times and ``-Xptxas -v``
-   lines.
+1. build: compiles every CUDA source of the port (K1 forward, K1
+   backward, K2, K3) with ``nvcc`` (into ``build/``), all at once, and
+   prints the build times and ``-Xptxas -v`` lines.
 2. models: the full-width MNIST flagship (49-step sampler, T=16 denoiser
    64-128-256-512-256, K=128, then the VQ-VAE decode) with seeded random
    weights whose BN statistics are set from one batch; the card's logits
@@ -25,7 +25,14 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    fused denoiser) in fp32, bf16 and int8: int8 bitwise; fp32 and bf16 at
    least 99 % of logits within 1e-4 and a median |difference| of at most
    1e-6 (sums in another order can flip a spike at threshold); median of
-   5; and a ragged batch of 13.
+   5; and a ragged batch of 13. K1 backward at the five LIF shapes of the
+   training step: bitwise with atan; with sigmoid within rtol 1e-5, atol
+   1e-6 (``expf`` against PyTorch's exp); other neuron settings bitwise.
+   K3 forward and backward at the five block shapes (block 0 with T_in =
+   1): spikes bitwise in fp32 and bf16, dy bitwise, dscale and dshift
+   within rtol 1e-5 and equal from launch to launch. Median of 20. The
+   bounds of K1 and K3 are the bytes the call needs (each input read
+   once, each output written once) over 3.35 TB/s.
 4. generation: the layerwise sampler, three requests at batch 16 and one
    at batch 256, each twice on the same noise, through K1 and through the
    plain LIF: codes and images identical, codes valid, images finite in
@@ -37,6 +44,19 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    plain version give identical codes and equal images. The share of codes
    that agree with the layerwise fp32 run is reported, not bounded (BN
    folding moves the logits by one fp32 rounding).
+6. train_stage2: the full-width denoiser (seeded random weights) trains
+   on the 256 code grids that the generation phase sampled, on each
+   branch (layerwise on K1, 'bnlif' on K3) at batch 32 and 256, a few
+   AdamW steps each with the launch counts reset just before: exactly 5
+   K1-forward and 5 K1-backward launches per layerwise step and no K3
+   launch, exactly 5 K3-forward and 5 K3-backward launches per 'bnlif'
+   step and no K1 launch, finite losses. The first step at batch 32 must
+   equal the same step through the plain versions on the card (loss,
+   gradients and new BN statistics: the same operations, with kernels
+   bitwise their plain versions) and agree with the same step on the
+   CPU at the CPU tests' tolerances: loss within 1e-5, gradients within
+   rtol 2e-3, atol 2e-4, new BN statistics within rtol 1e-5, atol 1e-6.
+   Reports ms per step (CUDA events) and the peak device memory.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -46,6 +66,7 @@ Any failure prints its traceback and exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import math
 import signal
 import statistics
 import subprocess
@@ -62,9 +83,13 @@ from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
 from spiking_diffusion_tpu_torch.models.layers import LIF
 from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 from spiking_diffusion_tpu_torch.ops import _build
+from spiking_diffusion_tpu_torch.ops import bn_lif as bnl
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as lif_op
+from spiking_diffusion_tpu_torch.snn import surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
+from spiking_diffusion_tpu_torch.train import stage2
+from spiking_diffusion_tpu_torch.train.state import create_train_state
 
 BUDGET_S = 900  # the whole run, the build included
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -87,7 +112,18 @@ K2_MEDIAN = 1e-6
 SPIN_CYCLES = 2_000_000  # ~1 ms of device time at the H100's clock
 LIF_LAUNCHES_PER_BATCH = 5 * 49 + 3  # 5 LIF layers x 49 steps + 3 in decode
 K1_REPLACES = "spiking_diffusion_tpu/ops/pallas_lif.py:58"
+K1_BWD_REPLACES = "spiking_diffusion_tpu/ops/pallas_lif.py:141"
 K2_REPLACES = "spiking_diffusion_tpu/ops/fused_denoiser.py:828"
+K3_FWD_REPLACES = "spiking_diffusion_tpu/ops/bn_lif.py:243"
+K3_BWD_REPLACES = "spiking_diffusion_tpu/ops/bn_lif.py:253"
+SIGMOID_TOL = dict(rtol=1e-5, atol=1e-6)  # expf against PyTorch's exp
+K3_SUM_RTOL = 1e-5  # dscale, dshift: per-channel sums of 12,544 x 16 terms
+TRAIN_BATCHES = (32, 256)  # the CLI's default batch (cli.py:91), the kernels'
+TRAIN_STEPS = 4
+TRAIN_BRANCHES = {"layerwise": ("auto", "torch"), "bnlif": ("bnlif", "bnlif_torch")}
+LOSS_ATOL = 1e-5  # the CPU tests' tolerances (tests/test_torch_stage2.py)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+STATS_TOL = dict(rtol=1e-5, atol=1e-6)
 LOGIT_ATOL = 5e-5  # card vs CPU: fp32 convolutions summed in another order
 IMAGE_ATOL = 1e-5
 
@@ -124,6 +160,12 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def lif_bound_ms(nbytes: float) -> float:
+    """Bytes over the HBM rate: the bound of the LIF kernels (K1, K3), whose
+    few fp32 operations per byte put them far below the card's fp32 rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def cuda_ms(fn, flush: torch.Tensor, reps: int = TIMING_REPS) -> float:
@@ -188,7 +230,7 @@ def phase_k1(gen: torch.Generator, flush: torch.Tensor) -> dict:
         max_err = max(max_err, compare_lif(x, None, params))
         ms = cuda_ms(lambda: lif_op.lif_fwd(x, None, params), flush)
         plain = cuda_ms(lambda: lif_op.lif_fwd_reference(x, None, params), flush)
-        bound = (2 * T + 2) * m * 4 / HBM_BYTES_PER_S * 1e3
+        bound = lif_bound_ms((2 * T + 1) * m * 4)  # x read, s and v_T written
         rows.append({"shape": name, "T": T, "M": m, "per_batch": per_batch,
                      "ms": ms, "plain_ms": plain, "bound_ms": bound})
         log(f"  K1 {name:22s} T={T} M={m:9d}: kernel {ms:.4f} ms, plain "
@@ -274,6 +316,134 @@ def phase_k2(den, dcfg, gen: torch.Generator, flush: torch.Tensor, card: str) ->
             f"counting all 9 taps); per generated batch (49 calls) {49 * ms:.1f} ms, "
             f"bound {49 * bound:.1f} ms [{card}]")
     return rows
+
+
+def train_lif_shapes():
+    """(name, M) of the five LIF layers of a training step at batch 256."""
+    return [(f"denoiser_lif{i + 1}_C{c}", BATCH * 49 * c)
+            for i, c in enumerate(DiffusionConfig().denoiser_channels)]
+
+
+def compare_lif_bwd(x, v_init, gs, params, need_dv0) -> float:
+    dx, dv = lif_op.lif_bwd(x, v_init, gs, params, need_dv0)
+    dx_ref, dv_ref = lif_op.lif_bwd_reference(x, v_init, gs, params, need_dv0)
+    torch.cuda.synchronize()
+    check(float(dx_ref.abs().max()) > 0.1, "K1 bwd: vanishing reference gradient")
+    check((dv is None) == (dv_ref is None) == (not need_dv0), "K1 bwd: dV0 when not asked")
+    err = 0.0
+    for what, got, want in (("dX", dx, dx_ref), ("dV0", dv, dv_ref)):
+        if want is None:
+            continue
+        if params.surrogate.name == "sigmoid":
+            torch.testing.assert_close(got, want, **SIGMOID_TOL)
+        else:
+            check(torch.equal(got, want), f"K1 bwd {what} differs from the plain version")
+        err = max(err, float((got - want).abs().max()))
+    return err
+
+
+def phase_k1_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    params = NeuronParams()
+    max_err = 0.0
+    rows = []
+    for name, m in train_lif_shapes():
+        x = lif_input(m, gen)
+        gs = torch.randn((T, m), generator=gen, device="cuda")
+        # the training path's call: no v_init (no v0 read), no dV0 written
+        max_err = max(max_err, compare_lif_bwd(x, None, gs, params, False))
+        ms = cuda_ms(lambda: lif_op.lif_bwd(x, None, gs, params, False), flush)
+        plain = cuda_ms(lambda: lif_op.lif_bwd_reference(x, None, gs, params, False), flush)
+        bound = lif_bound_ms(3 * T * m * 4)  # x and gs read, dX written
+        rows.append({"shape": name, "T": T, "M": m, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bound})
+        log(f"  K1 bwd {name:20s} T={T} M={m:9d}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {bound:.4f} ms (bytes), kernel at "
+            f"{bound / ms:.1%} of bound, bitwise equal")
+    m = BATCH * 49 * 64 + 7
+    x = lif_input(m, gen)
+    gs = torch.randn((T, m), generator=gen, device="cuda")
+    v0 = torch.rand((m,), generator=gen, device="cuda") * 0.9
+    variants = {
+        "soft_reset": NeuronParams(hard_reset=False),
+        "no_decay_input": NeuronParams(decay_input=False),
+        "soft_no_decay_input": NeuronParams(hard_reset=False, decay_input=False),
+        "tau4_vth07_vreset01": NeuronParams(tau=4.0, v_threshold=0.7, v_reset=0.1),
+        "detach_reset": NeuronParams(detach_reset=True),
+        "sigmoid": NeuronParams(surrogate=surrogate.sigmoid),
+    }
+    for name, p in variants.items():
+        errs = [compare_lif_bwd(x, v_init, gs, p, True) for v_init in (None, v0)]
+        if p.surrogate.name != "sigmoid":
+            max_err = max(max_err, *errs)
+        log(f"  K1 bwd {name} (M={m}, v_init none and given): max|d| {max(errs):.3g}"
+            + (f" (tolerance rtol {SIGMOID_TOL['rtol']:g}, atol {SIGMOID_TOL['atol']:g})"
+               if p.surrogate.name == "sigmoid" else ", bitwise equal"))
+    per_step = lambda key: sum(r[key] for r in rows)  # noqa: E731
+    return {"rows": rows, "max_abs_err": max_err, "ms": per_step("ms"),
+            "plain_ms": per_step("plain_ms"), "bound_ms": per_step("bound_ms")}
+
+
+def k3_path_shapes():
+    """(name, T_in, C) of the five K3 launches of a 'bnlif' training step."""
+    return [(f"block{i}_C{c}", 1 if i == 0 else T, c)
+            for i, c in enumerate(DiffusionConfig().denoiser_channels)]
+
+
+def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """K3 forward and backward against their plain versions at the path's
+    shapes, in fp32 and bf16; the fp32 times per training step."""
+    params = NeuronParams()
+    out = {}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        rows = []
+        err_fwd = err_bwd = 0.0
+        itemsize = torch.tensor([], dtype=dtype).element_size()
+        for name, t_in, c in k3_path_shapes():
+            y = (torch.randn((t_in, BATCH, c, 7, 7), generator=gen, device="cuda") * 2.0).to(dtype)
+            scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
+            shift = torch.rand((c,), generator=gen, device="cuda") * 0.6 - 0.3
+            gs = torch.randn((T, BATCH, c, 7, 7), generator=gen, device="cuda").to(dtype)
+            s = bnl.bn_lif_fwd(y, scale, shift, params, T)
+            s_ref = bnl.bn_lif_fwd_reference(y, scale, shift, params, T)
+            dy, dsc, dsh = bnl.bn_lif_bwd(y, scale, shift, gs, params, T)
+            _, dsc2, dsh2 = bnl.bn_lif_bwd(y, scale, shift, gs, params, T)
+            dy_ref, dsc_ref, dsh_ref = bnl.bn_lif_bwd_reference(y, scale, shift, gs, params, T)
+            torch.cuda.synchronize()
+            rate = float(s_ref.float().mean())
+            check(0.05 < rate < 0.95, f"K3 firing rate {rate} outside (0.05, 0.95)")
+            check(torch.equal(s, s_ref), f"K3 {dname} spikes differ from the plain version")
+            check(torch.equal(dy, dy_ref), f"K3 {dname} dy differs from the plain version")
+            check(torch.equal(dsc, dsc2) and torch.equal(dsh, dsh2),
+                  "K3 dscale/dshift differ between two launches")
+            sum_err = 0.0
+            for got, want in ((dsc, dsc_ref), (dsh, dsh_ref)):
+                torch.testing.assert_close(got, want, rtol=K3_SUM_RTOL, atol=0)
+                sum_err = max(sum_err, float((got - want).abs().max()))
+            err_fwd = max(err_fwd, float((s.float() - s_ref.float()).abs().max()))
+            err_bwd = max(err_bwd, float((dy.float() - dy_ref.float()).abs().max()), sum_err)
+            m = BATCH * 49 * c
+            fwd_ms = cuda_ms(lambda: bnl.bn_lif_fwd(y, scale, shift, params, T), flush)
+            bwd_ms = cuda_ms(lambda: bnl.bn_lif_bwd(y, scale, shift, gs, params, T), flush)
+            fwd_plain = cuda_ms(lambda: bnl.bn_lif_fwd_reference(y, scale, shift, params, T),
+                                flush)
+            bwd_plain = cuda_ms(lambda: bnl.bn_lif_bwd_reference(
+                y, scale, shift, gs, params, T), flush)
+            fwd_bound = lif_bound_ms((t_in + T) * m * itemsize)  # y read, s written
+            # y and gs read, dy written
+            bwd_bound = lif_bound_ms((2 * t_in + T) * m * itemsize)
+            rows.append({"shape": name, "T_in": t_in, "t_out": T, "M": m,
+                         "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain, "fwd_bound_ms": fwd_bound,
+                         "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain, "bwd_bound_ms": bwd_bound})
+            log(f"  K3 {dname} {name:12s} T_in={t_in:2d} M={m:9d}: fwd {fwd_ms:.4f} ms "
+                f"(plain {fwd_plain:.4f}, bound {fwd_bound:.4f}, {fwd_bound / fwd_ms:.1%}); "
+                f"bwd {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound {bwd_bound:.4f}, "
+                f"{bwd_bound / bwd_ms:.1%}); spikes and dy bitwise, max|d dscale, dshift| "
+                f"{sum_err:.3g}, rate {rate:.3f}")
+        per_step = lambda key: sum(r[key] for r in rows)  # noqa: E731
+        out[dname] = {"rows": rows, "fwd_err": err_fwd, "bwd_err": err_bwd,
+                      **{k: per_step(k) for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
+                                                  "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}}
+    return out
 
 
 # --- phase 3: generation at full width ---------------------------------------
@@ -478,6 +648,141 @@ def phase_generation_fused(models, dcfg, layerwise, card: str) -> dict:
     return launches
 
 
+# --- phase 6: stage-2 training at full width ----------------------------------
+
+
+def launch_counts():
+    return (lif_op.LAUNCHES, lif_op.LAUNCHES_BWD, bnl.LAUNCHES_FWD, bnl.LAUNCHES_BWD,
+            fd.LAUNCHES)
+
+
+def reset_launch_counts():
+    lif_op.LAUNCHES = lif_op.LAUNCHES_BWD = bnl.LAUNCHES_FWD = bnl.LAUNCHES_BWD = 0
+    fd.LAUNCHES = 0
+
+
+def train_state(variables, dcfg, backend, device):
+    return create_train_state(weights.load_denoiser(
+        *variables, dcfg, device=device, lif_backend=backend, train=True))
+
+
+def step_record(state, loss):
+    """(loss, gradients, BN running statistics) of the step just taken."""
+    model = state.model
+    return (float(loss), {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith((".mean", ".var"))})
+
+
+def compare_steps(what, got, want, exact: bool) -> dict:
+    """Hold step record ``got`` against ``want``: equal when ``exact``
+    (the same step through the plain versions on the card), else at the
+    CPU tests' tolerances."""
+    loss_d = abs(got[0] - want[0])
+    grad_d = max(float((got[1][n] - want[1][n].to(got[1][n].device)).abs().max())
+                 for n in got[1])
+    stat_d = max(float((got[2][n] - want[2][n].to(got[2][n].device)).abs().max())
+                 for n in got[2])
+    log(f"  first step vs {what}: |d loss| {loss_d:.3g}, max|d grad| {grad_d:.3g}, "
+        f"max|d BN stats| {stat_d:.3g}")
+    if exact:
+        check(loss_d == 0.0, f"loss differs from {what}")
+        for g, w in ((got[1], want[1]), (got[2], want[2])):
+            for n in g:
+                check(torch.equal(g[n], w[n]), f"{n} differs from {what}")
+        return {"loss": loss_d, "grad": grad_d, "stats": stat_d}
+    check(loss_d <= LOSS_ATOL, f"loss differs from {what}")
+    for n in got[1]:
+        torch.testing.assert_close(got[1][n], want[1][n].to(got[1][n].device), **GRAD_TOL,
+                                   msg=lambda m, n=n: f"{n} gradient vs {what}: {m}")
+    for n in got[2]:
+        torch.testing.assert_close(got[2][n], want[2][n].to(got[2][n].device), **STATS_TOL,
+                                   msg=lambda m, n=n: f"{n} vs {what}: {m}")
+    return {"loss": loss_d, "grad": grad_d, "stats": stat_d}
+
+
+def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
+    """Stage-2 training on each branch at each batch: {branch: {batch: ...}}."""
+    variables = weights.init_denoiser_variables(dcfg, torch.Generator().manual_seed(3))
+    step_fn = stage2.make_train_step_diffusion(dcfg)
+    results = {}
+    for branch, (backend, plain) in TRAIN_BRANCHES.items():
+        results[branch] = {}
+        for n in TRAIN_BATCHES:
+            state = train_state(variables, dcfg, backend, "cuda")
+            gen = torch.Generator(device="cuda").manual_seed(n)
+            batches = [codes[(i * n) % len(codes):(i * n) % len(codes) + n]
+                       for i in range(TRAIN_STEPS)]
+            corruptions = [diffusion.corrupt(x0, dcfg, gen) for x0 in batches]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            reset_launch_counts()
+            for i, (x0, corruption) in enumerate(zip(batches, corruptions)):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                loss = step_fn(state, x0, corruption=corruption)["loss"]
+                ev[1].record()
+                ev[1].synchronize()
+                times.append(ev[0].elapsed_time(ev[1]))
+                losses.append(float(loss))
+                if i == 0:
+                    first = step_record(state, loss)
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            k1_want = (5 * TRAIN_STEPS,) * 2 if branch == "layerwise" else (0, 0)
+            k3_want = (0, 0) if branch == "layerwise" else (5 * TRAIN_STEPS,) * 2
+            log(f"  {branch} batch {n}: launches K1 fwd/bwd {counts[0]}/{counts[1]}, "
+                f"K3 fwd/bwd {counts[2]}/{counts[3]}, K2 {counts[4]} in {TRAIN_STEPS} "
+                f"steps; ms per step {', '.join(f'{t:.2f}' for t in times)} (median after "
+                f"the first {statistics.median(times[1:]):.2f}); losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+                f"{peak / 2**30:.2f} GiB [{card}]")
+            check(counts[:2] == k1_want, f"{branch}: K1 launches {counts[:2]}, expected {k1_want}")
+            check(counts[2:4] == k3_want, f"{branch}: K3 launches {counts[2:4]}, expected {k3_want}")
+            check(counts[4] == 0, f"{branch}: launched K2")
+            check(all(math.isfinite(v) for v in losses), f"{branch}: loss not finite")
+            row = {"launches": counts, "ms": times, "ms_median": statistics.median(times[1:]),
+                   "losses": losses, "peak_bytes": peak}
+            if n == TRAIN_BATCHES[0]:
+                before = launch_counts()
+                plain_state = train_state(variables, dcfg, plain, "cuda")
+                loss_p = step_fn(plain_state, batches[0], corruption=corruptions[0])["loss"]
+                plain_rec = step_record(plain_state, loss_p)
+                check(launch_counts() == before, "the plain step launched a kernel")
+                cpu_state = train_state(variables, dcfg, backend, "cpu")
+                cpu_corr = tuple(a.cpu() for a in corruptions[0])
+                loss_c = step_fn(cpu_state, batches[0].cpu(), corruption=cpu_corr)["loss"]
+                row["vs_plain"] = compare_steps("the plain versions on the card", first,
+                                                plain_rec, exact=True)
+                row["vs_cpu"] = compare_steps("the CPU", first,
+                                              step_record(cpu_state, loss_c), exact=False)
+            results[branch][n] = row
+        # the loop a user calls: one epoch over the 256 grids at batch 32
+        logged = []
+        den = weights.load_denoiser(*variables, dcfg, device="cuda", lif_backend=backend,
+                                    train=True)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = stage2.train_diffusion(den, dcfg, codes, epochs=1, batch_size=TRAIN_BATCHES[0],
+                                       seed=0, log_every=1, log_fn=logged.append)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        losses = [float(line.split("loss ")[1]) for line in logged if "loss " in line]
+        want = 5 * state.step
+        log(f"  {branch} train_diffusion: {state.step} steps at batch {TRAIN_BATCHES[0]} in "
+            f"{seconds:.2f} s (host clock), launches K1 fwd/bwd {counts[0]}/{counts[1]}, "
+            f"K3 fwd/bwd {counts[2]}/{counts[3]}; losses {', '.join(f'{v:.3f}' for v in losses)}")
+        check(state.step == len(codes) // TRAIN_BATCHES[0], "train_diffusion step count")
+        check(counts[:4] == ((want, want, 0, 0) if branch == "layerwise" else (0, 0, want, want)),
+              f"{branch} train_diffusion launches {counts[:4]}")
+        check(len(losses) == state.step and all(math.isfinite(v) for v in losses),
+              f"{branch} train_diffusion losses {losses}")
+        results[branch]["loop"] = {"launches": counts, "seconds": seconds, "losses": losses}
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -497,7 +802,8 @@ def main() -> int:
             log("  cudnn.allow_tf32=False cuda.matmul.allow_tf32=False "
                 "cudnn.deterministic=True cudnn.benchmark=False")
         with Phase("build"):
-            for built in _build.build([lif_op.SOURCE, fd.SOURCE]):
+            for built in _build.build([lif_op.SOURCE, lif_op.SOURCE_BWD, fd.SOURCE,
+                                       bnl.SOURCE]):
                 log(f"  {built.name}: {built.seconds:.1f} s -> {built.path.name}")
                 for line in built.log.splitlines():
                     log(f"    {line}")
@@ -509,12 +815,18 @@ def main() -> int:
             gen = torch.Generator(device="cuda").manual_seed(0)
             flush = torch.empty(64 * 2**20 // 4, device="cuda")  # 64 MiB > 50 MB L2
             k1 = phase_k1(gen, flush)
+            k1_bwd = phase_k1_bwd(gen, flush)
             k2 = phase_k2(models[0], dcfg, gen, flush, smi)
+            k3 = phase_k3(gen, flush)
             del flush
         with Phase("generation"):
             launches, layerwise = phase_generation(models, dcfg, smi)
         with Phase("generation_fused"):
             fused_launches = phase_generation_fused(models, dcfg, layerwise, smi)
+        with Phase("train_stage2"):
+            del models
+            torch.cuda.empty_cache()
+            train = phase_train(dcfg, layerwise[3][0], smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -531,7 +843,19 @@ def main() -> int:
         "bound_by": "bytes", "library_ms": None,
         # K1 launches on the fused path (3 per generated batch, the decode)
         "launches_fused_path": {k: v[1] for k, v in fused_launches.items()},
+        # on the layerwise training path: 5 per step
+        "launches_train_stage2": sum(r["launches"][0]
+                                     for r in train["layerwise"].values()),
         "shapes": k1["rows"],
+    }, {
+        "name": "K1 lif_bwd", "route": "cuda",
+        "source": "spiking_diffusion_tpu_torch/csrc/lif_bwd.cu",
+        "replaces": K1_BWD_REPLACES,
+        "launches": sum(r["launches"][1] for r in train["layerwise"].values()),
+        "max_abs_err": k1_bwd["max_abs_err"],
+        # times of the 5 launches of one layerwise training step at batch 256
+        "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "shapes": k1_bwd["rows"],
     }]
     for name, row in k2.items():
         kernels.append({
@@ -540,6 +864,20 @@ def main() -> int:
             "replaces": K2_REPLACES, "launches": fused_launches[name][0],
             # one call at batch 256; no single PyTorch call is the denoiser
             "library_ms": None, **row,
+        })
+    for key, name, replaces, idx in (("fwd", "K3 bn_lif_fwd", K3_FWD_REPLACES, 2),
+                                     ("bwd", "K3 bn_lif_bwd", K3_BWD_REPLACES, 3)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "spiking_diffusion_tpu_torch/csrc/bn_lif.cu",
+            "replaces": replaces,
+            "launches": sum(r["launches"][idx] for r in train["bnlif"].values()),
+            "max_abs_err": k3["fp32"][f"{key}_err"],
+            # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
+            "ms": k3["fp32"][f"{key}_ms"], "plain_ms": k3["fp32"][f"{key}_plain_ms"],
+            "bound_ms": k3["fp32"][f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "bf16": {k: k3["bf16"][f"{key}_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

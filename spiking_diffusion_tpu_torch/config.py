@@ -2,7 +2,7 @@
 
 The same frozen dataclasses, fields and defaults as
 ``spiking_diffusion_tpu/config.py`` (``LIFConfig``, ``VQVAEConfig``,
-``DiffusionConfig``), kept as a copy so that the port imports nothing of
+``DiffusionConfig``, ``TrainConfig``), kept as a copy so that the port imports nothing of
 the JAX package. The defaults are the MNIST flagship: a T=16 spiking
 VQ-VAE with a 7x7 latent and K=128 codes, and a 49-step absorbing
 diffusion prior with denoiser channels 64-128-256-512-256.
@@ -75,3 +75,21 @@ class DiffusionConfig:
     num_steps: int = 16  # SNN time window of the denoiser
     denoiser_channels: Tuple[int, ...] = (64, 128, 256, 512, 256)
     lif: LIFConfig = dataclasses.field(default_factory=LIFConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimiser and loop settings (AdamW of the reference's ``main.py``)."""
+
+    batch_size: int = 32
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-3
+    betas: Tuple[float, float] = (0.9, 0.999)
+    epochs: int = 100
+    seed: int = 42
+    # compute dtype for conv/matmul activations; membranes always fp32
+    compute_dtype: str = "float32"
+    # the denoiser's branch: 'auto' (layerwise, K1) or 'bnlif' (K3)
+    lif_backend: str = "auto"
+    # data-parallel device count; 1 = single card
+    data_parallel: int = 1

@@ -15,8 +15,11 @@
 // is contracted and the spikes and v_T are bitwise those of the plain
 // PyTorch loop (ops/lif.py `lif_fwd_reference`).
 //
+// The per-element math is csrc/lif_neuron.cuh's `charge`, `fire`, `reset`.
+//
 // What bounds it on an H100: device-memory traffic. It reads x once and
-// writes s once, (2T + 2) * M * 4 bytes with v0 and vT, against 3.35 TB/s;
+// writes s and vT once, (2T + 1) * M * 4 bytes (one more M * 4 to read v0
+// when the caller gives an initial membrane), against 3.35 TB/s;
 // the arithmetic is ~6 fp32 operations per element and step, far below the
 // card's rate. So the design keeps memory traffic at that minimum: one
 // thread per neuron holds its membrane in a register across the whole T
@@ -28,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "lif_neuron.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -35,28 +40,16 @@ constexpr int kThreads = 256;
 __global__ void lif_fwd_kernel(const float* __restrict__ x,
                                const float* __restrict__ v0,
                                float* __restrict__ s,
-                               float* __restrict__ vT,
-                               long long T, long long M, float decay,
-                               float v_th, float v_reset, int decay_input,
-                               int hard_reset) {
+                               float* __restrict__ vT, long long T,
+                               long long M, lif::Neuron p) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= M) return;
-  float v = v0[i];
+  float v = v0 != nullptr ? v0[i] : p.v_reset;
   for (long long t = 0; t < T; ++t) {
-    const float xt = x[t * M + i];
-    float h;
-    if (decay_input) {
-      h = v + (xt - (v - v_reset)) * decay;
-    } else {
-      h = v - (v - v_reset) * decay + xt;
-    }
-    const float spike = h >= v_th ? 1.0f : 0.0f;
+    const float h = lif::charge(v, x[t * M + i], p);
+    const float spike = lif::fire(h, p);
     s[t * M + i] = spike;
-    if (hard_reset) {
-      v = (1.0f - spike) * h + spike * v_reset;
-    } else {
-      v = h - spike * v_th;
-    }
+    v = lif::reset(h, spike, p);
   }
   vT[i] = v;
 }
@@ -64,14 +57,16 @@ __global__ void lif_fwd_kernel(const float* __restrict__ x,
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t); allocates nothing and does not
-// synchronise. Returns cudaGetLastError() after the launch.
+// synchronise. A null `v0` starts every membrane at v_reset without
+// reading memory. Returns cudaGetLastError() after the launch.
 extern "C" int lif_fwd_f32(const float* x, const float* v0, float* s, float* vT,
                            long long T, long long M, float decay, float v_th,
                            float v_reset, int decay_input, int hard_reset,
                            void* stream) {
+  const lif::Neuron p{decay, v_th, v_reset, 1.0f - decay, decay_input,
+                      hard_reset, 0, 0, 0.0f, 0.0f};
   const long long blocks = (M + kThreads - 1) / kThreads;
   lif_fwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      x, v0, s, vT, T, M, decay, v_th, v_reset, decay_input, hard_reset);
+                   static_cast<cudaStream_t>(stream)>>>(x, v0, s, vT, T, M, p);
   return static_cast<int>(cudaGetLastError());
 }

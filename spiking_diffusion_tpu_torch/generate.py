@@ -45,7 +45,10 @@ def sample_codes(
 
     Give either ``generator`` (on ``device``) or ``noise``, one (u, g) pair
     per step of :func:`diffusion.schedule`. ``fused`` and ``dtype`` pick
-    the denoiser as :func:`ops.fused_denoiser.make_denoise_fn` does.
+    the denoiser as :func:`ops.fused_denoiser.make_denoise_fn` does. The
+    denoiser samples in eval mode (BN from its running statistics, as the
+    JAX sampler applies it with ``train=False``), also when it comes
+    straight from training; its mode is restored afterwards.
     """
     dev = resolve_device(device)
     if noise is None:
@@ -53,11 +56,16 @@ def sample_codes(
             raise ValueError("pass a torch.Generator or the per-step noise")
         steps = len(diffusion.schedule(cfg, sample_steps, spacing)[0])
         noise = diffusion.draw_noise(cfg, n_samples, steps, generator, dev)
-    denoise_fn = make_denoise_fn(denoiser, cfg, fused, dtype)
-    return diffusion.sample(
-        denoise_fn, cfg, n_samples, noise, temperature=temperature,
-        sample_steps=sample_steps, unmask_mode=unmask_mode,
-        choice_temperature=choice_temperature, spacing=spacing, device=dev)
+    was_training = denoiser.training
+    denoiser.eval()
+    try:
+        denoise_fn = make_denoise_fn(denoiser, cfg, fused, dtype)
+        return diffusion.sample(
+            denoise_fn, cfg, n_samples, noise, temperature=temperature,
+            sample_steps=sample_steps, unmask_mode=unmask_mode,
+            choice_temperature=choice_temperature, spacing=spacing, device=dev)
+    finally:
+        denoiser.train(was_training)
 
 
 @torch.no_grad()

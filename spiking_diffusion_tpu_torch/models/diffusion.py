@@ -1,20 +1,29 @@
-"""Reverse sampler of the absorbing discrete diffusion prior.
+"""Absorbing discrete diffusion over the VQ code grid: training loss and
+reverse sampler.
 
-Counterpart of ``spiking_diffusion_tpu/models/diffusion.py`` ``sample``,
-with the mask token ``cfg.mask_id`` (by default K itself, the CLI's
-``--mask codebook_size``). Starting from an all-mask grid, each step
-runs the denoiser, draws a token per position and reveals a subset of
-the still-masked positions.
+Counterpart of ``spiking_diffusion_tpu/models/diffusion.py``, with the
+mask token ``cfg.mask_id`` (by default K itself, the CLI's ``--mask
+codebook_size``; :func:`pick_mask_id` has the other modes).
 
-The random draws are injectable, so the sampler can be held against the
-JAX one fed the same numbers: a step takes ``u`` (N, h, w), uniform in
-[0, 1), and ``g`` (N, h, w, K), standard Gumbel. ``jax.random.categorical``
-is ``argmax(logits + gumbel)``, so the draw here is
-``argmax(logits / temperature + g)``; the random reveal is ``u < p``.
+Training (:func:`train_loss`): draw t uniform in {1..T} per sample, mask
+each token with probability t/T, and score the denoiser's logits at the
+masked positions by the reweighted ELBO (or the ELBO). Sampling
+(:func:`sample`): starting from an all-mask grid, each step runs the
+denoiser, draws a token per position and reveals a subset of the
+still-masked positions.
+
+The random draws are injectable, so both can be held against the JAX
+functions fed the same numbers. :func:`q_sample` takes its uniforms ``u``
+(N, h, w); the training step can take a whole drawn corruption. A sampler
+step takes ``u`` (N, h, w), uniform in [0, 1), and ``g`` (N, h, w, K),
+standard Gumbel. ``jax.random.categorical`` is ``argmax(logits +
+gumbel)``, so the draw here is ``argmax(logits / temperature + g)``; the
+random reveal is ``u < p``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
@@ -27,8 +36,103 @@ from spiking_diffusion_tpu_torch.device import resolve_device
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 StepNoise = Tuple[torch.Tensor, torch.Tensor]  # (u, g) of one step
 
+# (x_t, t, pt, x_0_ignore) of one batch
+Corruption = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
 UNMASK_MODES = ("random", "confidence")
 SPACINGS = ("linear", "cosine")
+LOSS_TYPES = ("reweighted_elbo", "elbo")
+MASK_MODES = ("codebook_size", "max", "min")
+
+
+def sample_time(batch: int, num_timesteps: int, generator: torch.Generator,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t ~ Uniform{1..T} per sample (int32) and pt = 1/T (fp32)."""
+    t = torch.randint(1, num_timesteps + 1, (batch,), generator=generator,
+                      device=device, dtype=torch.int32)
+    pt = torch.full((batch,), 1.0 / num_timesteps, dtype=torch.float32,
+                    device=device)
+    return t, pt
+
+
+def q_sample(x_0: torch.Tensor, t: torch.Tensor, mask_id: int,
+             num_timesteps: int, u: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mask each token of x_0 (N, h, w) where ``u < t/T`` (u uniform in
+    [0, 1), (N, h, w)); returns (x_t, x_0_ignore, mask), the targets of
+    unmasked positions set to -1."""
+    prob = (t.float() / num_timesteps)[:, None, None]
+    mask = u < prob
+    x_t = torch.where(mask, torch.full_like(x_0, mask_id), x_0)
+    x_0_ignore = torch.where(mask, x_0, torch.full_like(x_0, -1))
+    return x_t, x_0_ignore, mask
+
+
+def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-sample sum of token cross-entropy over (h, w), ignoring
+    targets == -1. logits (N, h, w, K); targets (N, h, w) in [-1, K)."""
+    valid = targets >= 0
+    safe = torch.clamp(targets, min=0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    tok_ce = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    tok_ce = torch.where(valid, tok_ce, torch.zeros_like(tok_ce))
+    return torch.sum(tok_ce, dim=(1, 2))
+
+
+def corrupt(x_0: torch.Tensor, cfg: DiffusionConfig,
+            generator: torch.Generator) -> Corruption:
+    """Draw the training corruption of a batch: (x_t, t, pt, x_0_ignore),
+    t and the masking uniforms from ``generator`` (on x_0's device)."""
+    t, pt = sample_time(x_0.shape[0], cfg.num_timesteps, generator, x_0.device)
+    u = torch.rand(x_0.shape, generator=generator, device=x_0.device)
+    x_t, x_0_ignore, _ = q_sample(x_0, t, cfg.mask_id, cfg.num_timesteps, u)
+    return x_t, t, pt, x_0_ignore
+
+
+def per_sample_loss(denoise_fn: DenoiseFn, x_t: torch.Tensor, t: torch.Tensor,
+                    pt: torch.Tensor, x_0_ignore: torch.Tensor,
+                    cfg: DiffusionConfig) -> torch.Tensor:
+    """(N,) loss of a drawn corruption: 'reweighted_elbo' is
+    (1 - t/T) * CE / (ln 2 * D), 'elbo' CE / t / pt / (ln 2 * D), with D
+    the positions of a grid."""
+    if cfg.loss_type not in LOSS_TYPES:
+        raise ValueError(f"unknown loss_type {cfg.loss_type!r}")
+    d = x_t.shape[1] * x_t.shape[2]
+    ce = masked_cross_entropy(denoise_fn(x_t, t), x_0_ignore)
+    tf = t.float()
+    if cfg.loss_type == "elbo":
+        return ce / tf / pt / (math.log(2) * d)
+    return (1.0 - tf / cfg.num_timesteps) * ce / (math.log(2) * d)
+
+
+def train_loss(denoise_fn: DenoiseFn, x_0: torch.Tensor, cfg: DiffusionConfig,
+               generator: Optional[torch.Generator] = None,
+               corruption: Optional[Corruption] = None) -> torch.Tensor:
+    """Scalar training loss of a batch of code grids (N, h, w): the mean
+    of :func:`per_sample_loss` over a corruption drawn from ``generator``,
+    or the given ``corruption``."""
+    if corruption is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or a drawn corruption")
+        corruption = corrupt(x_0, cfg, generator)
+    return torch.mean(per_sample_loss(denoise_fn, *corruption, cfg))
+
+
+def pick_mask_id(mode: str, num_embeddings: int, first_batch: torch.Tensor) -> int:
+    """The mask token: 'codebook_size' K itself; 'max' the most common
+    code of ``first_batch``; 'min' the least common code that occurs in
+    it (the JAX package's reading of the reference's 'min'). Ties go to
+    the smallest code."""
+    if mode not in MASK_MODES:
+        raise ValueError(f"unknown mask mode {mode!r}")
+    if mode == "codebook_size":
+        return int(num_embeddings)
+    counts = torch.bincount(first_batch.reshape(-1).long(),
+                            minlength=num_embeddings)[:num_embeddings]
+    if mode == "max":
+        return int(torch.argmax(counts))
+    big = torch.iinfo(torch.int64).max
+    return int(torch.argmin(torch.where(counts > 0, counts, torch.full_like(counts, big))))
 
 
 def schedule(

@@ -5,9 +5,11 @@ package keeps (T, N, H, W, C) and folds T into the batch around each
 stateless layer (``seq_apply``); the port keeps T folded all the way,
 in PyTorch's NCHW, so row t*N + n holds step t of sample n. Convolutions
 are ``conv2d``/``conv_transpose2d`` with torch padding semantics.
-BatchNorm runs in eval mode from its running statistics with the JAX
-package's arithmetic, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
-in fp32, which ``nn.BatchNorm2d`` does not promise.
+BatchNorm has the JAX package's arithmetic, ``(x - mean) * (rsqrt(var +
+eps) * scale) + bias`` in fp32, which ``nn.BatchNorm2d`` does not
+promise, and the JAX package's training statistics (fast variance, the
+biased variance in the running update), which ``nn.BatchNorm2d`` does
+not have.
 """
 
 from __future__ import annotations
@@ -57,11 +59,23 @@ class SeqConvTranspose(nn.Module):
 
 
 class SeqBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel axis 1 of (T*N, C, H, W).
+    """BatchNorm over channel axis 1 of (T*N, C, H, W).
 
-    Statistics are the running ones, gathered over T*N jointly in
-    training, so one class serves the plain and the sequence case.
+    Counterpart of JAX ``models/layers.py`` ``SeqBatchNorm`` and its
+    ``BatchNorm``. In training mode the statistics are those of the batch,
+    over T*N*H*W jointly per channel, in fp32: the mean and the fast
+    variance ``max(0, E[x^2] - E[x]^2)``, left in the autograd graph so
+    that gradients reach x through them; the running statistics move to
+    ``0.9 * running + 0.1 * batch`` with the biased variance. In eval mode
+    the running statistics are used.
+
+    ``return_affine=True`` returns the per-channel ``(scale_eff,
+    shift_eff) = (scale * rsqrt(var + eps), bias - mean * scale_eff)``
+    instead of the normalised tensor, for the fused BN-apply + LIF kernel
+    (``ops/bn_lif.py``).
     """
+
+    momentum = 0.9  # flax's convention: running = momentum * running + (1 - momentum) * batch
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -71,10 +85,27 @@ class SeqBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _statistics(self, x: torch.Tensor):
+        if not self.training:
+            return self.mean, self.var
+        xf = x.float()
+        dims = [d for d in range(x.ndim) if d != 1]
+        mean = xf.mean(dims)
+        var = torch.clamp(torch.mean(xf * xf, dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
+        return mean, var
+
+    def forward(self, x: torch.Tensor, return_affine: bool = False):
+        mean, var = self._statistics(x)
+        if return_affine:
+            scale_eff = self.scale * torch.rsqrt(var + self.eps)
+            return scale_eff, self.bias - mean * scale_eff
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        return ((x - self.mean.reshape(shape)) * mul.reshape(shape)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x - mean.reshape(shape)) * mul.reshape(shape)
                 + self.bias.reshape(shape))
 
 

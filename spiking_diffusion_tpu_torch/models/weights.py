@@ -96,18 +96,21 @@ def vqvae_decode_state_dict(params: Tree,
     return sd
 
 
-def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray], device):
+def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray], device,
+          train: bool = False):
     module.load_state_dict({k: torch.from_numpy(np.array(v))
                             for k, v in sd.items()}, strict=True)
-    return module.to(resolve_device(device)).eval()
+    return module.to(resolve_device(device)).train(train)
 
 
 def load_denoiser(params: Tree, batch_stats: Tree,
                   cfg: DiffusionConfig = DiffusionConfig(), device="cuda",
-                  lif_backend: str = "auto") -> SpikingDenoiser:
-    """The port's denoiser, in eval mode on ``device``, from flax variables."""
+                  lif_backend: str = "auto", train: bool = False) -> SpikingDenoiser:
+    """The port's denoiser on ``device`` from flax variables, in eval mode
+    or, with ``train``, in training mode. ``lif_backend`` picks the branch
+    (``SpikingDenoiser``): layerwise 'auto' or fused 'bnlif'."""
     return _load(SpikingDenoiser(cfg, lif_backend),
-                 denoiser_state_dict(params, batch_stats, cfg), device)
+                 denoiser_state_dict(params, batch_stats, cfg), device, train)
 
 
 def load_vqvae(params: Tree, batch_stats: Tree,

@@ -3,9 +3,10 @@
 Each source in ``csrc/`` has a plain C interface (no PyTorch headers), so
 one ``nvcc`` call per source builds a shared library in seconds. The
 library goes into ``build/`` at the root of the checkout, under a name
-keyed by a hash of the source and the flags, so a changed source is
-rebuilt and an unchanged one is built once per checkout. Several sources
-are compiled by concurrent ``nvcc`` processes.
+keyed by a hash of the source, the ``csrc/`` headers it includes and the
+flags, so a changed source or header is rebuilt and an unchanged one is
+built once per checkout. Several sources are compiled by concurrent
+``nvcc`` processes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 300
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -54,8 +57,22 @@ def nvcc() -> str:
     return found
 
 
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """The file's bytes followed by those of every ``#include "..."`` it
+    (transitively) names in ``csrc/``, each file once."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    text = path.read_bytes()
+    for header in _LOCAL_INCLUDE.findall(text):
+        text += _source_bytes(CSRC_DIR / header.decode(), seen)
+    return text
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where the library of ``csrc/<name>.cu`` goes: named by a hash of the
+    source, the local headers it includes and the flags."""
+    src = _source_bytes(CSRC_DIR / f"{name}.cu", set())
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -9,9 +9,12 @@ order as ``spiking_diffusion_tpu/snn/neuron.py``:
     hard reset:                 V[t] = (1 - S[t]) * H[t] + S[t] * v_reset
     soft reset:                 V[t] = H[t] - S[t] * v_th
 
-with decay = 1/tau. ``lif_scan`` is a plain Python loop over T;
-``lif_multi_step`` dispatches between it and the hand-written CUDA kernel
-in :mod:`spiking_diffusion_tpu_torch.ops.lif`.
+with decay = 1/tau. The spike carries the surrogate gradient
+(``snn/surrogate.py``), so ``lif_step`` and ``lif_scan``, a plain Python
+loop over T, are differentiable by autograd; ``detach_reset`` keeps the
+reset out of the gradient, as JAX's ``_reset`` does. ``lif_multi_step``
+runs K1, the hand-written CUDA forward and backward kernels behind one
+``torch.autograd.Function`` (:mod:`spiking_diffusion_tpu_torch.ops.lif`).
 """
 
 from __future__ import annotations
@@ -44,21 +47,28 @@ class NeuronParams:
         return 1.0 / self.tau
 
 
+def charge(v: torch.Tensor, x: torch.Tensor, p: NeuronParams) -> torch.Tensor:
+    """The pre-reset membrane H[t] from V[t-1] and X[t]."""
+    if p.decay_input:
+        return v + (x - (v - p.v_reset)) * p.decay
+    return v - (v - p.v_reset) * p.decay + x
+
+
+def reset(h: torch.Tensor, s: torch.Tensor, p: NeuronParams) -> torch.Tensor:
+    """V[t] from H[t] and the spike S[t]."""
+    if p.hard_reset:
+        return (1.0 - s) * h + s * p.v_reset
+    return h - s * p.v_threshold
+
+
 def lif_step(
     v: torch.Tensor, x: torch.Tensor, params: NeuronParams = NeuronParams()
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LIF timestep: (v, x) -> (v_next, spike)."""
     p = params
-    if p.decay_input:
-        h = v + (x - (v - p.v_reset)) * p.decay
-    else:
-        h = v - (v - p.v_reset) * p.decay + x
+    h = charge(v, x, p)
     s = p.surrogate(h - p.v_threshold)
-    if p.hard_reset:
-        v_next = (1.0 - s) * h + s * p.v_reset
-    else:
-        v_next = h - s * p.v_threshold
-    return v_next, s
+    return reset(h, s.detach() if p.detach_reset else s, p), s
 
 
 def lif_scan(
@@ -89,19 +99,18 @@ def lif_multi_step(
     params: NeuronParams = NeuronParams(),
     backend: str = "auto",
 ) -> torch.Tensor:
-    """Multi-step LIF forward; returns the (T, ...) spike train.
+    """Multi-step LIF, differentiable; returns the (T, ...) spike train.
 
-    ``backend``: 'torch' (the plain loop, :func:`lif_scan`), 'cuda' (the
-    hand-written kernel; the tensor must lie on a CUDA device) or 'auto'
-    (the kernel for a CUDA tensor, the plain loop for a CPU tensor).
+    ``backend``: 'cuda' (K1's forward and backward kernels; the tensor
+    must lie on a CUDA device), 'auto' (K1 for a CUDA tensor, its plain
+    versions for a CPU tensor) or 'torch' (K1's plain versions on either
+    device).
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown LIF backend {backend!r}; have {BACKENDS}")
-    if backend == "torch":
-        return lif_scan(x_seq, v_init, params)[0]
     if backend == "cuda" and not x_seq.is_cuda:
         raise ValueError("LIF backend 'cuda' needs a tensor on a CUDA device")
     # imported here: ops.lif imports this module for NeuronParams
-    from spiking_diffusion_tpu_torch.ops.lif import lif_fwd
+    from spiking_diffusion_tpu_torch.ops.lif import lif
 
-    return lif_fwd(x_seq, v_init, params)[0]
+    return lif(x_seq, v_init, params, reference=backend == "torch")

@@ -3,9 +3,9 @@
 * Importing every module of ``spiking_diffusion_tpu_torch`` and
   ``chip_smoke.py`` loads neither ``jax`` nor any module of the JAX
   package ``spiking_diffusion_tpu``.
-* The entry points' device defaults to ``"cuda"`` (the sampler's and
-  the fused sampler's too): with no card they raise instead of running
-  on the CPU.
+* The entry points' device defaults to ``"cuda"`` (the sampler's, the
+  fused sampler's and the stage-2 trainer's too): with no card they
+  raise instead of running on the CPU.
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -21,6 +21,7 @@ import torch
 from spiking_diffusion_tpu_torch import generate
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.train import stage2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -80,6 +81,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
                               dtype=torch.int8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         diffusion.sample(den, dcfg, 2, noise=[])
+    for backend in ("auto", "bnlif"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            weights.load_denoiser(*dvars, dcfg, lif_backend=backend, train=True)
+    codes = torch.zeros((4, 7, 7), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage2.train_diffusion(den, dcfg, codes, batch_size=2, log_fn=None)
 
 
 def test_chip_smoke_fails_without_card():

@@ -1,10 +1,18 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (LIF forward) must agree bitwise. K2 (the fused denoiser) must agree
-bitwise in int8, where every partial sum is an exact integer; in fp32 and
-bf16 its sums run in another order than cuBLAS's, so a membrane one
-rounding from threshold may flip a spike: at least 99 % of the logits lie
-within 1e-4 and the median |difference| is at most 1e-6.
+K1 (LIF forward) must agree bitwise. K1's backward must agree bitwise with
+the atan surrogate; with sigmoid the kernel's ``expf`` and PyTorch's exp
+may differ by an ulp, so dX and dV0 agree within rtol 1e-5, atol 1e-6.
+K3 (fused BN-apply + LIF): spikes and dy bitwise in fp32 and bf16, dscale
+and dshift within rtol 1e-5 of the plain version (their sum order is the
+kernel's, so equal is expected but not required) and equal from launch
+to launch. A small training step through the kernels gives exactly the
+loss, gradients and BN statistics of the same step through the plain
+versions. K2 (the fused denoiser) must agree bitwise in int8, where every
+partial sum is an exact integer; in fp32 and bf16 its sums run in another
+order than cuBLAS's, so a membrane one rounding from threshold may flip a
+spike: at least 99 % of the logits lie within 1e-4 and the median
+|difference| is at most 1e-6.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed. Without a CUDA device every test skips with a reason. On a
@@ -19,10 +27,14 @@ import pytest
 import torch
 
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
-from spiking_diffusion_tpu_torch.models import weights
+from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.ops import bn_lif as port_bn_lif
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as port_lif
+from spiking_diffusion_tpu_torch.snn import surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
+from spiking_diffusion_tpu_torch.train import stage2
+from spiking_diffusion_tpu_torch.train.state import create_train_state
 
 PARAMS = {
     "default": {},
@@ -76,6 +88,149 @@ def test_lif_kernel_rejects_what_it_does_not_take(cuda_device):
         port_lif.lif_fwd(x.transpose(1, 2))
     with pytest.raises(TypeError):
         port_lif.lif_fwd(x.double())
+
+
+# --- K1 backward ---------------------------------------------------------------
+
+BWD_PARAMS = {
+    **PARAMS,
+    "detach_reset": {"detach_reset": True},
+    "sigmoid": {"surrogate": surrogate.sigmoid},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BWD_PARAMS))
+@pytest.mark.parametrize("t_steps,m", [(16, 3 * 49 * 64), (16, 3 * 49 * 64 + 5), (20, 1001)],
+                         ids=["T16_M9408", "T16_M9413", "T20_M1001"])
+def test_lif_bwd_kernel_matches_reference(cuda_device, name, t_steps, m):
+    params = NeuronParams(**BWD_PARAMS[name])
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    x = torch.rand((t_steps, m), generator=gen, device=cuda_device) * 4.0 - 1.0
+    v0 = torch.rand((m,), generator=gen, device=cuda_device) * 0.9
+    gs = torch.randn((t_steps, m), generator=gen, device=cuda_device)
+    before = port_lif.LAUNCHES_BWD
+    # the training path's call (no v0 read, no dV0 written), then with dV0
+    for v_init, need_dv0 in ((None, False), (None, True), (v0, True)):
+        dx, dv = port_lif.lif_bwd(x, v_init, gs, params, need_dv0)
+        dx_ref, dv_ref = port_lif.lif_bwd_reference(x, v_init, gs, params, need_dv0)
+        torch.cuda.synchronize()
+        assert float(dx_ref.abs().max()) > 0.1
+        assert (dv is None) == (dv_ref is None) == (not need_dv0)
+        pairs = [(dx, dx_ref)] + ([(dv, dv_ref)] if need_dv0 else [])
+        for got, want in pairs:
+            if name == "sigmoid":
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            else:
+                assert torch.equal(got, want)
+    assert port_lif.LAUNCHES_BWD == before + 3
+
+
+@pytest.mark.gpu
+def test_lif_autograd_launches_both_kernels(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    x = (torch.rand((16, 4, 7, 7, 32), generator=gen, device=cuda_device) * 4.0 - 1.0)
+    g = torch.randn(x.shape, generator=gen, device=cuda_device)
+    grads = []
+    for reference in (False, True):
+        xr = x.clone().requires_grad_()
+        before = (port_lif.LAUNCHES, port_lif.LAUNCHES_BWD)
+        port_lif.lif(xr, reference=reference).backward(g)
+        launched = (port_lif.LAUNCHES - before[0], port_lif.LAUNCHES_BWD - before[1])
+        assert launched == ((0, 0) if reference else (1, 1))
+        grads.append(xr.grad)
+    assert torch.equal(grads[0], grads[1])
+    with pytest.raises(ValueError, match="surrogate"):
+        port_lif.lif_bwd(x.reshape(16, -1), None, g.reshape(16, -1),
+                         NeuronParams(surrogate=surrogate.SurrogateFn("erf", 2.0)))
+
+
+# --- K3 ----------------------------------------------------------------------
+
+K3_CASES = {  # (T_in, t_out, N, C, HW)
+    "T16": (16, 16, 8, 64, 49),
+    "broadcast_T1_to_16": (1, 16, 8, 64, 49),
+    "ragged_N13_C24": (16, 16, 13, 24, 49),
+    "T20_scratch": (20, 20, 3, 8, 25),
+}
+K3_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(K3_DTYPES))
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_bn_lif_kernels_match_reference(cuda_device, case, dtype):
+    t_in, t_out, n, c, hw = K3_CASES[case]
+    dt = K3_DTYPES[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    y = (torch.randn((t_in, n, c, 7, hw // 7) if hw % 7 == 0 else (t_in, n, c, hw),
+                     generator=gen, device=cuda_device) * 2.0).to(dt)
+    scale = torch.rand((c,), generator=gen, device=cuda_device) + 0.5
+    shift = torch.rand((c,), generator=gen, device=cuda_device) * 0.6 - 0.3
+    gs = torch.randn((t_out,) + tuple(y.shape[1:]), generator=gen, device=cuda_device).to(dt)
+    params = NeuronParams()
+    before = (port_bn_lif.LAUNCHES_FWD, port_bn_lif.LAUNCHES_BWD)
+    s = port_bn_lif.bn_lif_fwd(y, scale, shift, params, t_out)
+    s_ref = port_bn_lif.bn_lif_fwd_reference(y, scale, shift, params, t_out)
+    out = port_bn_lif.bn_lif_bwd(y, scale, shift, gs, params, t_out)
+    again = port_bn_lif.bn_lif_bwd(y, scale, shift, gs, params, t_out)
+    ref = port_bn_lif.bn_lif_bwd_reference(y, scale, shift, gs, params, t_out)
+    torch.cuda.synchronize()
+    assert (port_bn_lif.LAUNCHES_FWD - before[0], port_bn_lif.LAUNCHES_BWD - before[1]) == (1, 2)
+    assert s.dtype == dt and 0.05 < float(s_ref.float().mean()) < 0.95
+    assert torch.equal(s, s_ref)
+    assert out[0].dtype == dt and torch.equal(out[0], ref[0])
+    for got, second, want in zip(out[1:], again[1:], ref[1:]):
+        assert torch.equal(got, second)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+# --- a training step through the kernels ------------------------------------
+
+TRAIN_WIDTH = dict(denoiser_channels=(8, 16, 24, 32, 16), num_embeddings=16, mask_id=16,
+                   num_steps=4, num_timesteps=8)
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for one test, restored after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,plain", [("auto", "torch"), ("bnlif", "bnlif_torch")])
+def test_train_step_kernels_match_plain(cuda_device, deterministic_cudnn, backend, plain):
+    cfg = DiffusionConfig(**TRAIN_WIDTH)
+    variables = weights.init_denoiser_variables(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    x0 = torch.randint(0, 16, (8, 7, 7), generator=gen, device=cuda_device, dtype=torch.int32)
+    corruption = diffusion.corrupt(x0, cfg, gen)
+    results = []
+    for b in (backend, plain):
+        state = create_train_state(weights.load_denoiser(
+            *variables, cfg, device=cuda_device, lif_backend=b, train=True))
+        counts = (port_lif.LAUNCHES, port_lif.LAUNCHES_BWD,
+                  port_bn_lif.LAUNCHES_FWD, port_bn_lif.LAUNCHES_BWD)
+        loss = stage2.make_train_step_diffusion(cfg)(state, x0, corruption=corruption)["loss"]
+        launched = tuple(now - then for now, then in zip(
+            (port_lif.LAUNCHES, port_lif.LAUNCHES_BWD,
+             port_bn_lif.LAUNCHES_FWD, port_bn_lif.LAUNCHES_BWD), counts))
+        want = {"auto": (5, 5, 0, 0), "bnlif": (0, 0, 5, 5)}.get(b, (0, 0, 0, 0))
+        assert launched == want, (b, launched)
+        results.append((float(loss), {n: p.grad for n, p in state.model.named_parameters()},
+                        {k: v for k, v in state.model.state_dict().items()
+                         if k.endswith((".mean", ".var"))}))
+    (loss_k, grads_k, stats_k), (loss_p, grads_p, stats_p) = results
+    # the same operations on the same card, the kernels bitwise their plain
+    # versions: the steps are equal, not merely close
+    assert loss_k == loss_p
+    for name in grads_k:
+        assert torch.equal(grads_k[name], grads_p[name]), name
+    for name in stats_k:
+        assert torch.equal(stats_k[name], stats_p[name]), name
 
 
 # --- K2 ----------------------------------------------------------------------

@@ -87,7 +87,7 @@ def test_seq_batchnorm_eval():
     variables = {"params": {"BatchNorm_0": bn_params},
                  "batch_stats": {"BatchNorm_0": bn_stats}}
     y_jax = np.asarray(mod.apply(variables, jnp.asarray(x)))
-    bn = tl.SeqBatchNorm(c)
+    bn = tl.SeqBatchNorm(c).eval()
     bn.load_state_dict({k: torch.from_numpy(v)
                         for k, v in {**bn_params, **bn_stats}.items()})
     y = _from_port(bn(_to_port(x)), 4)

@@ -67,7 +67,7 @@ def _check(jcfg, cfg, params, batch_stats, n, seed):
     vq = weights.load_vqvae(params, batch_stats, cfg, device="cpu")
     img = vq.decode_indices(torch.from_numpy(codes)).numpy()
     q = vq.vq_layer.quantize(torch.from_numpy(codes).long()).permute(0, 3, 1, 2)
-    spk = vq.vq_layer.respike(q.contiguous()).numpy()
+    spk = vq.vq_layer.respike(q.contiguous()).detach().numpy()
     t = cfg.num_steps
     spk = spk.reshape((t, n) + spk.shape[1:]).transpose(0, 1, 3, 4, 2)
     assert img.shape == img_jax.shape == (n, cfg.image_size, cfg.image_size,
