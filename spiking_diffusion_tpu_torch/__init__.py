@@ -9,5 +9,9 @@ whole-denoiser kernel K2 per step (``csrc/fused_denoiser.cu``).
 Stage-2 training of the diffusion prior (``train/stage2.py``): the
 layerwise denoiser backpropagates through K1's backward kernel
 (``csrc/lif_bwd.cu``); the 'bnlif' denoiser runs BN-apply + LIF as K3,
-forward and backward (``csrc/bn_lif.cu``, ``ops/bn_lif.py``).
+forward and backward (``csrc/bn_lif.cu``, ``ops/bn_lif.py``); the
+'bnlifconv' denoiser also runs every 3x3 conv as K4, the training conv
+that hands BN its batch moments, forward and backward
+(``csrc/spike_conv.cu``, ``ops/spike_conv.py``), in training and in eval.
+Every branch runs in fp32 or bf16.
 """

@@ -89,7 +89,8 @@ class TrainConfig:
     seed: int = 42
     # compute dtype for conv/matmul activations; membranes always fp32
     compute_dtype: str = "float32"
-    # the denoiser's branch: 'auto' (layerwise, K1) or 'bnlif' (K3)
+    # the denoiser's branch: 'auto' (layerwise, K1), 'bnlif' (K3) or
+    # 'bnlifconv' (K4 and K3)
     lif_backend: str = "auto"
     # data-parallel device count; 1 = single card
     data_parallel: int = 1

@@ -20,7 +20,7 @@ trained one.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,11 +105,14 @@ def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray], device,
 
 def load_denoiser(params: Tree, batch_stats: Tree,
                   cfg: DiffusionConfig = DiffusionConfig(), device="cuda",
-                  lif_backend: str = "auto", train: bool = False) -> SpikingDenoiser:
+                  lif_backend: str = "auto", train: bool = False,
+                  dtype: Optional[torch.dtype] = None) -> SpikingDenoiser:
     """The port's denoiser on ``device`` from flax variables, in eval mode
     or, with ``train``, in training mode. ``lif_backend`` picks the branch
-    (``SpikingDenoiser``): layerwise 'auto' or fused 'bnlif'."""
-    return _load(SpikingDenoiser(cfg, lif_backend),
+    (``SpikingDenoiser``): layerwise 'auto', fused 'bnlif' or 'bnlifconv';
+    ``dtype`` None or ``torch.bfloat16`` its compute type. The parameters
+    stay fp32 and convert alike on every branch."""
+    return _load(SpikingDenoiser(cfg, lif_backend, dtype),
                  denoiser_state_dict(params, batch_stats, cfg), device, train)
 
 

@@ -1,0 +1,346 @@
+"""K4: the 3x3 SAME stride-1 training convolution with in-kernel BatchNorm
+moments, forward and backward, and their plain PyTorch versions.
+
+Counterpart of ``spiking_diffusion_tpu/ops/spike_conv.py``
+``spike_conv3x3`` and its ``custom_vjp``: ``y = conv3x3(x, W) + b`` over
+a time-folded stack, with the per-channel ``s1 = sum(y)`` and ``s2 =
+sum(y * y)`` of the rounded y in fp32, so that BatchNorm takes its batch
+statistics from the conv (``SeqBatchNorm(moments=...)``) and never
+re-reads y. The port's layout is PyTorch's: x (T * N, Cin, H, W), the
+weight OIHW (Cout, Cin, 3, 3) and y (T * N, Cout, H, W), which is the
+(T_in, N, C, HW) view that K3 (``ops/bn_lif.py``) reads, so the pair
+chains with no layout copy. The JAX package's (HW, T, N, C) view and its
+sublane padding of N are TPU artefacts and have no counterpart.
+
+x and y are fp32 or bf16; the fp32 weight and bias are cast to x's dtype
+(the bias is added in fp32 before y is rounded, as the TPU kernel adds
+it); every product is summed in fp32. The backward takes the cotangents
+``(gy, gs1, gs2)``, forms ``g = gy + (gs1 + 2 * gs2 * y)`` in fp32
+(without moments, ``g = gy``), ``db`` as the sum of g, rounds g to x's
+dtype, and returns dx in x's dtype and dW (OIHW), db in fp32.
+
+:func:`spike_conv3x3_fwd` and :func:`spike_conv3x3_bwd` launch the
+hand-written CUDA kernels (``csrc/spike_conv.cu``) for tensors on a CUDA
+device and take their plain versions (:func:`spike_conv3x3_fwd_reference`,
+:func:`spike_conv3x3_bwd_reference`: the nine taps as shifted,
+edge-masked copies of x through ``torch.matmul`` in a fixed tap order)
+only for tensors on the CPU; :func:`spike_conv3x3` puts the two behind one
+``torch.autograd.Function``. ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count
+the kernels' launches.
+
+The kernel and the plain version sum in different orders: y agrees
+within about 1e-5 in fp32 (a bf16 rounding step in bf16), s1 and s2
+within rtol 1e-4, and dx, dW, db within 1e-4, the JAX package's own
+tolerances for its kernel against XLA's conv (tests/test_spike_conv.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from spiking_diffusion_tpu_torch.ops import _build
+
+SOURCE = "spike_conv"
+LAUNCHES_FWD = 0
+LAUNCHES_BWD = 0
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = 128  # rows of a forward block (csrc/spike_conv.cu kBM)
+RED_THREADS = 256  # elements of one channel per block of the g pass
+WGRAD_BLOCKS = 4 * 132  # dW's row split aims at this many blocks (132 SMs)
+WGRAD_MIN_ROWS = 64  # rows a split covers at least
+WGRAD_PARTIAL_BYTES = 256 * 2**20  # at most this much fp32 dW partials
+
+_FNS = {}
+
+
+def _kernel(name: str):
+    if name not in _FNS:
+        fn = getattr(_build.load(SOURCE), name)
+        if name == "spike_conv_fwd":
+            fn.argtypes = [*(ctypes.c_void_p,) * 8, ctypes.c_longlong,
+                           *(ctypes.c_int,) * 6, ctypes.c_void_p]
+        else:
+            fn.argtypes = [*(ctypes.c_void_p,) * 12, ctypes.c_longlong,
+                           *(ctypes.c_int,) * 5, ctypes.c_longlong,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def _check(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
+    """(N, Cin, Cout, H, W) of a valid call, or raise."""
+    if x.ndim != 4 or x.numel() == 0:
+        raise ValueError(f"need a non-empty (N, Cin, H, W) input, got {tuple(x.shape)}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"spike_conv3x3 takes float32 or bfloat16, got {x.dtype}")
+    n, cin, h, w = x.shape
+    if weight.ndim != 4 or tuple(weight.shape[1:]) != (cin, 3, 3):
+        raise ValueError(f"3x3 kernels over {cin} channels only, got {tuple(weight.shape)}")
+    cout = weight.shape[0]
+    if weight.dtype != torch.float32:
+        raise TypeError(f"the weight must be float32, got {weight.dtype}")
+    if bias is not None and (bias.shape != (cout,) or bias.dtype != torch.float32):
+        raise ValueError(f"bias must be ({cout},) float32, got {tuple(bias.shape)} {bias.dtype}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} and x lie on different devices")
+    return n, cin, cout, h, w
+
+
+def _taps(a: torch.Tensor):
+    """The nine (kh, kw) shifts of a (N, C, H, W) fp32 stack as (N, H, W, C)
+    copies, zero where the shift leaves the image, in tap order."""
+    _, _, h, w = a.shape
+    padded = F.pad(a, (1, 1, 1, 1))
+    for kh in range(3):
+        for kw in range(3):
+            yield kh, kw, padded[:, :, kh:kh + h, kw:kw + w].permute(0, 2, 3, 1)
+
+
+def spike_conv3x3_fwd_reference(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    with_moments: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: (y in x's dtype, s1, s2
+    fp32; zeros without moments). The nine taps through ``torch.matmul`` in
+    fp32 on the dtype-rounded values, plus the fp32 bias, rounded to x's
+    dtype, then the fp32 sums of the rounded y."""
+    n, cin, cout, h, w = _check(x, weight, bias)
+    wf = weight.to(x.dtype).float()
+    acc = torch.zeros((n * h * w, cout), dtype=torch.float32, device=x.device)
+    for kh, kw, xs in _taps(x.float()):
+        acc = acc + torch.matmul(xs.reshape(-1, cin), wf[:, :, kh, kw].t())
+    y = (acc + bias).to(x.dtype).reshape(n, h, w, cout).permute(0, 3, 1, 2).contiguous()
+    if not with_moments:
+        zeros = torch.zeros(cout, dtype=torch.float32, device=x.device)
+        return y, zeros, zeros.clone()
+    yf = y.float()
+    return y, yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+
+
+def grad_out(y, gy, gs1, gs2, with_moments):
+    """The cotangent of y with the moments' folded in: g = gy + (gs1 + 2 *
+    gs2 * y) in fp32 (g = gy without moments), the kernel's operations in
+    its order."""
+    g = gy.float()
+    if with_moments:
+        shape = (1, -1, 1, 1)
+        g = g + (gs1.reshape(shape) + 2.0 * gs2.reshape(shape) * y.float())
+    return g
+
+
+def _check_grads(x, y, gy, gs1, gs2, cout):
+    want = (x.shape[0], cout) + tuple(x.shape[2:])
+    for name, t in (("y", y), ("gy", gy)):
+        if tuple(t.shape) != want or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} must be {want} {x.dtype} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    for name, t in (("gs1", gs1), ("gs2", gs2)):
+        if t.shape != (cout,) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"{name} must be ({cout},) float32 on {x.device}")
+
+
+def spike_conv3x3_bwd_reference(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    y: torch.Tensor,
+    gy: torch.Tensor,
+    gs1: torch.Tensor,
+    gs2: torch.Tensor,
+    with_moments: bool = True,
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: (dx in x's dtype or
+    None without ``need_dx``, dW (Cout, Cin, 3, 3) fp32, db fp32).
+
+    The transposes of the forward's taps, as the TPU kernel writes them:
+    db sums the fp32 g; g rounded to x's dtype gives dW[:, :, kh, kw] =
+    g^T . tap(x) and dx = the sum over taps of g . W[:, :, kh, kw],
+    shifted back."""
+    n, cin, cout, h, w = _check(x, weight, None)
+    _check_grads(x, y, gy, gs1, gs2, cout)
+    g = grad_out(y, gy, gs1, gs2, with_moments)
+    db = g.sum((0, 2, 3))
+    gq = g.to(x.dtype).float().permute(0, 2, 3, 1).reshape(-1, cout)  # (M, Cout)
+    wf = weight.to(x.dtype).float()
+    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=x.device)
+    for kh, kw, xs in _taps(x.float()):
+        dw[:, :, kh, kw] = torch.matmul(gq.t(), xs.reshape(-1, cin))
+    if not need_dx:
+        return None, dw, db
+    dpad = torch.zeros((n, cin, h + 2, w + 2), dtype=torch.float32, device=x.device)
+    for kh in range(3):
+        for kw in range(3):
+            part = torch.matmul(gq, wf[:, :, kh, kw]).reshape(n, h, w, cin)
+            dpad[:, :, kh:kh + h, kw:kw + w] += part.permute(0, 3, 1, 2)
+    dx = dpad[:, :, 1:h + 1, 1:w + 1].to(x.dtype).contiguous()
+    return dx, dw, db
+
+
+def kernel_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW -> the forward kernel's (Cin * 9, Cout) matrix in ``dtype``,
+    row ci * 9 + kh * 3 + kw."""
+    cout = weight.shape[0]
+    return weight.to(dtype).reshape(cout, -1).t().contiguous()
+
+
+def dx_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW -> the dx pass's (Cout * 9, Cin) matrix in ``dtype``: row
+    co * 9 + t holds W[co, :, 8 - t], the flipped, transposed kernel."""
+    cout, cin = weight.shape[:2]
+    flipped = weight.to(dtype).flip((2, 3)).reshape(cout, cin, 9)
+    return flipped.permute(0, 2, 1).reshape(cout * 9, cin).contiguous()
+
+
+def wgrad_splits(rows: int, cin: int, cout: int) -> Tuple[int, int]:
+    """(splits, rows per split) of dW's contraction over ``rows``: enough
+    splits for ``WGRAD_BLOCKS`` blocks of 128 x 128 dW tiles, each split at
+    least ``WGRAD_MIN_ROWS`` rows, their fp32 partials at most
+    ``WGRAD_PARTIAL_BYTES``. Depends on the shapes only, so dW's sum order
+    is the same from run to run."""
+    tiles = math.ceil(cout / 128) * math.ceil(9 * cin / 128)
+    splits = max(1, min(math.ceil(WGRAD_BLOCKS / tiles),
+                        rows // WGRAD_MIN_ROWS,
+                        WGRAD_PARTIAL_BYTES // (4 * cout * 9 * cin)))
+    per_split = math.ceil(rows / splits)
+    return math.ceil(rows / per_split), per_split
+
+
+def _check_cuda(*tensors):
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"spike_conv3x3 runs on CUDA or CPU, not {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("spike_conv3x3 needs contiguous inputs")
+
+
+def spike_conv3x3_fwd(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    with_moments: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Forward of the training conv: (y, s1, s2). A CPU tensor takes
+    :func:`spike_conv3x3_fwd_reference`; a CUDA tensor launches the kernel
+    or raises."""
+    global LAUNCHES_FWD
+    n, cin, cout, h, w = _check(x, weight, bias)
+    if x.device.type == "cpu":
+        return spike_conv3x3_fwd_reference(x, weight, bias, with_moments)
+    _check_cuda(x, weight, bias)
+    dev = x.device
+    wk = kernel_weight(weight, x.dtype)
+    y = torch.empty((n, cout, h, w), dtype=x.dtype, device=dev)
+    sums = torch.zeros((2, cout), dtype=torch.float32, device=dev)
+    parts = (torch.empty((2, math.ceil(n * h * w / TILE_ROWS), cout), dtype=torch.float32,
+                         device=dev) if with_moments else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel("spike_conv_fwd")(
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), *((parts[0].data_ptr(), parts[1].data_ptr()) if with_moments
+                            else (None, None)),
+            sums[0].data_ptr(), sums[1].data_ptr(), n, cin, cout, h, w,
+            int(with_moments), DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"spike_conv_fwd launch failed: CUDA error {rc}")
+    LAUNCHES_FWD += 1
+    return y, sums[0], sums[1]
+
+
+def spike_conv3x3_bwd(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    y: torch.Tensor,
+    gy: torch.Tensor,
+    gs1: torch.Tensor,
+    gs2: torch.Tensor,
+    with_moments: bool = True,
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Backward of the training conv: (dx or None, dW, db). A CPU tensor
+    takes :func:`spike_conv3x3_bwd_reference`; a CUDA tensor launches the
+    kernels or raises."""
+    global LAUNCHES_BWD
+    n, cin, cout, h, w = _check(x, weight, None)
+    if x.device.type == "cpu":
+        return spike_conv3x3_bwd_reference(x, weight, y, gy, gs1, gs2, with_moments,
+                                           need_dx)
+    _check_grads(x, y, gy, gs1, gs2, cout)
+    _check_cuda(x, weight, y, gy, gs1, gs2)
+    dev = x.device
+    rows = n * h * w
+    splits, per_split = wgrad_splits(rows, cin, cout)
+    w2 = dx_weight(weight, x.dtype) if need_dx else None
+    g = torch.empty_like(y)
+    part_db = torch.empty((math.ceil(rows / RED_THREADS), cout), dtype=torch.float32,
+                          device=dev)
+    db = torch.empty(cout, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x) if need_dx else None
+    part_dw = torch.empty((splits, cout, cin * 9), dtype=torch.float32, device=dev)
+    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _kernel("spike_conv_bwd")(
+            x.data_ptr(), None if w2 is None else w2.data_ptr(), y.data_ptr(),
+            gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), g.data_ptr(),
+            part_db.data_ptr(), db.data_ptr(), None if dx is None else dx.data_ptr(),
+            part_dw.data_ptr(), dw.data_ptr(), n, cin, cout, h, w, splits, per_split,
+            int(with_moments), DTYPES[x.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"spike_conv_bwd launch failed: CUDA error {rc}")
+    LAUNCHES_BWD += 1
+    return dx, dw, db
+
+
+class _SpikeConv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, with_moments, reference):
+        fwd = spike_conv3x3_fwd_reference if reference else spike_conv3x3_fwd
+        y, s1, s2 = fwd(x, weight, bias, with_moments)
+        ctx.save_for_backward(x, weight, y)
+        ctx.with_moments, ctx.reference = with_moments, reference
+        ctx.set_materialize_grads(False)
+        return y, s1, s2
+
+    @staticmethod
+    def backward(ctx, gy, gs1, gs2):
+        x, weight, y = ctx.saved_tensors
+        cout = weight.shape[0]
+        zeros = lambda: torch.zeros(cout, dtype=torch.float32, device=x.device)  # noqa: E731
+        gy = torch.zeros_like(y) if gy is None else gy.to(y.dtype).contiguous()
+        gs1 = zeros() if gs1 is None else gs1.float().contiguous()
+        gs2 = zeros() if gs2 is None else gs2.float().contiguous()
+        bwd = spike_conv3x3_bwd_reference if ctx.reference else spike_conv3x3_bwd
+        dx, dw, db = bwd(x, weight, y, gy, gs1, gs2, ctx.with_moments,
+                         need_dx=ctx.needs_input_grad[0])
+        return dx, dw, db, None, None
+
+
+def spike_conv3x3(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    with_moments: bool = True,
+    reference: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Differentiable 3x3 SAME stride-1 conv with BN moments.
+
+    x: (N, Cin, H, W) fp32 or bf16 (T folded into N); weight: (Cout, Cin,
+    3, 3) fp32; bias: (Cout,) fp32. Returns (y (N, Cout, H, W) in
+    x's dtype, s1, s2 (Cout,) fp32), s1 and s2 zeros without
+    ``with_moments``; the count behind the moments is N * H * W. The
+    forward is :func:`spike_conv3x3_fwd`, the gradient
+    :func:`spike_conv3x3_bwd`; with ``reference`` their plain versions on
+    either device. A ``None`` cotangent counts as zero.
+    """
+    _check(x, weight, bias)
+    return _SpikeConv.apply(x.contiguous(), weight.contiguous(), bias.contiguous(),
+                            with_moments, reference)

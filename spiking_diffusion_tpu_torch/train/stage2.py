@@ -6,7 +6,8 @@ corruption, runs the denoiser's training forward, takes the mean
 per-sample loss (reweighted ELBO by default), backpropagates through
 time and applies AdamW; the forward moves the BN running statistics.
 On the card the denoiser's LIF layers run K1 forward and backward
-('auto') or its BN-apply + LIF blocks run K3 ('bnlif'). Single device;
+('auto'), its BN-apply + LIF blocks run K3 ('bnlif'), or its convs also
+run K4 ('bnlifconv'); a bf16 denoiser trains the same way. Single device;
 randomness from an explicit ``torch.Generator`` on the run's device.
 """
 

@@ -11,7 +11,7 @@ import pytest
 
 from spiking_diffusion_tpu_torch.ops import _build
 
-SOURCES = ("lif_fwd", "lif_bwd", "bn_lif", "fused_denoiser")
+SOURCES = ("lif_fwd", "lif_bwd", "bn_lif", "fused_denoiser", "spike_conv")
 
 
 @pytest.fixture
@@ -30,7 +30,9 @@ def test_every_local_include_exists():
 
 @pytest.mark.parametrize("edited,rebuilt", [
     ("lif_neuron.cuh", {"lif_fwd", "lif_bwd", "bn_lif"}),
+    ("channel_sum.cuh", {"bn_lif", "spike_conv"}),
     ("bn_lif.cu", {"bn_lif"}),
+    ("spike_conv.cu", {"spike_conv"}),
 ])
 def test_library_name_follows_source_and_headers(csrc_copy, edited, rebuilt):
     before = {name: _build.library_path(name) for name in SOURCES}

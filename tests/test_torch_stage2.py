@@ -7,7 +7,8 @@ JAX step is the package's own ``make_train_step_diffusion(cfg,
 donate=False)(state, x0, key)``; the port's step gets the corruption that
 JAX ``diffusion.corrupt`` draws from the same key. Branches: layerwise
 (JAX 'scan' and 'pallas' in interpret mode against the port's 'auto', K1
-plain versions here) and fused (both 'bnlif', K3). After one step:
+plain versions here), fused (both 'bnlif', K3) and fully fused (both
+'bnlifconv', K4 and K3). After one step:
 
 * the loss within 1e-5;
 * the gradients within rtol 2e-3, atol 2e-4, the JAX package's own
@@ -24,6 +25,13 @@ plain versions here) and fused (both 'bnlif', K3). After one step:
   that neither moved further than AdamW can move a parameter. The port's
   AdamW fed JAX's gradients is held within 1e-6 of optax on every
   parameter, those biases included.
+
+One bf16 step per branch (layerwise, 'bnlif', 'bnlifconv') against
+JAX's bf16 step (``SpikingDenoiser(dtype=bfloat16)``): finite, the loss
+within 5 % of JAX's (the JAX package's bf16 bound, tests/test_bf16.py)
+and nearer JAX's bf16 loss than the port's own fp32 loss of the same
+corruption, every conv's input (the spikes) and output in bf16, fp32
+parameters and gradients.
 
 Also: three steps of ``train_diffusion`` lower the loss of a fixed
 corruption, the trained denoiser samples in eval mode (as JAX samples
@@ -44,11 +52,13 @@ from spiking_diffusion_tpu.models import diffusion as jax_diffusion
 from spiking_diffusion_tpu.models.denoiser import SpikingDenoiser as JaxDenoiser
 from spiking_diffusion_tpu.ops import bn_lif as jax_bn_lif
 from spiking_diffusion_tpu.ops import pallas_lif
+from spiking_diffusion_tpu.ops import spike_conv as jax_spike_conv
 from spiking_diffusion_tpu.train import state as jax_state
 from spiking_diffusion_tpu.train.stage2 import make_train_step_diffusion as jax_make_step
 from spiking_diffusion_tpu_torch import generate
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.models.layers import SeqConv
 from spiking_diffusion_tpu_torch.train import checkpoint, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
 
@@ -62,7 +72,9 @@ BRANCHES = {  # JAX backend -> the port's
     "layerwise_scan": ("scan", "auto"),
     "layerwise_pallas": ("pallas", "auto"),
     "bnlif": ("bnlif", "bnlif"),
+    "bnlifconv": ("bnlifconv", "bnlifconv"),
 }
+BF16_LOSS_RTOL = 0.05  # tests/test_bf16.py: bf16 loss within 5 % of fp32
 LOSS_ATOL = 1e-5
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
 STATS_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -75,10 +87,10 @@ BN_CANCELLED = tuple(f"convs.{i}.bias" for i in range(len(KW["denoiser_channels"
 @pytest.fixture(autouse=True)
 def setup():
     torch.set_num_threads(1)
-    old = pallas_lif._INTERPRET, jax_bn_lif._INTERPRET
-    pallas_lif._INTERPRET = jax_bn_lif._INTERPRET = True
+    old = pallas_lif._INTERPRET, jax_bn_lif._INTERPRET, jax_spike_conv._INTERPRET
+    pallas_lif._INTERPRET = jax_bn_lif._INTERPRET = jax_spike_conv._INTERPRET = True
     yield
-    pallas_lif._INTERPRET, jax_bn_lif._INTERPRET = old
+    pallas_lif._INTERPRET, jax_bn_lif._INTERPRET, jax_spike_conv._INTERPRET = old
 
 
 @pytest.fixture(scope="module")
@@ -114,9 +126,9 @@ def _jax_step(backend, x0, key, variables):
             to_np(new_state.batch_stats), state)
 
 
-def _port_state(variables, backend):
+def _port_state(variables, backend, dtype=None):
     den = weights.load_denoiser(variables["params"], variables["batch_stats"], CFG,
-                                device="cpu", lif_backend=backend, train=True)
+                                device="cpu", lif_backend=backend, train=True, dtype=dtype)
     return create_train_state(den)
 
 
@@ -167,6 +179,49 @@ def test_one_step_matches_jax(problem, branch):
                                    atol=PARAM_ATOL, err_msg=name)
 
 
+def _conv_dtypes(model, run):
+    """(every dtype that a conv of ``model`` took in or gave out, run())."""
+    seen = set()
+
+    def hook(module, args, out):
+        seen.update((args[0].dtype, (out[0] if isinstance(out, tuple) else out).dtype))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, SeqConv)]
+    try:
+        return seen, run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@pytest.mark.parametrize("branch", ["layerwise_scan", "bnlif", "bnlifconv"])
+def test_one_bf16_step_matches_jax(problem, branch):
+    """The bf16 denoiser's step against JAX's bf16 step on the same
+    corruption: finite, within 5 % of JAX's loss (the JAX package's own
+    bf16-against-fp32 bound) and nearer it than the fp32 loss, bf16 convs
+    and spikes, every parameter moved to finite values."""
+    x0, key, variables, corruption = problem
+    jax_backend, port_backend = BRANCHES[branch]
+    jstate = jax_state.create_train_state(
+        JaxDenoiser(JCFG, backend=jax_backend, dtype=jnp.bfloat16), variables)
+    loss_j = float(jax_make_step(JCFG, donate=False)(jstate, jnp.asarray(x0), key)[1]["loss"])
+    corruption = tuple(torch.from_numpy(a) for a in corruption)
+    loss_fp32 = _fixed_loss(_port_state(variables, port_backend).model, torch.from_numpy(x0),
+                            corruption)
+    state = _port_state(variables, port_backend, torch.bfloat16)
+    dtypes, metrics = _conv_dtypes(state.model, lambda: stage2.make_train_step_diffusion(CFG)(
+        state, torch.from_numpy(x0), corruption=corruption))
+    loss = float(metrics["loss"])
+    assert dtypes == {torch.bfloat16}, dtypes
+    assert np.isfinite(loss) and np.isfinite(loss_j)
+    assert abs(loss - loss_j) <= BF16_LOSS_RTOL * abs(loss_j), (loss, loss_j)
+    assert abs(loss - loss_j) < abs(loss - loss_fp32), (loss, loss_j, loss_fp32)
+    for name, p in state.model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, name
+        assert bool(torch.isfinite(p).all()), name
+
+
 def _fixed_loss(model, x0, corruption):
     """Training-mode loss of a fixed corruption, on a copy of ``model``."""
     probe = copy.deepcopy(model).train()
@@ -174,7 +229,7 @@ def _fixed_loss(model, x0, corruption):
         return float(diffusion.train_loss(probe, x0, CFG, corruption=corruption))
 
 
-@pytest.mark.parametrize("backend", ["auto", "bnlif"])
+@pytest.mark.parametrize("backend", ["auto", "bnlif", "bnlifconv"])
 def test_train_diffusion_lowers_the_loss(problem, backend):
     x0, _, variables, corruption = problem
     corruption = tuple(torch.from_numpy(a) for a in corruption)
