@@ -13,7 +13,9 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    so that the kernel and plain runs compute the same convolutions.
 1. build: compiles every CUDA source of the port (K1 forward, K1
    backward, K2, K3, K4) with ``nvcc`` (into ``build/``), all at once, and
-   prints the build times and ``-Xptxas -v`` lines.
+   prints the build times and ``-Xptxas -v`` lines; then the ``HMMA``
+   (tensor-core) instructions of each K4 kernel in the built library's
+   SASS (``cuobjdump -sass``): K4's bf16 kernels must have some.
 2. models: the full-width MNIST flagship (49-step sampler, T=16 denoiser
    64-128-256-512-256, K=128, then the VQ-VAE decode) with seeded random
    weights whose BN statistics are set from one batch; the card's logits
@@ -41,7 +43,9 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    order), s1, s2, dW and db equal from launch to launch;
    median of 10, beside its bound (operations over the peak of the type,
    or bytes) and the library call (cuDNN: ``F.conv2d`` plus the two sums,
-   ``aten.convolution_backward``).
+   ``aten.convolution_backward``); the backward also without dx, which
+   splits it into its dW + db and dx parts; and the bf16 step's device
+   time by kernel (``torch.profiler``).
 4. generation: the layerwise sampler, three requests at batch 16 and one
    at batch 256, each twice on the same noise, through K1 and through the
    plain LIF: codes and images identical, codes valid, images finite in
@@ -92,12 +96,14 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import signal
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import torch
 
@@ -217,6 +223,22 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_hmma(path) -> dict:
+    """{kernel: HMMA instructions} of a built library's SASS (``cuobjdump``
+    beside ``nvcc``), the kernels without any included as 0."""
+    cuobjdump = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def lif_bound_ms(nbytes: float) -> float:
@@ -616,6 +638,22 @@ def compare_k4(x, w, b, gy, gs1, gs2, moments, dx_needed, dname):
     return err_fwd, err_moments, err_bwd
 
 
+def kernel_profile(fn) -> dict:
+    """{kernel: [device ms, launches]} of one call of ``fn`` under
+    ``torch.profiler`` (the kernels' own device time, no gaps)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.search(r"(\w+)\s*[<(]", e.key.replace("(anonymous namespace)", ""))
+            row = out.setdefault(name.group(1) if name else e.key[:40], [0.0, 0])
+            row[0] += e.self_device_time_total / 1e3
+            row[1] += e.count
+    return out
+
+
 def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
     """K4 forward and backward against their plain versions at the six conv
     shapes of a 'bnlifconv' training step at batch 256, in fp32 and bf16,
@@ -623,6 +661,7 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
     ``F.conv2d`` plus the two sums; ``aten.convolution_backward``): the
     times per training step."""
     out = {}
+    profile = {}  # bf16 kernel -> [device ms, launches] per training step
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         rows = []
         err_fwd = err_moments = err_bwd = 0.0
@@ -658,7 +697,18 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
                 "bwd_plain_ms": cuda_ms(lambda: sc.spike_conv3x3_bwd_reference(
                     x, w, y, gy, gs1, gs2, moments, dx_needed), flush, reps),
                 "bwd_library_ms": cuda_ms(library_bwd, flush, reps),
+                # dW + db alone; the rest of bwd_ms is dx
+                "bwd_nodx_ms": cuda_ms(lambda: sc.spike_conv3x3_bwd(
+                    x, w, y, gy, gs1, gs2, moments, False), flush, reps),
             }
+            if dtype == torch.bfloat16:  # where the step's K4 time goes, by kernel
+                for kname, (kms, count) in kernel_profile(lambda: (
+                        sc.spike_conv3x3_fwd(x, w, b, moments),
+                        sc.spike_conv3x3_bwd(x, w, y, gy, gs1, gs2, moments,
+                                             dx_needed))).items():
+                    row = profile.setdefault(kname, [0.0, 0])
+                    row[0] += kms
+                    row[1] += count
             f_flops, f_bytes, b_flops, b_bytes = k4_cost(n, cin, cout, moments, dx_needed,
                                                          itemsize)
             fwd_bound, fwd_by = k4_bound_ms(f_flops, f_bytes, dtype)
@@ -673,24 +723,32 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
                 f"TFLOP/s useful); bwd {times['bwd_ms']:.3f} ms (plain "
                 f"{times['bwd_plain_ms']:.3f}, cuDNN {times['bwd_library_ms']:.3f}, bound "
                 f"{bwd_bound:.3f} {bwd_by}, {b_flops / times['bwd_ms'] / 1e9:.2f} TFLOP/s "
-                f"useful); max|d y| {e_f:.3g}, max rel |d s1, s2| {e_m:.3g}, max|d dx, dW, "
-                f"db| {e_b:.3g} [{card}]")
+                f"useful; dW + db {times['bwd_nodx_ms']:.3f}, dx "
+                f"{times['bwd_ms'] - times['bwd_nodx_ms']:.3f}); max|d y| {e_f:.3g}, max "
+                f"rel |d s1, s2| {e_m:.3g}, max|d dx, dW, db| {e_b:.3g} [{card}]")
             del x, y, gy
         per_step = lambda key: sum(r[key] for r in rows)  # noqa: E731
         out[dname] = {"rows": rows, "fwd_err": err_fwd, "bwd_err": err_bwd,
                       "moments_rel_err": err_moments,
                       **{k: per_step(k) for k in (
                           "fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
-                          "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")}}
+                          "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms",
+                          "bwd_nodx_ms", "fwd_gflop", "bwd_gflop")}}
         for key in ("fwd", "bwd"):  # what bounds most of the step's bound
             by_ops = sum(r[f"{key}_bound_ms"] for r in rows
                          if r[f"{key}_bound_by"] == "operations")
             out[dname][f"{key}_bound_by"] = ("operations" if 2 * by_ops >= out[dname][
                 f"{key}_bound_ms"] else "bytes")
-        log(f"  K4 {dname} per training step (6 calls): fwd {out[dname]['fwd_ms']:.2f} ms "
-            f"(cuDNN {out[dname]['fwd_library_ms']:.2f}, bound "
-            f"{out[dname]['fwd_bound_ms']:.2f}); bwd {out[dname]['bwd_ms']:.2f} ms (cuDNN "
-            f"{out[dname]['bwd_library_ms']:.2f}, bound {out[dname]['bwd_bound_ms']:.2f})")
+        o = out[dname]
+        log(f"  K4 {dname} per training step (6 calls): fwd {o['fwd_ms']:.2f} ms (cuDNN "
+            f"{o['fwd_library_ms']:.2f}, bound {o['fwd_bound_ms']:.2f}, "
+            f"{o['fwd_gflop'] / o['fwd_ms']:.1f} TFLOP/s useful); bwd {o['bwd_ms']:.2f} ms "
+            f"(cuDNN {o['bwd_library_ms']:.2f}, bound {o['bwd_bound_ms']:.2f}, "
+            f"{o['bwd_gflop'] / o['bwd_ms']:.1f} TFLOP/s useful; dW + db "
+            f"{o['bwd_nodx_ms']:.2f}, dx {o['bwd_ms'] - o['bwd_nodx_ms']:.2f}) [{card}]")
+    by_time = sorted(profile.items(), key=lambda kv: -kv[1][0])
+    log("  K4 bf16 per training step by kernel (torch.profiler, fwd + bwd): "
+        + "; ".join(f"{k} {v[0]:.3f} ms / {v[1]}" for k, v in by_time) + f" [{card}]")
     return out
 
 
@@ -1151,6 +1209,15 @@ def main() -> int:
                 log(f"  {built.name}: {built.seconds:.1f} s -> {built.path.name}")
                 for line in built.log.splitlines():
                     log(f"    {line}")
+                if built.name == sc.SOURCE:
+                    k4_hmma = sass_hmma(built.path)
+            for name, count in k4_hmma.items():
+                log(f"  K4 SASS: {count:3d} HMMA in {name}")
+            mma = [n for n in k4_hmma if "mma_kernel" in n]
+            check(len(mma) == 2 and all(k4_hmma[n] > 0 for n in mma),
+                  "K4's bf16 kernels do not reach the tensor cores")
+            check(not any("_kernelI13__nv_bfloat16" in n for n in k4_hmma),
+                  "K4 still builds a bf16 CUDA-core kernel")
         with Phase("models"):
             dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
             models = build_models(dcfg, vcfg)
@@ -1248,6 +1315,8 @@ def main() -> int:
             "launches_generation": conv_gen["launches"][idx],
             "bf16": {k: k4["bf16"][f"{key}_{k}"]
                      for k in ("ms", "plain_ms", "bound_ms", "library_ms", "err")},
+            **({"bwd_nodx_ms": {d: k4[d]["bwd_nodx_ms"] for d in k4}} if key == "bwd" else {}),
+            "sass_hmma": k4_hmma,
             "shapes": [{k: v for k, v in r.items() if k.startswith(key) or k in (
                 "shape", "M", "Cin", "Cout")} for r in k4["fp32"]["rows"]],
         })

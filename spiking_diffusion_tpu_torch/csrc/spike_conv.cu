@@ -4,49 +4,61 @@
 //
 // Replaces the Pallas TPU kernels spiking_diffusion_tpu/ops/spike_conv.py
 // `_fwd_kernel` and `_bwd_kernel` (launched by `_spike_conv_4d` and its
-// VJP). The layout is PyTorch's: x is (N, Cin, H, W) with the time axis
-// folded into N, the weight the caller reorders from OIHW (Cout, Cin, 3, 3)
-// into a (Cin * 9, Cout) matrix B with row k = ci * 9 + kh * 3 + kw, y is
-// (N, Cout, H, W). Every operand is stored in T (fp32 or bf16) and every
-// product is summed in fp32.
+// VJP). The layout at the interface is PyTorch's: x is (N, Cin, H, W) with
+// the time axis folded into N, y is (N, Cout, H, W). Every product is
+// summed in fp32.
 //
 // Forward, an implicit GEMM over rows m = (n, h, w), M = N * H * W:
 //   y[m, co] = T( sum_k A[m, k] * B[k, co] + bias[co] )
-//   A[m, ci * 9 + kh * 3 + kw] = x[n, ci, h + kh - 1, w + kw - 1], 0 off the
-//   edge (the edge test uses (h, w) only, so a row never reads another
-//   sample's pixels);
+//   A[m, k] = x[n, ci, h + kh - 1, w + kw - 1] for the tap (kh, kw) and
+//   channel ci of column k, 0 off the edge (the edge test uses (h, w) only,
+//   so a row never reads another sample's pixels);
 //   s1[co] = sum over m of float(y[m, co]), s2[co] = sum of float(y)^2,
 //   of the ROUNDED y, as the TPU kernel takes them.
 // Backward, from (gy, gs1, gs2), the cotangents of (y, s1, s2):
 //   g = float(gy) + (gs1[co] + 2 * gs2[co] * float(y))   (y re-read)
 //   db[co] = sum over m of g (fp32);  g is then rounded to T, as the TPU
 //   kernel rounds it before its products;
-//   dW[co, k] = sum over m of g[m, co] * A[m, k]         (fp32, OIHW)
+//   dW[co, k] = sum over m of g[m, co] * A[m, k]         (fp32)
 //   dx = the same implicit GEMM as the forward on g, with the weight
-//   flipped and transposed (B2[co * 9 + t, ci] = W[co, ci, 8 - t]), in T;
+//   flipped and transposed (the tap 8 - t of W[co, ci] at tap t), in T;
 //   skipped when the caller passes no dx.
 //
 // What bounds it on an H100: operations. A training step of the full-width
 // denoiser at batch 256 runs 1.24 TFLOP through the forward and 2.49 through
-// the backward, against ~2 GB of activations: ~30 fp32 operations per byte
-// the calls must move. This first version runs them on the CUDA cores
-// (fp32 FMAs, bf16 values widened to fp32 as they reach shared memory), as
-// a classic register-blocked SGEMM: a block computes a 128 x 128 output tile
-// with 256 threads, 8 x 8 outputs each, from double-buffered 8-deep tiles of
-// A and B in shared memory, the next tile's global loads in flight while the
-// current one is multiplied. The TPU kernel's (HW, T, N, C) view, its
-// sublane padding of N and its masked rolls have no counterpart: A is
-// gathered from NCHW as the tile is loaded.
+// the backward (1.02 and 2.03 inside the 7x7 grid), against ~2 GB of
+// activations. The two storage types take two routes.
+//
+// fp32 (T = float): the CUDA cores, column k = ci * 9 + kh * 3 + kw, x and
+// the (Cin * 9, Cout) weight matrix read as they lie (NCHW). A classic
+// register-blocked SGEMM: a block computes a 128 x 128 output tile with 256
+// threads, 8 x 8 outputs each, from double-buffered 8-deep tiles of A and B
+// in shared memory, A gathered from NCHW as the tile is loaded.
+//
+// bf16: the tensor cores. The operands are channels-last and padded: x (and
+// g for dx and dW) is copied (written, for g) as (M, Cp) with Cp = C rounded
+// up to a multiple of 8, the padding zero, so that every operand row piece
+// is one aligned 16-byte `cp.async`; column k = tap * Cp + ci with tap = kh * 3 + kw, so for one
+// row and one tap a run of 8 channels is contiguous and an off-grid tap or a
+// row past M is one zero-filled copy. Forward, dx and dW share one inner
+// loop: a 128 x 128 block tile contracted in 64-deep stages through a
+// 3-stage `cp.async` ring, 8 warps of 64 x 32, fragments from `ldmatrix`
+// (`.trans` for an operand stored contraction-major), `mma.sync.m16n8k16`
+// bf16 -> fp32. Forward and dx take A = the im2col rows of the
+// channels-last x (or g), B = the (9 * Cp_in, Cp_out) weight matrix (or
+// the (9 * Cp_out, Cp_in) flipped one); dW takes A = g^T and B = the
+// im2col of x over one split of the rows, and gives (Cout, 9 * Cp_in). The
+// bound is the tensor cores' rate and how well a warp-level `mma.sync` feeds
+// them; Hopper's `wgmma` would lift that ceiling.
 //
 // Fixed orders, no atomics: the moments and db are summed per thread over
 // its rows, then in a fixed shuffle tree (forward) or shared-memory tree
 // (db), into per-block partials, and a second kernel adds the partials of a
 // channel in block order (csrc/channel_sum.cuh, shared with K3); dW is
-// contracted over a fixed split of the rows, one partial (Cout, Cin * 9)
-// per split, which a last kernel adds in split
-// order. So s1, s2, db and dW are equal from run to run. The plain PyTorch
-// versions (ops/spike_conv.py) sum in other orders; the tolerances are
-// stated there.
+// contracted over a fixed split of the rows, one partial per split, which a
+// last kernel adds in split order. So s1, s2, db and dW are equal from run
+// to run. The plain PyTorch versions (ops/spike_conv.py) sum in other
+// orders; the tolerances are stated there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,17 +74,14 @@ constexpr int kThreads = 256; // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kPad = 4;       // row padding of the wgrad tiles (bank spread)
 constexpr int kRedThreads = chsum::kBlock;
 
+// The CUDA-core kernels below are instantiated for fp32 only; bf16 takes
+// the tensor-core route (namespace tc).
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as PyTorch's cast
-}
 
 // One element of the implicit im2col matrix: x[img, ci, h + dh, w + dw] for
 // column k = ci * 9 + (dh + 1) * 3 + (dw + 1), 0 off the edge.
@@ -400,39 +409,658 @@ int launch_bwd(const void* x, const void* w2, const void* y, const void* gy,
                         n_img, cout, cin, H, W, st);
 }
 
+
+// --- bf16: tensor cores, channels-last operands ---------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 128;        // block tile rows (GEMM M)
+constexpr int kBN = 128;        // block tile columns (GEMM N)
+constexpr int kBK = 64;         // contraction depth of one stage
+constexpr int kStages = 3;      // cp.async ring: two stages in flight
+constexpr int kThreads = 256;   // 8 warps, 2 (rows) x 4 (columns), 64 x 32 each
+constexpr int kAlign = 8;       // channels padded to whole 16-byte copies
+constexpr int kLdRow = kBK + 8; // [row][k] tile: 144 B a row, ldmatrix conflict-free
+constexpr int kLdK = kBN + 8;   // [k][column] tile: 272 B a row, the same
+constexpr int kTileRows = kBM * kLdRow;  // elements of a [row][k] tile
+constexpr int kTileK = kBK * kLdK;       // elements of a [k][column] tile
+// Loaders: a thread copies 8 consecutive elements (16 bytes) of a row per
+// copy. A [row][k] tile takes kRowPasses passes of kThreads / (kBK / 8) rows,
+// a [k][column] tile kKPasses passes of kThreads / (kBN / 8) rows.
+constexpr int kRowChunks = kBK / 8;
+constexpr int kRowPasses = kBM * kRowChunks / kThreads;
+constexpr int kKChunks = kBN / 8;
+constexpr int kKPasses = kBK * kKChunks / kThreads;
+
+__host__ __device__ constexpr int padded(int c) { return (c + kAlign - 1) / kAlign * kAlign; }
+
+// Elements of one ring stage: A ([row][k], or [k][row] with kATrans), then B.
+__host__ __device__ constexpr int stage_elems(bool a_trans) {
+  return (a_trans ? kTileK : kTileRows) + kTileK;
+}
+constexpr int smem_bytes(bool a_trans) {
+  return kStages * stage_elems(a_trans) * static_cast<int>(sizeof(bf16));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled, nothing read, if !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lanes 8q..8q+7 give the row addresses of matrix q.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The inner loop every pass shares: one kBK-deep stage of the warp's 64 x 32
+// tile, acc[i][j] the m16n8 fragment at rows wm * 64 + 16 i, columns wn * 32 +
+// 8 j. A is [row][k] (kLdRow) or, with kATrans, [k][row] (kLdK), read with
+// ldmatrix.trans; B is [k][column] (kLdK), always read with ldmatrix.trans.
+template <bool kATrans>
+__device__ __forceinline__ void mma_stage(const bf16* As, const bf16* Bs, int wm, int wn,
+                                          int lane, float (&acc)[4][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    unsigned a[4][4];
+    unsigned b[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = wm * 64 + i * 16;
+      if (kATrans) {
+        // matrices (rows, k): (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+        ldmatrix_x4_trans(a[i], As + (kk + (lane & 7) + ((lane >> 4) << 3)) * kLdK + row +
+                                    ((lane >> 3) & 1) * 8);
+      } else {
+        ldmatrix_x4(a[i], As + (row + (lane & 15)) * kLdRow + kk + ((lane >> 4) << 3));
+      }
+    }
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      // matrices (k, columns): (0-7, 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
+      unsigned r[4];
+      ldmatrix_x4_trans(r, Bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdK + wn * 32 +
+                               jp * 16 + ((lane >> 4) << 3));
+      b[2 * jp][0] = r[0];
+      b[2 * jp][1] = r[1];
+      b[2 * jp + 1][0] = r[2];
+      b[2 * jp + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+}
+
+// `steps` stages through the ring: load(A, B, s) issues stage s's copies
+// (zero-filling what lies outside the operands), kStages - 1 stages ahead of
+// the one multiplied, for s = 0, 1, 2, .. in turn (so a loader may step its
+// own state). Leaves the ring drained and the block synchronised.
+template <bool kATrans, typename Load>
+__device__ __forceinline__ void mainloop(bf16* smem, int steps, Load load,
+                                         float (&acc)[4][4][4]) {
+  constexpr int kStage = stage_elems(kATrans);
+  constexpr int kA = kATrans ? kTileK : kTileRows;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(smem + s * kStage, smem + s * kStage + kA, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s landed for all; stage s - 1's slot is free
+    const int next = s + kStages - 1;
+    if (next < steps) {
+      bf16* st = smem + (next % kStages) * kStage;
+      load(st, st + kA, next);
+    }
+    cp_async_commit();
+    const bf16* st = smem + (s % kStages) * kStage;
+    mma_stage<kATrans>(st, st + kA, warp >> 2, warp & 3, lane, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// out = conv3x3 over the channels-last (M, padded(cin)) src with the
+// (9 * padded(cin), padded(cout)) matrix wk (+ bias), NCHW, rounded to bf16;
+// with `part_s1` non-null also the moments partials (row tiles, cout) of the
+// rounded out. Block b computes row tile b / tiles_n, column tile b % tiles_n.
+__global__ void __launch_bounds__(kThreads, 2)
+conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
+                const float* __restrict__ bias, bf16* __restrict__ out,
+                float* __restrict__ part_s1, float* __restrict__ part_s2, int M, int cin,
+                int cout, int H, int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int HW = H * W;
+  const int cp = padded(cin);
+  const int np = padded(cout);
+  const int K = 9 * cp;
+  const int tiles_n = (cout + kBN - 1) / kBN;
+  const int m_tile = blockIdx.x / tiles_n;
+  const int n0 = (blockIdx.x - m_tile * tiles_n) * kBN;
+  const int m0 = m_tile * kBM;
+
+  // A: rows tid / kRowChunks + r * (kThreads / kRowChunks), columns
+  // (tid % kRowChunks) * 8.. of the stage
+  const int a_c = (tid % kRowChunks) * 8;
+  const int a_row = tid / kRowChunks;
+  int a_pix[kRowPasses], a_h[kRowPasses], a_w[kRowPasses];
+  bool a_ok[kRowPasses];
+#pragma unroll
+  for (int r = 0; r < kRowPasses; ++r) {
+    const int m = m0 + a_row + r * (kThreads / kRowChunks);
+    a_ok[r] = m < M;
+    const int img = a_ok[r] ? m / HW : 0;
+    const int p = a_ok[r] ? m - img * HW : 0;
+    a_pix[r] = img * HW;
+    a_h[r] = p / W;
+    a_w[r] = p - a_h[r] * W;
+  }
+  // B: k rows tid / kKChunks + r * (kThreads / kKChunks), columns
+  // (tid % kKChunks) * 8..
+  const int b_c = (tid % kKChunks) * 8;
+  const bool b_col_ok = n0 + b_c < np;
+
+  // the A columns' (tap, ci) of column k = s * kBK + a_c, stepped by kBK a stage
+  int tap = 0;
+  int ci = a_c;
+  while (ci >= cp) {
+    ci -= cp;
+    ++tap;
+  }
+
+  auto load = [&](bf16* As, bf16* Bs, int s) {
+    const bool k_ok = tap < 9;
+    const int kh = tap >= 6 ? 2 : (tap >= 3 ? 1 : 0);
+    const int dh = kh - 1;
+    const int dw = tap - kh * 3 - 1;
+#pragma unroll
+    for (int r = 0; r < kRowPasses; ++r) {
+      const int hh = a_h[r] + dh;
+      const int ww = a_w[r] + dw;
+      const bool ok = k_ok && a_ok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      const bf16* from =
+          ok ? src + static_cast<long long>(a_pix[r] + hh * W + ww) * cp + ci : src;
+      cp_async16(As + (a_row + r * (kThreads / kRowChunks)) * kLdRow + a_c, from, ok);
+    }
+    ci += kBK;
+    while (ci >= cp) {
+      ci -= cp;
+      ++tap;
+    }
+#pragma unroll
+    for (int r = 0; r < kKPasses; ++r) {
+      const int kr = tid / kKChunks + r * (kThreads / kKChunks);
+      const int kb = s * kBK + kr;
+      const bool ok = b_col_ok && kb < K;
+      const bf16* from = ok ? wk + static_cast<long long>(kb) * np + n0 + b_c : wk;
+      cp_async16(Bs + kr * kLdK + b_c, from, ok);
+    }
+  };
+  float acc[4][4][4];
+  mainloop<false>(smem, (K + kBK - 1) / kBK, load, acc);
+
+  // Epilogue: bias, rounding, NCHW store, moments of the rounded out over
+  // the rows < M. Element e of acc[i][j] lies at row 16 i + lane / 4 + 8 (e / 2),
+  // column 8 j + 2 (lane % 4) + e % 2 of the warp's tile.
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  float s1[4][2], s2[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm * 64 + i * 16 + (lane >> 2) + half * 8;
+      if (m >= M) continue;
+      const int img = m / HW;
+      bf16* o = out + static_cast<long long>(img) * cout * HW + (m - img * HW);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = n0 + wn * 32 + j * 8 + 2 * (lane & 3) + e;
+          if (co >= cout) continue;
+          const float v = acc[i][j][half * 2 + e];
+          const bf16 r = __float2bfloat16(bias != nullptr ? v + bias[co] : v);
+          o[static_cast<long long>(co) * HW] = r;
+          const float f = __bfloat162float(r);
+          s1[j][e] = s1[j][e] + f;
+          s2[j][e] = s2[j][e] + f * f;
+        }
+      }
+    }
+  }
+  if (part_s1 == nullptr) return;
+  // the 8 lanes of one lane % 4 share their columns: a fixed xor tree
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[j][e] = s1[j][e] + __shfl_xor_sync(0xffffffffu, s1[j][e], off);
+        s2[j][e] = s2[j][e] + __shfl_xor_sync(0xffffffffu, s2[j][e], off);
+      }
+    }
+  }
+  // then the tile's two row halves (wm = 0, 1), in that order
+  float* red = reinterpret_cast<float*>(smem_raw);  // [wm][s1, s2][kBN]
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn * 32 + j * 8 + 2 * lane + e;
+        red[(wm * 2) * kBN + col] = s1[j][e];
+        red[(wm * 2 + 1) * kBN + col] = s2[j][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < kBN && n0 + tid < cout) {
+    const long long at = static_cast<long long>(m_tile) * cout + n0 + tid;
+    part_s1[at] = red[tid] + red[2 * kBN + tid];
+    part_s2[at] = red[kBN + tid] + red[3 * kBN + tid];
+  }
+}
+
+// dW partial of one row split: part[split, co, k] = sum over the split's rows
+// m of g[m, co] * A[m, k], g the channels-last (M, padded(cout)) cotangent, A
+// the forward's im2col of the channels-last (M, padded(cin)) x. Tile rows co
+// (A = g^T, stored [m][co]), columns k (B stored [m][k]), contraction m.
+__global__ void __launch_bounds__(kThreads, 2)
+wgrad_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
+                 float* __restrict__ part, int M, int cin, int cout, int H, int W,
+                 int rows_per_split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int HW = H * W;
+  const int cp = padded(cin);
+  const int gp = padded(cout);
+  const int K = 9 * cp;
+  const int k0 = blockIdx.x * kBN;
+  const int co0 = blockIdx.y * kBM;
+  const int r0 = blockIdx.z * rows_per_split;
+  const int r1 = r0 + rows_per_split < M ? r0 + rows_per_split : M;
+
+  // both operands: rows (m) tid / kKChunks + r * (kThreads / kKChunks) of
+  // the stage, 8 columns at (tid % kKChunks) * 8: channels co of g, columns
+  // k of A
+  const int c8 = (tid % kKChunks) * 8;
+  const bool co_ok = co0 + c8 < gp;
+  const int k = k0 + c8;
+  const bool k_ok = k < K;
+  const int tap = k_ok ? k / cp : 0;
+  const int ci = k - tap * cp;
+  const int dh = tap / 3 - 1;
+  const int dw = tap % 3 - 1;
+
+  // the thread's rows m (and their img, h, w), stepped by kBK a stage
+  const int step_img = kBK / HW;
+  const int step_h = (kBK - step_img * HW) / W;
+  const int step_w = kBK - step_img * HW - step_h * W;
+  int b_m[kKPasses], b_img[kKPasses], b_h[kKPasses], b_w[kKPasses];
+#pragma unroll
+  for (int r = 0; r < kKPasses; ++r) {
+    b_m[r] = r0 + tid / kKChunks + r * (kThreads / kKChunks);
+    b_img[r] = b_m[r] / HW;
+    const int p = b_m[r] - b_img[r] * HW;
+    b_h[r] = p / W;
+    b_w[r] = p - b_h[r] * W;
+  }
+
+  auto load = [&](bf16* As, bf16* Bs, int) {
+#pragma unroll
+    for (int r = 0; r < kKPasses; ++r) {
+      const int row = tid / kKChunks + r * (kThreads / kKChunks);
+      const bool m_ok = b_m[r] < r1;
+      const bool g_ok = m_ok && co_ok;
+      cp_async16(As + row * kLdK + c8,
+                 g_ok ? g + static_cast<long long>(b_m[r]) * gp + co0 + c8 : g, g_ok);
+      const int hh = b_h[r] + dh;
+      const int ww = b_w[r] + dw;
+      const bool x_ok = m_ok && k_ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
+      cp_async16(Bs + row * kLdK + c8,
+                 x_ok ? x + static_cast<long long>(b_img[r] * HW + hh * W + ww) * cp + ci
+                      : x,
+                 x_ok);
+      b_m[r] += kBK;
+      b_img[r] += step_img;
+      b_h[r] += step_h;
+      b_w[r] += step_w;
+      if (b_w[r] >= W) {
+        b_w[r] -= W;
+        ++b_h[r];
+      }
+      if (b_h[r] >= H) {
+        b_h[r] -= H;
+        ++b_img[r];
+      }
+    }
+  };
+  float acc[4][4][4];
+  mainloop<true>(smem, r1 > r0 ? (r1 - r0 + kBK - 1) / kBK : 0, load, acc);
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  float* o = part + static_cast<long long>(blockIdx.z) * cout * K;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int co = co0 + wm * 64 + i * 16 + (lane >> 2) + half * 8;
+      if (co >= cout) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kc = k0 + wn * 32 + j * 8 + 2 * (lane & 3);
+        if (kc < K) {
+          *reinterpret_cast<float2*>(o + static_cast<long long>(co) * K + kc) =
+              make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
+        }
+      }
+    }
+  }
+}
+
+// Stores v, rounded to bf16, as the 16 bytes at p.
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[kAlign]) {
+  unsigned q[kAlign / 2];
+#pragma unroll
+  for (int j = 0; j < kAlign / 2; ++j) {
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    q[j] = *reinterpret_cast<const unsigned*>(&pair);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// out = the channels-last (M, padded(C)) copy of the NCHW x, the padding
+// channels 0, through a shared-memory transpose: a block reads a tile of
+// kPackChans channels x kPackRows rows along the rows (a channel's pixels
+// are contiguous in an image) and writes it along the channels, 16 bytes a
+// thread, whole rows of the tile at once. Block b takes row tile b / groups,
+// channel tile b % groups.
+constexpr int kPackRows = 64;
+constexpr int kPackChans = 64;
+constexpr int kPackLd = kPackRows + 1;  // odd: the column reads spread over the banks
+
+__global__ void __launch_bounds__(kRedThreads)
+pack_cl_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int M, int C, int HW) {
+  __shared__ bf16 tile[kPackChans * kPackLd];
+  const int cp = padded(C);
+  const int groups = (cp + kPackChans - 1) / kPackChans;
+  const int rt = blockIdx.x / groups;
+  const int c0 = (blockIdx.x - rt * groups) * kPackChans;
+  const int m0 = rt * kPackRows;
+  // read: row m0 + tid % kPackRows of channels c0 + tid / kPackRows + 4 i
+  const int r = threadIdx.x % kPackRows;
+  const int m = m0 + r;
+  const bool m_ok = m < M;
+  const int img = m_ok ? m / HW : 0;
+  const bf16* px = x + static_cast<long long>(img) * C * HW + (m - img * HW);
+#pragma unroll
+  for (int i = 0; i < kPackChans * kPackRows / kRedThreads; ++i) {
+    const int cl = threadIdx.x / kPackRows + (kRedThreads / kPackRows) * i;
+    const int c = c0 + cl;
+    tile[cl * kPackLd + r] =
+        m_ok && c < C ? px[static_cast<long long>(c) * HW] : __float2bfloat16(0.0f);
+  }
+  __syncthreads();
+  // write: channels c0 + (tid % 8) * 8.. of rows m0 + tid / 8 + 32 j
+  const int ch = (threadIdx.x % (kPackChans / kAlign)) * kAlign;
+#pragma unroll
+  for (int j = 0; j < kPackRows * kPackChans / kAlign / kRedThreads; ++j) {
+    const int rr = threadIdx.x / (kPackChans / kAlign) + (kRedThreads * kAlign / kPackChans) * j;
+    if (m0 + rr >= M || c0 + ch >= cp) continue;
+    float v[kAlign];
+#pragma unroll
+    for (int q = 0; q < kAlign; ++q) v[q] = __bfloat162float(tile[(ch + q) * kPackLd + rr]);
+    store8(out + static_cast<long long>(m0 + rr) * cp + c0 + ch, v);
+  }
+}
+
+// a[c] = sum over blocks of part_a[block, c] (b, part_b the same, may be
+// null), in a fixed order: lane l of channel c's warp adds the partials l,
+// l + 32, .. in turn, then the 32 lane sums meet in a fixed xor tree. A warp
+// per channel keeps thousands of partials from being one thread's chain of
+// dependent loads.
+__global__ void __launch_bounds__(kRedThreads)
+sum_partials_kernel(const float* __restrict__ part_a, const float* __restrict__ part_b,
+                    float* __restrict__ a, float* __restrict__ b, int blocks, int C) {
+  const int c = blockIdx.x * (kRedThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c >= C) return;
+  float sa = 0.0f;
+  float sb = 0.0f;
+#pragma unroll 4
+  for (int k = lane; k < blocks; k += 32) {
+    sa = sa + part_a[static_cast<long long>(k) * C + c];
+    if (part_b != nullptr) sb = sb + part_b[static_cast<long long>(k) * C + c];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sa = sa + __shfl_xor_sync(0xffffffffu, sa, off);
+    sb = sb + __shfl_xor_sync(0xffffffffu, sb, off);
+  }
+  if (lane != 0) return;
+  a[c] = sa;
+  if (b != nullptr) b[c] = sb;
+}
+
+inline int sum_partials(const float* part_a, const float* part_b, float* a, float* b,
+                        int blocks, int C, cudaStream_t st) {
+  sum_partials_kernel<<<cdiv(C, kRedThreads / 32), kRedThreads, 0, st>>>(part_a, part_b, a,
+                                                                          b, blocks, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int pack_cl(const void* x, void* out, int M, int C, int HW, cudaStream_t st) {
+  pack_cl_kernel<<<cdiv(M, kPackRows) * cdiv(padded(C), kPackChans), kRedThreads, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), M, C, HW);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g = gy (+ gs1 + 2 gs2 y) in fp32 for 8 channels c0.. of 256 rows, stored
+// rounded to bf16 as one 16-byte piece of each row of the channels-last (M,
+// padded(C)) g (the padding channels 0); per-block db partials (row blocks,
+// C) of the unrounded g, in grad_out_kernel's tree and layout. Block b
+// takes row block b / groups, channel group b % groups.
+__global__ void __launch_bounds__(kRedThreads)
+grad_out_cl_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
+                   const float* __restrict__ gs1, const float* __restrict__ gs2,
+                   bf16* __restrict__ g, float* __restrict__ part_db, int M, int C, int HW,
+                   int with_moments) {
+  __shared__ float red[kAlign][kRedThreads];
+  const int groups = padded(C) / kAlign;
+  const int rb = blockIdx.x / groups;
+  const int c0 = (blockIdx.x - rb * groups) * kAlign;
+  const int e = rb * kRedThreads + threadIdx.x;
+  const bool ok = e < M;
+  const int img = ok ? e / HW : 0;
+  const long long base = static_cast<long long>(img) * C * HW + (e - img * HW);
+  float v[kAlign];
+#pragma unroll
+  for (int j = 0; j < kAlign; ++j) {
+    const int c = c0 + j;
+    float gf = 0.0f;
+    if (ok && c < C) {
+      const long long i = base + static_cast<long long>(c) * HW;
+      gf = __bfloat162float(gy[i]);
+      if (with_moments) gf = gf + (gs1[c] + 2.0f * gs2[c] * __bfloat162float(y[i]));
+    }
+    v[j] = gf;
+  }
+  if (ok) store8(g + static_cast<long long>(e) * padded(C) + c0, v);
+  chsum::block_tree_sum<kAlign>(red, v);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < kAlign; ++j) {
+      if (c0 + j < C) part_db[static_cast<long long>(rb) * C + c0 + j] = v[j];
+    }
+  }
+}
+
+inline int launch_conv(const void* src, const void* wk, const float* bias, void* out,
+                       float* part_s1, float* part_s2, float* s1, float* s2, int M, int cin,
+                       int cout, int H, int W, cudaStream_t st) {
+  const unsigned tiles_m = cdiv(M, kBM);
+  const int bytes = smem_bytes(false);
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc != 0) return rc;
+  conv_mma_kernel<<<tiles_m * cdiv(cout, kBN), kThreads, bytes, st>>>(
+      static_cast<const bf16*>(src), static_cast<const bf16*>(wk), bias,
+      static_cast<bf16*>(out), part_s1, part_s2, M, cin, cout, H, W);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || part_s1 == nullptr) return rc;
+  return sum_partials(part_s1, part_s2, s1, s2, tiles_m, cout, st);
+}
+
+inline int launch_fwd(const void* x, void* xcl, const void* wk, const float* bias, void* y,
+                      float* part_s1, float* part_s2, float* s1, float* s2, int M, int cin,
+                      int cout, int H, int W, cudaStream_t st) {
+  const int rc = pack_cl(x, xcl, M, cin, H * W, st);
+  if (rc != 0) return rc;
+  return launch_conv(xcl, wk, bias, y, part_s1, part_s2, s1, s2, M, cin, cout, H, W, st);
+}
+
+inline int launch_bwd(const void* x, void* xcl, const void* w2, const void* y,
+                      const void* gy, const float* gs1, const float* gs2, void* g,
+                      float* part_db, float* db, void* dx, float* part_dw, float* dw, int M,
+                      int cin, int cout, int H, int W, int splits, int rows_per_split,
+                      int with_moments, cudaStream_t st) {
+  const unsigned row_blocks = cdiv(M, kRedThreads);
+  grad_out_cl_kernel<<<row_blocks * (padded(cout) / kAlign), kRedThreads, 0, st>>>(
+      static_cast<const bf16*>(gy), static_cast<const bf16*>(y), gs1, gs2,
+      static_cast<bf16*>(g), part_db, M, cout, H * W, with_moments);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  rc = sum_partials(part_db, nullptr, db, nullptr, row_blocks, cout, st);
+  if (rc != 0) return rc;
+  rc = pack_cl(x, xcl, M, cin, H * W, st);
+  if (rc != 0) return rc;
+  const int K = 9 * padded(cin);
+  const int bytes = smem_bytes(true);
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      wgrad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc != 0) return rc;
+  const dim3 wgrid(cdiv(K, kBN), cdiv(cout, kBM), splits);
+  wgrad_mma_kernel<<<wgrid, kThreads, bytes, st>>>(static_cast<const bf16*>(g),
+                                                   static_cast<const bf16*>(xcl), part_dw,
+                                                   M, cin, cout, H, W, rows_per_split);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const long long n = static_cast<long long>(cout) * K;
+  sum_splits_kernel<<<cdiv(n, kRedThreads), kRedThreads, 0, st>>>(part_dw, dw, n, splits);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || dx == nullptr) return rc;
+  // dx: the forward's GEMM on g, Cout channels in, Cin out, no bias or moments
+  return launch_conv(g, w2, nullptr, dx, nullptr, nullptr, nullptr, nullptr, M, cout,
+                     cin, H, W, st);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Both launch on `stream` (a cudaStream_t), allocate nothing and do not
 // synchronise; `bf16` selects the storage type of x, the weight matrices,
-// y, gy, g and dx: 0 fp32, 1 bf16. Each returns cudaGetLastError() after
-// its launches.
+// y, gy, g and dx, and the route: 0 fp32 (NCHW x and g), 1 bf16 (channels-
+// last copies of x and g, Cp = C rounded up to a multiple of 8, the padding
+// zero; n_img * H * W below 2^31). xcl is the bf16 route's (n_img * H * W,
+// Cp_in) scratch for x's copy (fp32: unused, may be null). Each returns the
+// first CUDA error of its launches, 0 if none.
 //
-// spike_conv_fwd: x (n_img, cin, H, W); wk (cin * 9, cout); bias (cout,)
-// fp32 or null; y (n_img, cout, H, W). With `with_moments`, part_s1 and
-// part_s2 are (ceil(n_img * H * W / 128), cout) fp32 scratch and s1, s2
-// (cout,) fp32 outputs; without, all four are unused (may be null).
-extern "C" int spike_conv_fwd(const void* x, const void* wk, const float* bias,
+// spike_conv_fwd: x (n_img, cin, H, W); wk (cin * 9, cout), row ci * 9 +
+// tap, bf16 (9 * Cp_in, Cp_out), row tap * Cp_in + ci; bias (cout,) fp32
+// or null; y (n_img, cout, H, W). With
+// `with_moments`, part_s1 and part_s2 are (ceil(n_img * H * W / 128), cout)
+// fp32 scratch and s1, s2 (cout,) fp32 outputs; without, all four are
+// unused (may be null).
+extern "C" int spike_conv_fwd(const void* x, void* xcl, const void* wk, const float* bias,
                               void* y, float* part_s1, float* part_s2, float* s1,
                               float* s2, long long n_img, int cin, int cout, int H,
                               int W, int with_moments, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!with_moments) part_s1 = part_s2 = s1 = s2 = nullptr;
   if (bf16) {
-    return launch_conv<__nv_bfloat16>(x, wk, bias, y, part_s1, part_s2, s1, s2,
-                                      n_img, cin, cout, H, W, st);
+    if (n_img * H * W > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    return tc::launch_fwd(x, xcl, wk, bias, y, part_s1, part_s2, s1, s2,
+                          static_cast<int>(n_img * H * W), cin, cout, H, W, st);
   }
   return launch_conv<float>(x, wk, bias, y, part_s1, part_s2, s1, s2, n_img,
                             cin, cout, H, W, st);
 }
 
-// spike_conv_bwd: x (n_img, cin, H, W); w2 (cout * 9, cin), the flipped and
-// transposed weight, read only with dx; y, gy (n_img, cout, H, W); gs1, gs2
-// (cout,) fp32, read only with `with_moments`; g (n_img, cout, H, W) scratch
-// in the storage type; part_db (ceil(n_img * H * W / 256), cout) fp32
+// spike_conv_bwd: x (n_img, cin, H, W); w2 (cout * 9, cin), row co * 9 +
+// t, bf16 (9 * Cp_out, Cp_in), row t * Cp_out + co, the flipped and
+// transposed weight, read only with dx; y, gy
+// (n_img, cout, H, W); gs1, gs2 (cout,) fp32, read only with
+// `with_moments`; g scratch in the storage type, (n_img, cout, H, W), bf16
+// (n_img * H * W, Cp_out); part_db (ceil(n_img * H * W / 256), cout) fp32
 // scratch; db (cout,) fp32; dx (n_img, cin, H, W) or null (not computed);
-// part_dw (splits, cout, cin * 9) fp32 scratch, split s covering rows
-// [s * rows_per_split, (s + 1) * rows_per_split); dw (cout, cin * 9) fp32.
-extern "C" int spike_conv_bwd(const void* x, const void* w2, const void* y,
+// part_dw (splits, cout, Kw) fp32 scratch, split s covering rows
+// [s * rows_per_split, (s + 1) * rows_per_split); dw (cout, Kw) fp32, with
+// Kw = cin * 9, column ci * 9 + tap (OIHW), bf16 Kw = 9 * Cp_in, column tap *
+// Cp_in + ci.
+extern "C" int spike_conv_bwd(const void* x, void* xcl, const void* w2, const void* y,
                               const void* gy, const float* gs1, const float* gs2,
                               void* g, float* part_db, float* db, void* dx,
                               float* part_dw, float* dw, long long n_img, int cin,
@@ -441,9 +1069,10 @@ extern "C" int spike_conv_bwd(const void* x, const void* w2, const void* y,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    return launch_bwd<__nv_bfloat16>(x, w2, y, gy, gs1, gs2, g, part_db, db, dx,
-                                     part_dw, dw, n_img, cin, cout, H, W, splits,
-                                     rows_per_split, with_moments, st);
+    if (n_img * H * W > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    return tc::launch_bwd(x, xcl, w2, y, gy, gs1, gs2, g, part_db, db, dx, part_dw, dw,
+                          static_cast<int>(n_img * H * W), cin, cout, H, W, splits,
+                          static_cast<int>(rows_per_split), with_moments, st);
   }
   return launch_bwd<float>(x, w2, y, gy, gs1, gs2, g, part_db, db, dx, part_dw,
                            dw, n_img, cin, cout, H, W, splits, rows_per_split,

@@ -28,6 +28,16 @@ only for tensors on the CPU; :func:`spike_conv3x3` puts the two behind one
 ``torch.autograd.Function``. ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count
 the kernels' launches.
 
+The kernels take fp32 as it lies (NCHW, CUDA cores) and bf16 on the
+tensor cores through channels-last operands: the kernels copy x (and write
+the backward's g) as (N * H * W, Cp) with Cp = C rounded up to
+``CHANNEL_ALIGN``, the padding zero (plain version:
+:func:`channels_last`), the wrapper lays the weight out as (9 * Cp_in,
+Cp_out) and (9 * Cp_out, Cp_in) matrices with row tap * Cp + channel
+(:func:`kernel_weight_cl`, :func:`dx_weight_cl`) and unpacks dW from
+(Cout, 9 * Cp_in) (:func:`dw_from_cl`); y, dx and the interface stay
+NCHW.
+
 The kernel and the plain version sum in different orders: y agrees
 within about 1e-5 in fp32 (a bf16 rounding step in bf16), s1 and s2
 within rtol 1e-4, and dx, dW, db within 1e-4, the JAX package's own
@@ -49,7 +59,9 @@ SOURCE = "spike_conv"
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_ROWS = 128  # rows of a forward block (csrc/spike_conv.cu kBM)
+TILE_ROWS = 128  # rows of a forward block (csrc/spike_conv.cu kBM, tc::kBM)
+CHANNEL_ALIGN = 8  # bf16: channels padded to whole 16-byte copies (tc::kAlign)
+MAX_ROWS = 2**31 - 1  # bf16: N * H * W is a 32-bit index
 RED_THREADS = 256  # elements of one channel per block of the g pass
 WGRAD_BLOCKS = 4 * 132  # dW's row split aims at this many blocks (132 SMs)
 WGRAD_MIN_ROWS = 64  # rows a split covers at least
@@ -62,10 +74,10 @@ def _kernel(name: str):
     if name not in _FNS:
         fn = getattr(_build.load(SOURCE), name)
         if name == "spike_conv_fwd":
-            fn.argtypes = [*(ctypes.c_void_p,) * 8, ctypes.c_longlong,
+            fn.argtypes = [*(ctypes.c_void_p,) * 9, ctypes.c_longlong,
                            *(ctypes.c_int,) * 6, ctypes.c_void_p]
         else:
-            fn.argtypes = [*(ctypes.c_void_p,) * 12, ctypes.c_longlong,
+            fn.argtypes = [*(ctypes.c_void_p,) * 13, ctypes.c_longlong,
                            *(ctypes.c_int,) * 5, ctypes.c_longlong,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -200,25 +212,73 @@ def dx_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return flipped.permute(0, 2, 1).reshape(cout * 9, cin).contiguous()
 
 
-def wgrad_splits(rows: int, cin: int, cout: int) -> Tuple[int, int]:
-    """(splits, rows per split) of dW's contraction over ``rows``: enough
-    splits for ``WGRAD_BLOCKS`` blocks of 128 x 128 dW tiles, each split at
-    least ``WGRAD_MIN_ROWS`` rows, their fp32 partials at most
+def padded_channels(c: int) -> int:
+    """C rounded up to a multiple of ``CHANNEL_ALIGN``."""
+    return -(-c // CHANNEL_ALIGN) * CHANNEL_ALIGN
+
+
+def channels_last(a: torch.Tensor, cp: int) -> torch.Tensor:
+    """(N, C, H, W) -> the (N * H * W, cp) channels-last copy that the bf16
+    kernels make of x (and write of g), row (n, h, w), channels C.. cp
+    zero: their plain version."""
+    n, c, h, w = a.shape
+    out = a.new_empty((n, h, w, cp))
+    out[..., :c] = a.permute(0, 2, 3, 1)
+    out[..., c:] = 0
+    return out.reshape(n * h * w, cp)
+
+
+def kernel_weight_cl(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW -> the bf16 forward's (9 * Cp_in, Cp_out) matrix in ``dtype``: row
+    tap * Cp_in + ci (tap = kh * 3 + kw), column co, zero in the padding."""
+    cout, cin = weight.shape[:2]
+    cpi, cpo = padded_channels(cin), padded_channels(cout)
+    w = F.pad(weight.to(dtype).permute(2, 3, 1, 0), (0, cpo - cout, 0, cpi - cin))
+    return w.reshape(9 * cpi, cpo).contiguous()
+
+
+def dx_weight_cl(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW -> the bf16 dx pass's (9 * Cp_out, Cp_in) matrix in ``dtype``: row
+    tap * Cp_out + co holds W[co, :, 8 - tap], the flipped, transposed
+    kernel, zero in the padding."""
+    cout, cin = weight.shape[:2]
+    cpi, cpo = padded_channels(cin), padded_channels(cout)
+    w = F.pad(weight.to(dtype).flip((2, 3)).permute(2, 3, 0, 1), (0, cpi - cin, 0, cpo - cout))
+    return w.reshape(9 * cpo, cpi).contiguous()
+
+
+def dw_from_cl(dwm: torch.Tensor, cin: int) -> torch.Tensor:
+    """The bf16 dW pass's (Cout, 9 * Cp_in) matrix, column tap * Cp_in + ci
+    -> OIHW (Cout, Cin, 3, 3), the padding dropped."""
+    cout = dwm.shape[0]
+    return dwm.reshape(cout, 3, 3, -1)[..., :cin].permute(0, 3, 1, 2).contiguous()
+
+
+def wgrad_splits(rows: int, cin: int, cout: int, fill: bool = False) -> Tuple[int, int]:
+    """(splits, rows per split) of dW's contraction over ``rows``: about
+    ``WGRAD_BLOCKS`` blocks of 128 x 128 dW tiles, at least that many, or
+    with ``fill`` at most that many (the bf16 route, two blocks per SM: two
+    whole waves, no ragged last one); each split at least
+    ``WGRAD_MIN_ROWS`` rows, their fp32 partials at most
     ``WGRAD_PARTIAL_BYTES``. Depends on the shapes only, so dW's sum order
-    is the same from run to run."""
+    is the same from run to run. The bf16 route passes its padded Cin."""
     tiles = math.ceil(cout / 128) * math.ceil(9 * cin / 128)
-    splits = max(1, min(math.ceil(WGRAD_BLOCKS / tiles),
-                        rows // WGRAD_MIN_ROWS,
+    aim = WGRAD_BLOCKS // tiles if fill else math.ceil(WGRAD_BLOCKS / tiles)
+    splits = max(1, min(aim, rows // WGRAD_MIN_ROWS,
                         WGRAD_PARTIAL_BYTES // (4 * cout * 9 * cin)))
     per_split = math.ceil(rows / splits)
     return math.ceil(rows / per_split), per_split
 
 
 def _check_cuda(*tensors):
-    if tensors[0].device.type != "cuda":
-        raise ValueError(f"spike_conv3x3 runs on CUDA or CPU, not {tensors[0].device}")
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"spike_conv3x3 runs on CUDA or CPU, not {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spike_conv3x3 needs contiguous inputs")
+    rows = x.shape[0] * x.shape[2] * x.shape[3]
+    if x.dtype == torch.bfloat16 and rows > MAX_ROWS:
+        raise ValueError(f"the bf16 kernels take at most {MAX_ROWS} rows N * H * W, got {rows}")
 
 
 def spike_conv3x3_fwd(
@@ -236,7 +296,11 @@ def spike_conv3x3_fwd(
         return spike_conv3x3_fwd_reference(x, weight, bias, with_moments)
     _check_cuda(x, weight, bias)
     dev = x.device
-    wk = kernel_weight(weight, x.dtype)
+    if x.dtype == torch.bfloat16:  # the kernel copies x channels-last into xcl
+        xcl = torch.empty((n * h * w, padded_channels(cin)), dtype=x.dtype, device=dev)
+        wk = kernel_weight_cl(weight, x.dtype)
+    else:
+        xcl, wk = None, kernel_weight(weight, x.dtype)
     y = torch.empty((n, cout, h, w), dtype=x.dtype, device=dev)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=dev)
     parts = (torch.empty((2, math.ceil(n * h * w / TILE_ROWS), cout), dtype=torch.float32,
@@ -244,9 +308,9 @@ def spike_conv3x3_fwd(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("spike_conv_fwd")(
-            x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), *((parts[0].data_ptr(), parts[1].data_ptr()) if with_moments
-                            else (None, None)),
+            x.data_ptr(), None if xcl is None else xcl.data_ptr(), wk.data_ptr(),
+            bias.data_ptr(), y.data_ptr(),
+            *((parts[0].data_ptr(), parts[1].data_ptr()) if with_moments else (None, None)),
             sums[0].data_ptr(), sums[1].data_ptr(), n, cin, cout, h, w,
             int(with_moments), DTYPES[x.dtype], stream)
     if rc != 0:
@@ -277,26 +341,35 @@ def spike_conv3x3_bwd(
     _check_cuda(x, weight, y, gy, gs1, gs2)
     dev = x.device
     rows = n * h * w
-    splits, per_split = wgrad_splits(rows, cin, cout)
-    w2 = dx_weight(weight, x.dtype) if need_dx else None
-    g = torch.empty_like(y)
+    if x.dtype == torch.bfloat16:  # channels-last operands, (tap, channel) order
+        cpi = padded_channels(cin)
+        xcl = torch.empty((rows, cpi), dtype=x.dtype, device=dev)
+        w2 = dx_weight_cl(weight, x.dtype) if need_dx else None
+        g = torch.empty((rows, padded_channels(cout)), dtype=x.dtype, device=dev)
+    else:
+        cpi, xcl = cin, None
+        w2 = dx_weight(weight, x.dtype) if need_dx else None
+        g = torch.empty_like(y)
+    splits, per_split = wgrad_splits(rows, cpi, cout, fill=x.dtype == torch.bfloat16)
     part_db = torch.empty((math.ceil(rows / RED_THREADS), cout), dtype=torch.float32,
                           device=dev)
     db = torch.empty(cout, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
-    part_dw = torch.empty((splits, cout, cin * 9), dtype=torch.float32, device=dev)
-    dw = torch.empty((cout, cin, 3, 3), dtype=torch.float32, device=dev)
+    part_dw = torch.empty((splits, cout, 9 * cpi), dtype=torch.float32, device=dev)
+    dwm = torch.empty((cout, 9 * cpi), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel("spike_conv_bwd")(
-            x.data_ptr(), None if w2 is None else w2.data_ptr(), y.data_ptr(),
+            x.data_ptr(), None if xcl is None else xcl.data_ptr(),
+            None if w2 is None else w2.data_ptr(), y.data_ptr(),
             gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), g.data_ptr(),
             part_db.data_ptr(), db.data_ptr(), None if dx is None else dx.data_ptr(),
-            part_dw.data_ptr(), dw.data_ptr(), n, cin, cout, h, w, splits, per_split,
+            part_dw.data_ptr(), dwm.data_ptr(), n, cin, cout, h, w, splits, per_split,
             int(with_moments), DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"spike_conv_bwd launch failed: CUDA error {rc}")
     LAUNCHES_BWD += 1
+    dw = dw_from_cl(dwm, cin) if x.dtype == torch.bfloat16 else dwm.view(cout, cin, 3, 3)
     return dx, dw, db
 
 

@@ -389,6 +389,16 @@ K4_CASES = {  # (N images, Cin, Cout, H = W)
     "hw4_3to5": (6, 3, 5, 4),
 }
 K4_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# bf16 (the tensor-core route) also across several 128 x 128 tiles in M
+# (37), N and the contraction (2304, 2880) at the path's channel counts,
+# dW over several row splits
+K4_BF16_CASES = {
+    "tiles_96_256to512": (96, 256, 512, 7),
+    "tiles_96_320to128": (96, 320, 128, 7),
+}
+K4_RUNS = [pytest.param(case, dtype, id=f"{case}-{dtype}")
+           for case in sorted(K4_CASES) for dtype in sorted(K4_DTYPES)]
+K4_RUNS += [pytest.param(case, "bf16", id=f"{case}-bf16") for case in sorted(K4_BF16_CASES)]
 K4_Y_TOL = {"fp32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 K4_MOMENT_TOL = dict(rtol=1e-4, atol=1e-3)
 K4_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -396,15 +406,14 @@ K4_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("moments", [True, False], ids=["moments", "no_moments"])
-@pytest.mark.parametrize("dtype", sorted(K4_DTYPES))
-@pytest.mark.parametrize("case", sorted(K4_CASES))
+@pytest.mark.parametrize("case,dtype", K4_RUNS)
 def test_spike_conv_kernels_match_reference(cuda_device, case, dtype, moments):
     """K4 forward and backward against their plain versions: y within 1e-5
     (bf16 2e-2), s1 and s2 within rtol 1e-4, atol 1e-3, dx, dW and db
     within 1e-4 (dx in bf16 2e-2), the JAX package's tolerances for its
     kernel against XLA's conv; s1, s2, dW and db equal from launch to
     launch (fixed sum orders)."""
-    n, cin, cout, hw = K4_CASES[case]
+    n, cin, cout, hw = {**K4_CASES, **K4_BF16_CASES}[case]
     dt = K4_DTYPES[dtype]
     gen = torch.Generator(device=cuda_device).manual_seed(13)
     x = (torch.rand((n, cin, hw, hw), generator=gen, device=cuda_device) < 0.3).to(dt)
@@ -461,3 +470,29 @@ def test_spike_conv_autograd_and_rejects(cuda_device):
         port_spike_conv.spike_conv3x3_fwd(x.detach().transpose(2, 3), w.detach(), b.detach())
     with pytest.raises(TypeError):
         port_spike_conv.spike_conv3x3_fwd(x.detach().half(), w.detach(), b.detach())
+
+
+@pytest.mark.gpu
+def test_spike_conv_bf16_rejects_what_it_does_not_take(cuda_device):
+    """The bf16 route raises rather than runs: more rows than its 32-bit
+    index, a bf16 weight, a non-contiguous input, a cotangent in another
+    dtype; nothing launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    x = (torch.rand((4, 8, 7, 7), generator=gen, device=cuda_device) < 0.3).bfloat16()
+    w = torch.randn((16, 8, 3, 3), generator=gen, device=cuda_device) * 0.2
+    b = torch.zeros(16, device=cuda_device)
+    y = port_spike_conv.spike_conv3x3_fwd(x, w, b)[0]
+    zeros = torch.zeros(16, device=cuda_device)
+    before = (port_spike_conv.LAUNCHES_FWD, port_spike_conv.LAUNCHES_BWD)
+    big = torch.empty((port_spike_conv.MAX_ROWS // 49 + 1, 1, 7, 7), dtype=torch.bfloat16,
+                      device=cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        port_spike_conv.spike_conv3x3_fwd(big, w[:, :1].contiguous(), b)
+    del big
+    with pytest.raises(TypeError, match="float32"):
+        port_spike_conv.spike_conv3x3_fwd(x, w.bfloat16(), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        port_spike_conv.spike_conv3x3_fwd(x.transpose(2, 3), w, b)
+    with pytest.raises(ValueError, match="gy must be"):
+        port_spike_conv.spike_conv3x3_bwd(x, w, y, y.float(), zeros, zeros)
+    assert (port_spike_conv.LAUNCHES_FWD, port_spike_conv.LAUNCHES_BWD) == before
