@@ -15,7 +15,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    backward, K2, K3, K4) with ``nvcc`` (into ``build/``), all at once, and
    prints the build times and ``-Xptxas -v`` lines; then the ``HMMA``
    (tensor-core) instructions of each K4 kernel in the built library's
-   SASS (``cuobjdump -sass``): K4's bf16 kernels must have some.
+   SASS (``cuobjdump -sass``): K4's bf16 kernels and its fp32-output
+   forward kernel must have some.
 2. models: the full-width MNIST flagship (49-step sampler, T=16 denoiser
    64-128-256-512-256, K=128, then the VQ-VAE decode) with seeded random
    weights whose BN statistics are set from one batch; the card's logits
@@ -40,12 +41,19 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    JAX package's tolerances (y 1e-5, bf16 2e-2; s1, s2 rtol 1e-4, atol
    1e-3; dx, dW, db 1e-4), the sums' also widened by 1e-6 of the sum of
    their terms' absolute values (a sum of up to 200,704 terms in another
-   order), s1, s2, dW and db equal from launch to launch;
+   order), s1, s2, dW and db equal from launch to launch; every fp32
+   forward of the path's x (spikes, token ids, timesteps) must take the
+   tensor-core route, and the same x with one element off bf16's grid
+   the CUDA-core route, held at the same tolerances;
    median of 10, beside its bound (operations over the peak of the type,
-   or bytes) and the library call (cuDNN: ``F.conv2d`` plus the two sums,
+   or bytes; the fp32 forward's tensor-core route does three bf16
+   products per product, so its bound is three times its operations over
+   the bf16 peak, logged beside the CUDA-core bound) and the library
+   call (cuDNN: ``F.conv2d`` plus the two sums,
    ``aten.convolution_backward``); the backward also without dx, which
-   splits it into its dW + db and dx parts; and the bf16 step's device
-   time by kernel (``torch.profiler``).
+   splits it into its dW + db and dx parts; and by kernel
+   (``torch.profiler``) the fp32 forward's and the bf16 step's device
+   time.
 4. generation: the layerwise sampler, three requests at batch 16 and one
    at batch 256, each twice on the same noise, through K1 and through the
    plain LIF: codes and images identical, codes valid, images finite in
@@ -60,7 +68,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
 6. generation_bnlifconv: one layerwise-sampler request at batch 16
    through a 'bnlifconv' denoiser with the models' weights, in eval mode:
    exactly 6 K4-forward and 5 K3-forward launches per reverse step, no
-   backward, 3 K1 launches (the decode); valid codes and images. The
+   backward, 3 K1 launches (the decode), every K4 forward on the
+   tensor-core route; valid codes and images. The
    share of codes equal to the layerwise fp32 request on the same noise
    is reported, not bounded.
 7. train_stage2: the full-width denoiser (seeded random weights) trains
@@ -69,18 +78,20 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    batch 32 and 256, a few AdamW steps each with the launch counts reset
    just before: exactly 5 + 5 K1 launches per layerwise step, 5 + 5 K3
    per 'bnlif' step, 6 + 6 K4 and 5 + 5 K3 per 'bnlifconv' step, no other
-   kernel; finite losses. The first step at batch 32 must equal the same
-   step through the plain versions on the card on the layerwise and
-   'bnlif' branches (the same operations, with kernels bitwise their
-   plain versions) and agree with the same step on the CPU at the CPU
-   tests' tolerances: loss within 1e-5, gradients within rtol 2e-3, atol
-   2e-4, new BN statistics within rtol 1e-5, atol 1e-6. On 'bnlifconv',
-   K4 sums in another order than every other conv, so a spike at
-   threshold may flip; its first step is held at those tolerances
-   against the plain versions on the card, and against the CPU and the
-   'bnlif' branch's step with the loss within 5e-4 and the BN statistics
-   within rtol 1e-5, atol 1e-4 (CONV_*), with the number of elements
-   outside each tolerance reported. One epoch of ``train_diffusion`` per
+   kernel, every fp32 K4 forward on the tensor-core route; finite losses.
+   The first step at batch 32 must equal the same step through the plain
+   versions on the card on the layerwise and 'bnlif' branches (the same
+   operations, with kernels bitwise their plain versions) and agree with
+   the same step on the CPU at the CPU tests' tolerances: loss within
+   1e-5, gradients within rtol 2e-3, atol 2e-4, new BN statistics within
+   rtol 1e-5, atol 1e-6. On 'bnlifconv' the first step is held at those
+   tolerances against the CPU and the 'bnlif' branch's step; against the
+   plain versions on the card, whose conv sums in another order so that a
+   spike at threshold flips, with the gradients at those tolerances, the
+   loss within 5e-4 and the BN statistics within rtol 1e-5, atol 1e-4
+   (CONV_*), with the number of elements outside each tolerance reported;
+   and each K4 forward of that step against its plain version on its own
+   inputs at K4's tolerances. One epoch of ``train_diffusion`` per
    branch. Then every branch in bf16 at batch 256: the same launch
    counts, every conv's input (spikes) and output in bf16, finite losses,
    the first loss within 5 % of the branch's fp32 first loss on the same
@@ -135,6 +146,8 @@ K2_RAGGED = 13
 # peak rate of the work's type on an H100 SXM (NVIDIA data sheet, dense):
 # fp32 on the CUDA cores, bf16 and int8 on the tensor cores
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
+# K4's fp32 forward of an x exact in bf16: three bf16 products per product
+K4_FP32_PLANES = 3
 K2_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 K2_STEP_LAUNCHES = 49  # one per reverse step
 K1_DECODE_LAUNCHES = 3
@@ -176,15 +189,18 @@ STEP_LAUNCHES = {"layerwise": (5, 5, 0, 0, 0, 0, 0), "bnlif": (0, 0, 5, 5, 0, 0,
 LOSS_ATOL = 1e-5  # the CPU tests' tolerances (tests/test_torch_stage2.py)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
 STATS_TOL = dict(rtol=1e-5, atol=1e-6)
-# 'bnlifconv' at full width: K4 sums in another order than the CPU's and
-# cuDNN's convs, so a membrane within rounding of its threshold flips and
-# the flip carries through the later blocks. Against the CPU and the
-# 'bnlif' branch the loss moved by 1.56e-4 and the running statistics of
-# the blocks after the flip by up to 3.25e-5 beyond rtol 1e-5 (chip run,
-# NVIDIA H100 80GB HBM3, 700 W), so those two comparisons allow the loss
-# 5e-4 and the BN statistics atol 1e-4, elementwise; gradients keep
-# GRAD_TOL, and the step against the plain versions on the card keeps
-# every CPU tolerance
+# 'bnlifconv' at full width: K4 sums in another order than its plain
+# version's torch.matmul, so a membrane within rounding of its threshold
+# flips and the flip carries through the later blocks: one block-0 neuron
+# a rounding above threshold in fp64, and in K4's, the CPU's and cuDNN's
+# sums, lies below it in the plain version's on the card, which moves the
+# loss by 1.56e-4 and the running statistics of the blocks after it by up
+# to 3.25e-5 beyond rtol 1e-5 (chip runs, NVIDIA H100 80GB HBM3, 700 W).
+# That one comparison allows the loss 5e-4 and the BN statistics atol 1e-4,
+# elementwise, with gradients at GRAD_TOL; the step is held at the CPU
+# tests' tolerances against the CPU and the 'bnlif' branch's step, and each
+# K4 forward of the step against its plain version on its own inputs at
+# K4's tolerances (check_k4_in_step)
 CONV_LOSS_ATOL = 5e-4
 CONV_STATS_TOL = dict(rtol=1e-5, atol=1e-4)
 LOGIT_ATOL = 5e-5  # card vs CPU: fp32 convolutions summed in another order
@@ -559,10 +575,22 @@ def k4_cost(n, cin, cout, moments, dx, itemsize):
     return flops, fwd_bytes, flops * (2 if dx else 1), bwd_bytes
 
 
-def k4_bound_ms(flops, nbytes, dtype):
-    ops_ms = flops / PEAK_OPS[dtype] * 1e3
+def k4_bound_ms(flops, nbytes, peak):
+    """(least ms, what bounds it) of ``flops`` operations at ``peak`` per
+    second and ``nbytes`` at the HBM rate."""
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def k4_fwd_bounds(flops, nbytes, dtype):
+    """The forward's bound (ms, what bounds it) on the route its path
+    takes, and (fp32) the CUDA-core route's: fp32 runs the tensor-core
+    route at K4_FP32_PLANES bf16 products per product."""
+    if dtype == torch.float32:
+        return (k4_bound_ms(K4_FP32_PLANES * flops, nbytes, PEAK_OPS[torch.bfloat16]),
+                k4_bound_ms(flops, nbytes, PEAK_OPS[torch.float32]))
+    return k4_bound_ms(flops, nbytes, PEAK_OPS[dtype]), None
 
 
 def k4_inputs(n, cin, cout, dtype, gen):
@@ -599,11 +627,25 @@ def assert_near(what, got, want, abs_sum, rtol, atol):
     return float((got - want).abs().max())
 
 
+def check_fp32_routes(what: str, tensor_cores: int, cuda_cores: int = 0) -> tuple:
+    """Since the route counts were reset, ``tensor_cores`` of K4's fp32
+    forwards took the tensor-core route and ``cuda_cores`` the CUDA-core
+    route: (tensor cores, CUDA cores)."""
+    routes = sc.fp32_route_counts()
+    want = (tensor_cores, cuda_cores)
+    check(routes == want, f"{what}: fp32 K4 forwards by route (tensor cores, CUDA cores) "
+          f"{routes}, expected {want}")
+    return routes
+
+
 def compare_k4(x, w, b, gy, gs1, gs2, moments, dx_needed, dname):
     """K4 forward and backward against their plain versions: (max |d y|,
-    max |d| / |plain| of s1 and s2, max |d| of dx, dW and db)."""
+    max |d| / |plain| of s1 and s2, max |d| of dx, dW and db). An fp32 x
+    of the path must take the tensor-core route."""
+    sc.reset_fp32_route_counts()
     y, s1, s2 = sc.spike_conv3x3_fwd(x, w, b, moments)
     _, s1b, s2b = sc.spike_conv3x3_fwd(x, w, b, moments)
+    check_fp32_routes("K4 on the path's x", 2 if dname == "fp32" else 0)
     y_ref, s1_ref, s2_ref = sc.spike_conv3x3_fwd_reference(x, w, b, moments)
     got = sc.spike_conv3x3_bwd(x, w, y_ref, gy, gs1, gs2, moments, dx_needed)
     again = sc.spike_conv3x3_bwd(x, w, y_ref, gy, gs1, gs2, moments, dx_needed)
@@ -654,14 +696,46 @@ def kernel_profile(fn) -> dict:
     return out
 
 
+def add_profile(profile: dict, fn) -> None:
+    """Adds ``kernel_profile(fn)`` into ``profile``."""
+    for kname, (kms, count) in kernel_profile(fn).items():
+        row = profile.setdefault(kname, [0.0, 0])
+        row[0] += kms
+        row[1] += count
+
+
+def compare_k4_cuda_cores(x, w, b, moments) -> float:
+    """The fp32 forward of x with one element moved off bf16's grid: the
+    CUDA-core route, against the plain version at the same tolerances;
+    max |d y|."""
+    sc.reset_fp32_route_counts()
+    y, s1, s2 = sc.spike_conv3x3_fwd(x, w, b, moments)
+    check_fp32_routes("K4 on an x that bf16 cannot hold", 0, 1)
+    y_ref, s1_ref, s2_ref = sc.spike_conv3x3_fwd_reference(x, w, b, moments)
+    torch.testing.assert_close(y, y_ref, **K4_Y_TOL["fp32"])
+    if moments:
+        for what, a, a_ref, abs_sum in (("s1", s1, s1_ref, y_ref.abs().sum((0, 2, 3))),
+                                        ("s2", s2, s2_ref, s2_ref)):
+            assert_near(f"K4 CUDA-core route {what}", a, a_ref, abs_sum, **K4_MOMENT_TOL)
+    return float((y - y_ref).abs().max())
+
+
+def off_grid(x: torch.Tensor) -> torch.Tensor:
+    """x with its first element set to 1/3, which bf16 cannot hold."""
+    x = x.clone()
+    x.view(-1)[0] = 1.0 / 3.0
+    return x
+
+
 def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
     """K4 forward and backward against their plain versions at the six conv
     shapes of a 'bnlifconv' training step at batch 256, in fp32 and bf16,
     timed beside their bound and the library call (cuDNN through
     ``F.conv2d`` plus the two sums; ``aten.convolution_backward``): the
-    times per training step."""
+    times per training step. fp32 also on its CUDA-core route."""
     out = {}
     profile = {}  # bf16 kernel -> [device ms, launches] per training step
+    profile_fp32 = {}  # the same for the fp32 forward
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         rows = []
         err_fwd = err_moments = err_bwd = 0.0
@@ -702,25 +776,36 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
                     x, w, y, gy, gs1, gs2, moments, False), flush, reps),
             }
             if dtype == torch.bfloat16:  # where the step's K4 time goes, by kernel
-                for kname, (kms, count) in kernel_profile(lambda: (
-                        sc.spike_conv3x3_fwd(x, w, b, moments),
-                        sc.spike_conv3x3_bwd(x, w, y, gy, gs1, gs2, moments,
-                                             dx_needed))).items():
-                    row = profile.setdefault(kname, [0.0, 0])
-                    row[0] += kms
-                    row[1] += count
+                add_profile(profile, lambda: (
+                    sc.spike_conv3x3_fwd(x, w, b, moments),
+                    sc.spike_conv3x3_bwd(x, w, y, gy, gs1, gs2, moments, dx_needed)))
             f_flops, f_bytes, b_flops, b_bytes = k4_cost(n, cin, cout, moments, dx_needed,
                                                          itemsize)
-            fwd_bound, fwd_by = k4_bound_ms(f_flops, f_bytes, dtype)
-            bwd_bound, bwd_by = k4_bound_ms(b_flops, b_bytes, dtype)
+            (fwd_bound, fwd_by), cc_bound = k4_fwd_bounds(f_flops, f_bytes, dtype)
+            bwd_bound, bwd_by = k4_bound_ms(b_flops, b_bytes, PEAK_OPS[dtype])
+            extra, cc_log = {}, ""
+            if dtype == torch.float32:  # the other route, on the path's x moved off the grid
+                add_profile(profile_fp32, lambda: sc.spike_conv3x3_fwd(x, w, b, moments))
+                x_off = off_grid(x)
+                err_cc = compare_k4_cuda_cores(x_off, w, b, moments)
+                err_fwd = max(err_fwd, err_cc)
+                sc.reset_fp32_route_counts()
+                extra = {"fwd_cc_ms": cuda_ms(lambda: sc.spike_conv3x3_fwd(x_off, w, b, moments),
+                                              flush, reps),
+                         "fwd_cc_bound_ms": cc_bound[0]}
+                check_fp32_routes("K4 timed on an x that bf16 cannot hold", 0, reps + 1)
+                cc_log = (f" CUDA-core route {extra['fwd_cc_ms']:.3f} ms (bound "
+                          f"{cc_bound[0]:.3f}, max|d y| {err_cc:.3g});")
+                del x_off
             rows.append({"shape": name, "M": n * 49, "Cin": cin, "Cout": cout, **times,
-                         "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+                         **extra, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
                          "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
                          "fwd_gflop": f_flops / 1e9, "bwd_gflop": b_flops / 1e9})
             log(f"  K4 {dname} {name:18s} M={n * 49:7d}: fwd {times['fwd_ms']:.3f} ms "
                 f"(plain {times['fwd_plain_ms']:.3f}, cuDNN {times['fwd_library_ms']:.3f}, "
-                f"bound {fwd_bound:.3f} {fwd_by}, {f_flops / times['fwd_ms'] / 1e9:.2f} "
-                f"TFLOP/s useful); bwd {times['bwd_ms']:.3f} ms (plain "
+                f"bound {fwd_bound:.3f} {fwd_by}, {fwd_bound / times['fwd_ms']:.1%} of it, "
+                f"{f_flops / times['fwd_ms'] / 1e9:.2f} TFLOP/s useful);{cc_log} bwd "
+                f"{times['bwd_ms']:.3f} ms (plain "
                 f"{times['bwd_plain_ms']:.3f}, cuDNN {times['bwd_library_ms']:.3f}, bound "
                 f"{bwd_bound:.3f} {bwd_by}, {b_flops / times['bwd_ms'] / 1e9:.2f} TFLOP/s "
                 f"useful; dW + db {times['bwd_nodx_ms']:.3f}, dx "
@@ -728,27 +813,33 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
                 f"rel |d s1, s2| {e_m:.3g}, max|d dx, dW, db| {e_b:.3g} [{card}]")
             del x, y, gy
         per_step = lambda key: sum(r[key] for r in rows)  # noqa: E731
+        keys = ["fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms", "bwd_ms",
+                "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_nodx_ms", "fwd_gflop",
+                "bwd_gflop"]
+        if dtype == torch.float32:
+            keys += ["fwd_cc_ms", "fwd_cc_bound_ms"]
         out[dname] = {"rows": rows, "fwd_err": err_fwd, "bwd_err": err_bwd,
-                      "moments_rel_err": err_moments,
-                      **{k: per_step(k) for k in (
-                          "fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
-                          "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms",
-                          "bwd_nodx_ms", "fwd_gflop", "bwd_gflop")}}
+                      "moments_rel_err": err_moments, **{k: per_step(k) for k in keys}}
         for key in ("fwd", "bwd"):  # what bounds most of the step's bound
             by_ops = sum(r[f"{key}_bound_ms"] for r in rows
                          if r[f"{key}_bound_by"] == "operations")
             out[dname][f"{key}_bound_by"] = ("operations" if 2 * by_ops >= out[dname][
                 f"{key}_bound_ms"] else "bytes")
         o = out[dname]
+        cc = (f"; CUDA-core route {o['fwd_cc_ms']:.2f}, its bound {o['fwd_cc_bound_ms']:.2f}"
+              if "fwd_cc_ms" in o else "")
         log(f"  K4 {dname} per training step (6 calls): fwd {o['fwd_ms']:.2f} ms (cuDNN "
             f"{o['fwd_library_ms']:.2f}, bound {o['fwd_bound_ms']:.2f}, "
-            f"{o['fwd_gflop'] / o['fwd_ms']:.1f} TFLOP/s useful); bwd {o['bwd_ms']:.2f} ms "
+            f"{o['fwd_bound_ms'] / o['fwd_ms']:.1%} of it, "
+            f"{o['fwd_gflop'] / o['fwd_ms']:.1f} TFLOP/s useful{cc}); bwd {o['bwd_ms']:.2f} ms "
             f"(cuDNN {o['bwd_library_ms']:.2f}, bound {o['bwd_bound_ms']:.2f}, "
             f"{o['bwd_gflop'] / o['bwd_ms']:.1f} TFLOP/s useful; dW + db "
             f"{o['bwd_nodx_ms']:.2f}, dx {o['bwd_ms'] - o['bwd_nodx_ms']:.2f}) [{card}]")
-    by_time = sorted(profile.items(), key=lambda kv: -kv[1][0])
-    log("  K4 bf16 per training step by kernel (torch.profiler, fwd + bwd): "
-        + "; ".join(f"{k} {v[0]:.3f} ms / {v[1]}" for k, v in by_time) + f" [{card}]")
+    for what, prof in (("fp32 fwd", profile_fp32), ("bf16 fwd + bwd", profile)):
+        by_time = sorted(prof.items(), key=lambda kv: -kv[1][0])
+        log(f"  K4 {what} per training step by kernel (torch.profiler): "
+            + "; ".join(f"{k} {v[0]:.3f} ms / {v[1]}" for k, v in by_time) + f" [{card}]")
+    out["fp32"]["fwd_profile"] = profile_fp32
     return out
 
 
@@ -977,9 +1068,12 @@ def phase_generation_bnlifconv(models, dcfg, layerwise, card: str) -> tuple:
         f"layerwise fp32 {agree:.4f} [{card}]")
     want = (K1_DECODE_LAUNCHES, 0, K3_PER_STEP * steps, 0, 0, K4_PER_STEP * steps, 0)
     check(counts == want, f"bnlifconv generation launches {counts}, expected {want}")
+    routes = check_fp32_routes("bnlifconv generation", counts[5])
+    log(f"  bnlifconv request {i}: fp32 K4 forwards on the tensor cores / CUDA cores: "
+        f"{routes[0]} / {routes[1]}")
     check_outputs(codes, images, n, dcfg)
-    return {"launches": counts, "sample_ms": sample_ms, "decode_ms": decode_ms,
-            "agree_with_layerwise": agree}
+    return {"launches": counts, "fp32_routes": routes, "sample_ms": sample_ms,
+            "decode_ms": decode_ms, "agree_with_layerwise": agree}
 
 
 # --- phase 6: stage-2 training at full width ----------------------------------
@@ -994,6 +1088,7 @@ def launch_counts():
 def reset_launch_counts():
     lif_op.LAUNCHES = lif_op.LAUNCHES_BWD = bnl.LAUNCHES_FWD = bnl.LAUNCHES_BWD = 0
     fd.LAUNCHES = sc.LAUNCHES_FWD = sc.LAUNCHES_BWD = 0
+    sc.reset_fp32_route_counts()
 
 
 def format_counts(c) -> str:
@@ -1056,6 +1151,50 @@ def compare_steps(what, got, want, exact: bool, loss_atol: float = LOSS_ATOL,
     return row
 
 
+def check_k4_in_step(variables, dcfg, step_fn, x0, corruption) -> float:
+    """The first 'bnlifconv' step once more, each of its K4 forwards held
+    against the plain version on the very inputs the step gave it, at the
+    K4 phase's tolerances (y 1e-5, the moments as there), each on the
+    tensor-core route: the kernel at its own tolerance on the training
+    path's inputs, where a spike flipped downstream cannot hide a fault.
+    Logs how far the kernel's y and the plain version's lie from an fp64
+    conv of the same inputs. Max |d y|."""
+    state = train_state(variables, dcfg, "bnlifconv", "cuda")
+    calls = []
+
+    def hook(module, args, kwargs, out):
+        calls.append((args[0].detach(), module.weight.detach().clone(),
+                      module.bias.detach().clone(), kwargs.get("with_moments", True),
+                      *(o.detach() for o in out)))
+
+    handles = [m.register_forward_hook(hook, with_kwargs=True) for m in state.model.modules()
+               if isinstance(m, SeqConv)]
+    reset_launch_counts()
+    step_fn(state, x0, corruption=corruption)
+    for h in handles:
+        h.remove()
+    check(len(calls) == K4_PER_STEP, f"{len(calls)} K4 forwards in a step")
+    check_fp32_routes("the first bnlifconv step", K4_PER_STEP)
+    err = err_k4 = err_plain = 0.0
+    for i, (x, w, b, moments, y, s1, s2) in enumerate(calls):
+        y_ref, s1_ref, s2_ref = sc.spike_conv3x3_fwd_reference(x, w, b, moments)
+        err = max(err, assert_near(f"K4 call {i} of the first step: y", y, y_ref, 0.0,
+                                   **K4_Y_TOL["fp32"]))
+        y64 = torch.nn.functional.conv2d(x.double(), w.double(), b.double(), padding=1)
+        err_k4 = max(err_k4, float((y.double() - y64).abs().max()))
+        err_plain = max(err_plain, float((y_ref.double() - y64).abs().max()))
+        if moments:
+            for what, a, a_ref, abs_sum in (("s1", s1, s1_ref, y_ref.abs().sum((0, 2, 3))),
+                                            ("s2", s2, s2_ref, s2_ref)):
+                assert_near(f"K4 call {i} of the first step: {what}", a, a_ref, abs_sum,
+                            **K4_MOMENT_TOL)
+    log(f"  first bnlifconv step, each K4 forward against its plain version on its own "
+        f"inputs: max|d y| {err:.3g} (tolerance rtol {K4_Y_TOL['fp32']['rtol']:g}, atol "
+        f"{K4_Y_TOL['fp32']['atol']:g}), moments within theirs, all {K4_PER_STEP} on the "
+        f"tensor cores; max|y - fp64 conv| kernel {err_k4:.3g}, plain version {err_plain:.3g}")
+    return err
+
+
 def train_batches(dcfg, codes, n):
     """The TRAIN_STEPS batches of size n and their corruptions, drawn from
     a generator seeded with n: the same for every branch and dtype."""
@@ -1109,7 +1248,8 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
             check(counts == want, f"{branch}: launches {counts}, expected {want}")
             check(all(math.isfinite(v) for v in losses), f"{branch}: loss not finite")
             row = {"launches": counts, "ms": times, "ms_median": statistics.median(times[1:]),
-                   "losses": losses, "peak_bytes": peak}
+                   "losses": losses, "peak_bytes": peak,
+                   "fp32_routes": check_fp32_routes(f"{branch} batch {n}", counts[5])}
             if n == TRAIN_BATCHES[0]:
                 firsts[branch] = first
                 before = launch_counts()
@@ -1123,14 +1263,16 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
                 # K1 and K3 are bitwise their plain versions; K4 sums in
                 # another order than its plain version's torch.matmul
                 conv = branch == "bnlifconv"
-                tols = (CONV_LOSS_ATOL, CONV_STATS_TOL) if conv else (LOSS_ATOL, STATS_TOL)
-                row["vs_plain"] = compare_steps("the plain versions on the card", first,
-                                                plain_rec, exact=not conv)
+                row["vs_plain"] = compare_steps(
+                    "the plain versions on the card", first, plain_rec, not conv,
+                    *((CONV_LOSS_ATOL, CONV_STATS_TOL) if conv else ()))
                 row["vs_cpu"] = compare_steps("the CPU", first, step_record(cpu_state, loss_c),
-                                              False, *tols)
+                                              False)
                 if conv:
                     row["vs_bnlif"] = compare_steps("the 'bnlif' branch on the card", first,
-                                                    firsts["bnlif"], False, *tols)
+                                                    firsts["bnlif"], False)
+                    row["k4_in_step_max_abs_err"] = check_k4_in_step(
+                        variables, dcfg, step_fn, batches[0], corruptions[0])
             results[branch][n] = row
         # the loop a user calls: one epoch over the 256 grids at batch 32
         logged = []
@@ -1148,6 +1290,7 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
             f"{seconds:.2f} s (host clock), launches {format_counts(counts)}; losses "
             f"{', '.join(f'{v:.3f}' for v in losses)}")
         check(state.step == len(codes) // TRAIN_BATCHES[0], "train_diffusion step count")
+        check_fp32_routes(f"{branch} train_diffusion", counts[5])
         check(counts == tuple(k * state.step for k in STEP_LAUNCHES[branch]),
               f"{branch} train_diffusion launches {counts}")
         check(len(losses) == state.step and all(math.isfinite(v) for v in losses),
@@ -1177,6 +1320,7 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
             f"{fp32_first:.4f}; peak memory {peak / 2**30:.2f} GiB [{card}]")
         want = tuple(k * TRAIN_STEPS for k in STEP_LAUNCHES[branch])
         check(counts == want, f"{branch} bf16: launches {counts}, expected {want}")
+        check_fp32_routes(f"{branch} bf16", 0)
         check(all(math.isfinite(v) for v in losses), f"{branch} bf16: loss not finite")
         check(rel <= BF16_LOSS_RTOL, f"{branch} bf16 first loss {rel:.3%} from fp32's")
         results[branch]["bf16"] = {"launches": counts, "ms": times,
@@ -1214,10 +1358,12 @@ def main() -> int:
             for name, count in k4_hmma.items():
                 log(f"  K4 SASS: {count:3d} HMMA in {name}")
             mma = [n for n in k4_hmma if "mma_kernel" in n]
-            check(len(mma) == 2 and all(k4_hmma[n] > 0 for n in mma),
-                  "K4's bf16 kernels do not reach the tensor cores")
-            check(not any("_kernelI13__nv_bfloat16" in n for n in k4_hmma),
-                  "K4 still builds a bf16 CUDA-core kernel")
+            check(len(mma) == 3 and all(k4_hmma[n] > 0 for n in mma),
+                  "K4's tensor-core kernels do not reach the tensor cores")
+            check(any("conv_mma_kernelIf" in n for n in mma),
+                  "K4 builds no fp32-output tensor-core forward")
+            check(not any(re.search(r"\d(conv|wgrad|grad_out)_kernelI13__nv_bfloat16", n)
+                          for n in k4_hmma), "K4 still builds a bf16 CUDA-core kernel")
         with Phase("models"):
             dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
             models = build_models(dcfg, vcfg)
@@ -1313,6 +1459,16 @@ def main() -> int:
             "library_ms": k4["fp32"][f"{key}_library_ms"],
             "launches_per_train_step": K4_PER_STEP,
             "launches_generation": conv_gen["launches"][idx],
+            # fwd: the fp32 route (tensor cores for an x exact in bf16, bound
+            # at three bf16 products per product) and the CUDA-core route's
+            # time and bound on the same x moved off bf16's grid; the path's
+            # fp32 forwards by route (tensor cores, CUDA cores)
+            **({"cuda_core_route_ms": k4["fp32"]["fwd_cc_ms"],
+                "cuda_core_route_bound_ms": k4["fp32"]["fwd_cc_bound_ms"],
+                "fp32_routes_on_path": [
+                    sum(r["fp32_routes"][i] for r in train["bnlifconv"].values()
+                        if "fp32_routes" in r) + conv_gen["fp32_routes"][i] for i in (0, 1)],
+                "fp32_profile": k4["fp32"]["fwd_profile"]} if key == "fwd" else {}),
             "bf16": {k: k4["bf16"][f"{key}_{k}"]
                      for k in ("ms", "plain_ms", "bound_ms", "library_ms", "err")},
             **({"bwd_nodx_ms": {d: k4[d]["bwd_nodx_ms"] for d in k4}} if key == "bwd" else {}),

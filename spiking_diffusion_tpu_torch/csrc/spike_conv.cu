@@ -27,38 +27,81 @@
 // What bounds it on an H100: operations. A training step of the full-width
 // denoiser at batch 256 runs 1.24 TFLOP through the forward and 2.49 through
 // the backward (1.02 and 2.03 inside the 7x7 grid), against ~2 GB of
-// activations. The two storage types take two routes.
+// activations. bf16 and the fp32 forward run on the tensor cores; the fp32
+// backward, and the fp32 forward of an x that bf16 cannot hold, on the CUDA
+// cores.
 //
-// fp32 (T = float): the CUDA cores, column k = ci * 9 + kh * 3 + kw, x and
-// the (Cin * 9, Cout) weight matrix read as they lie (NCHW). A classic
-// register-blocked SGEMM: a block computes a 128 x 128 output tile with 256
-// threads, 8 x 8 outputs each, from double-buffered 8-deep tiles of A and B
-// in shared memory, A gathered from NCHW as the tile is loaded.
+// The tensor-core route. The operands are channels-last and padded: x (and
+// g for dx and dW) is copied (written, for g) as bf16 (M, Cp) with Cp = C
+// rounded up to a multiple of 8, the padding zero, so that every operand
+// row piece is one aligned 16-byte `cp.async`; column k = tap * Cp + ci with
+// tap = kh * 3 + kw, so for one row and one tap a run of 8 channels is
+// contiguous and an off-grid tap or a row past M is one zero-filled copy.
+// Forward, dx and dW share one inner loop: a 128 x 128 block tile
+// contracted in 64-deep stages through a 3-stage `cp.async` ring, 8 warps
+// of 64 x 32, fragments from `ldmatrix` (`.trans` for an operand stored
+// contraction-major), `mma.sync.m16n8k16` bf16 -> fp32. Forward and dx take
+// A = the im2col rows of the channels-last x (or g), B = the (9 * Cp_in,
+// Cp_out) weight matrix (or the (9 * Cp_out, Cp_in) flipped one); dW takes
+// A = g^T and B = the im2col of x over one split of the rows, and gives
+// (Cout, 9 * Cp_in). The bound is the tensor cores' rate and how well a
+// warp-level `mma.sync` feeds them; Hopper's `wgmma` would lift that
+// ceiling.
 //
-// bf16: the tensor cores. The operands are channels-last and padded: x (and
-// g for dx and dW) is copied (written, for g) as (M, Cp) with Cp = C rounded
-// up to a multiple of 8, the padding zero, so that every operand row piece
-// is one aligned 16-byte `cp.async`; column k = tap * Cp + ci with tap = kh * 3 + kw, so for one
-// row and one tap a run of 8 channels is contiguous and an off-grid tap or a
-// row past M is one zero-filled copy. Forward, dx and dW share one inner
-// loop: a 128 x 128 block tile contracted in 64-deep stages through a
-// 3-stage `cp.async` ring, 8 warps of 64 x 32, fragments from `ldmatrix`
-// (`.trans` for an operand stored contraction-major), `mma.sync.m16n8k16`
-// bf16 -> fp32. Forward and dx take A = the im2col rows of the
-// channels-last x (or g), B = the (9 * Cp_in, Cp_out) weight matrix (or
-// the (9 * Cp_out, Cp_in) flipped one); dW takes A = g^T and B = the
-// im2col of x over one split of the rows, and gives (Cout, 9 * Cp_in). The
-// bound is the tensor cores' rate and how well a warp-level `mma.sync` feeds
-// them; Hopper's `wgmma` would lift that ceiling.
+// fp32 forward (T = float), two routes, chosen on the device per call. On
+// the model's path every x is exact in bf16: spikes (0, 1), token ids (<=
+// mask_id, 128) and timesteps (<= 49). That holds while mask_id and the
+// number of timesteps are at most 256, since every integer up to 256 is
+// exact in bf16; a larger codebook sends block 0 to the CUDA-core route,
+// still correct. And any fp32 weight W is the exact sum of
+// three bf16 planes, W0 = bf16(W), W1 = bf16(W - W0), W2 = bf16(W - W0 -
+// W1), each holding 8 of fp32's 24 significant bits (for |W| >= 2^-110;
+// below, the sum is within 2^-134, half bf16's least subnormal). A bf16 x
+// bf16 product is exact in fp32, so y = sum x W2 + sum x W1 + sum x W0 has
+// exact products summed in fp32: the CUDA cores' arithmetic in another
+// order, at three bf16 products per product.
+//  - The pack copies the fp32 x to the bf16 channels-last scratch and sets
+//    a device flag (atomicOr) if any element changed when rounded.
+//  - Exact x: the tensor-core loop above over K' = 3 * 9 * Cp_in, B the
+//    three planes stacked as (3 * 9 * Cp_in, Cp_out), smallest first (W2,
+//    W1, W0) so that the small terms are summed before the large ones; A's
+//    loader reads column k' at k' mod (9 * Cp_in), which needs no extra
+//    copy of x (9 * Cp is a multiple of 8, so no 16-byte piece straddles
+//    two planes). Three B fragments against each A fragment would read A
+//    once instead of three times, but triple B's share of the ring; the
+//    longer contraction keeps the loop, its ring and its occupancy as they
+//    are. The whole K'-deep sum stays in the mma's fp32 accumulators: y
+//    meets the plain version's 1e-5 at the path's shapes and the card
+//    tests' without promoting partial sums through CUDA-core adds. y is
+//    stored in fp32. One kernel (split_weight_kernel) writes both routes'
+//    weight matrices per call. Bounded, like bf16, by the tensor cores, at
+//    three products per useful one.
+//  - Other x (an element off bf16's grid, or not finite: inf times a zero
+//    plane would give NaN), and any call of 2^31 rows or more (the
+//    tensor-core loop's index is 32-bit; no pack then): the CUDA cores,
+//    column k = ci * 9 + kh * 3 + kw, x and the (Cin * 9, Cout) weight
+//    matrix read as they lie (NCHW). A classic
+//    register-blocked SGEMM: a block computes a 128 x 128 output tile with
+//    256 threads, 8 x 8 outputs each, from double-buffered 8-deep tiles of
+//    A and B in shared memory, A gathered from NCHW as the tile is loaded.
+//    Bounded by the CUDA cores' 67 TFLOP/s. It is also the fp32 backward's
+//    dx.
+//  Both kernels are launched after the pack; each reads the flag first and
+//  the one not chosen returns at once, so the choice needs no host
+//  synchronisation. Both write the moments' partials in one (row tiles,
+//  Cout) layout for one second stage, and count the calls they take in a
+//  device tally (tensor cores, CUDA cores).
 //
-// Fixed orders, no atomics: the moments and db are summed per thread over
-// its rows, then in a fixed shuffle tree (forward) or shared-memory tree
-// (db), into per-block partials, and a second kernel adds the partials of a
-// channel in block order (csrc/channel_sum.cuh, shared with K3); dW is
-// contracted over a fixed split of the rows, one partial per split, which a
-// last kernel adds in split order. So s1, s2, db and dW are equal from run
-// to run. The plain PyTorch versions (ops/spike_conv.py) sum in other
-// orders; the tolerances are stated there.
+// Fixed orders, no atomics in any sum (the route's flag and tally are
+// the only atomics): the moments and db are summed per thread over its
+// rows, then in a fixed shuffle tree (forward) or shared-memory tree (db),
+// into per-block partials, and a second kernel adds the partials of a
+// channel in a fixed order (the moments: a warp per channel; db: block
+// order, csrc/channel_sum.cuh, shared with K3); dW is contracted over a
+// fixed split of the rows, one partial per split, which a last kernel adds
+// in split order. So s1, s2, db and dW are equal from run to run. The
+// plain PyTorch versions (ops/spike_conv.py) sum in other orders; the
+// tolerances are stated there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,15 +169,23 @@ __device__ __forceinline__ int tile_offset(int i, int t4) {
 
 // y = conv3x3(x, B) (+ bias), rows m = (img, h, w), columns co; with
 // `part_s1` non-null also the per-block moments partials (gridDim.x, cout).
+// With `inexact` non-null (the fp32 forward's route for an x that bf16
+// cannot hold) the blocks return at once unless the flag is set; with
+// `tally` non-null block 0 counts the call in tally[1].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
             const float* __restrict__ bias, T* __restrict__ y,
             float* __restrict__ part_s1, float* __restrict__ part_s2,
+            const int* __restrict__ inexact, int* __restrict__ tally,
             long long n_img, int cin, int cout, int H, int W) {
   __shared__ __align__(16) float As[2][kBK * kBM];
   __shared__ __align__(16) float Bs[2][kBK * kBN];
   const int tid = threadIdx.x;
+  if (inexact != nullptr && *inexact == 0) return;
+  if (tally != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
+    atomicAdd(&tally[1], 1);
+  }
   const int HW = H * W;
   const long long M = n_img * HW;
   const int K = cin * 9;
@@ -360,19 +411,17 @@ inline unsigned int cdiv(long long a, long long b) {
   return static_cast<unsigned int>((a + b - 1) / b);
 }
 
+// conv_kernel over the whole of y; the moments' partials (row tiles of kBM,
+// cout), when asked for, are the caller's to sum.
 template <typename T>
 int launch_conv(const void* x, const void* wk, const float* bias, void* y,
-                float* part_s1, float* part_s2, float* s1, float* s2,
-                long long n_img, int cin, int cout, int H, int W,
-                cudaStream_t st) {
+                float* part_s1, float* part_s2, const int* inexact, int* tally,
+                long long n_img, int cin, int cout, int H, int W, cudaStream_t st) {
   const long long M = n_img * H * W;
   const dim3 grid(cdiv(M, kBM), cdiv(cout, kBN));
   conv_kernel<T><<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(wk), bias,
-      static_cast<T*>(y), part_s1, part_s2, n_img, cin, cout, H, W);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || part_s1 == nullptr) return rc;
-  chsum::sum_partials(part_s1, part_s2, s1, s2, grid.x, cout, st);
+      static_cast<T*>(y), part_s1, part_s2, inexact, tally, n_img, cin, cout, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -410,7 +459,7 @@ int launch_bwd(const void* x, const void* w2, const void* y, const void* gy,
 }
 
 
-// --- bf16: tensor cores, channels-last operands ---------------------------
+// --- tensor cores: bf16, and the fp32 forward of an x exact in bf16 --------
 
 namespace tc {
 
@@ -433,6 +482,11 @@ constexpr int kRowChunks = kBK / 8;
 constexpr int kRowPasses = kBM * kRowChunks / kThreads;
 constexpr int kKChunks = kBN / 8;
 constexpr int kKPasses = kBK * kKChunks / kThreads;
+// bf16 planes of the weight: an fp32 weight is three (the fp32 forward)
+template <typename Out>
+constexpr int kPlanes = 1;
+template <>
+constexpr int kPlanes<float> = 3;
 
 __host__ __device__ constexpr int padded(int c) { return (c + kAlign - 1) / kAlign * kAlign; }
 
@@ -568,18 +622,39 @@ __device__ __forceinline__ void mainloop(bf16* smem, int steps, Load load,
   __syncthreads();
 }
 
+// The stored value of v in `out`, as a float.
+__device__ __forceinline__ float store_as(bf16* out, float v) {
+  const bf16 r = __float2bfloat16(v);
+  *out = r;
+  return __bfloat162float(r);
+}
+__device__ __forceinline__ float store_as(float* out, float v) {
+  *out = v;
+  return v;
+}
+
 // out = conv3x3 over the channels-last (M, padded(cin)) src with the
-// (9 * padded(cin), padded(cout)) matrix wk (+ bias), NCHW, rounded to bf16;
-// with `part_s1` non-null also the moments partials (row tiles, cout) of the
-// rounded out. Block b computes row tile b / tiles_n, column tile b % tiles_n.
+// (kPlanes<Out> * 9 * padded(cin), padded(cout)) matrix wk (+ bias), NCHW,
+// in Out (bf16: rounded); A's column k' is the im2col column k' mod (9 *
+// padded(cin)), so each of wk's planes meets the same rows of x. With
+// `part_s1` non-null also the moments partials (row tiles, cout) of the
+// stored out. With `inexact` non-null (the fp32 forward) the blocks return at
+// once if the flag is set, and block 0 counts the call in tally[0]. Block
+// b computes row tile b / tiles_n, column tile b % tiles_n.
+template <typename Out>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
-                const float* __restrict__ bias, bf16* __restrict__ out,
-                float* __restrict__ part_s1, float* __restrict__ part_s2, int M, int cin,
+                const float* __restrict__ bias, Out* __restrict__ out,
+                float* __restrict__ part_s1, float* __restrict__ part_s2,
+                const int* __restrict__ inexact, int* __restrict__ tally, int M, int cin,
                 int cout, int H, int W) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x;
+  if (inexact != nullptr) {
+    if (*inexact != 0) return;
+    if (blockIdx.x == 0 && tid == 0) atomicAdd(&tally[0], 1);
+  }
   const int HW = H * W;
   const int cp = padded(cin);
   const int np = padded(cout);
@@ -610,16 +685,18 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
   const int b_c = (tid % kKChunks) * 8;
   const bool b_col_ok = n0 + b_c < np;
 
-  // the A columns' (tap, ci) of column k = s * kBK + a_c, stepped by kBK a stage
-  int tap = 0;
+  // the A columns' (plane * 9 + tap, ci) of column k' = s * kBK + a_c,
+  // stepped by kBK a stage
+  int ptap = 0;
   int ci = a_c;
   while (ci >= cp) {
     ci -= cp;
-    ++tap;
+    ++ptap;
   }
 
   auto load = [&](bf16* As, bf16* Bs, int s) {
-    const bool k_ok = tap < 9;
+    const bool k_ok = ptap < 9 * kPlanes<Out>;
+    const int tap = kPlanes<Out> == 1 ? ptap : ptap % 9;
     const int kh = tap >= 6 ? 2 : (tap >= 3 ? 1 : 0);
     const int dh = kh - 1;
     const int dw = tap - kh * 3 - 1;
@@ -635,21 +712,21 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
     ci += kBK;
     while (ci >= cp) {
       ci -= cp;
-      ++tap;
+      ++ptap;
     }
 #pragma unroll
     for (int r = 0; r < kKPasses; ++r) {
       const int kr = tid / kKChunks + r * (kThreads / kKChunks);
       const int kb = s * kBK + kr;
-      const bool ok = b_col_ok && kb < K;
+      const bool ok = b_col_ok && kb < kPlanes<Out> * K;
       const bf16* from = ok ? wk + static_cast<long long>(kb) * np + n0 + b_c : wk;
       cp_async16(Bs + kr * kLdK + b_c, from, ok);
     }
   };
   float acc[4][4][4];
-  mainloop<false>(smem, (K + kBK - 1) / kBK, load, acc);
+  mainloop<false>(smem, (kPlanes<Out> * K + kBK - 1) / kBK, load, acc);
 
-  // Epilogue: bias, rounding, NCHW store, moments of the rounded out over
+  // Epilogue: bias, rounding to Out, NCHW store, moments of the stored out over
   // the rows < M. Element e of acc[i][j] lies at row 16 i + lane / 4 + 8 (e / 2),
   // column 8 j + 2 (lane % 4) + e % 2 of the warp's tile.
   const int lane = tid & 31;
@@ -668,7 +745,7 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
       const int m = m0 + wm * 64 + i * 16 + (lane >> 2) + half * 8;
       if (m >= M) continue;
       const int img = m / HW;
-      bf16* o = out + static_cast<long long>(img) * cout * HW + (m - img * HW);
+      Out* o = out + static_cast<long long>(img) * cout * HW + (m - img * HW);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -676,9 +753,8 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
           const int co = n0 + wn * 32 + j * 8 + 2 * (lane & 3) + e;
           if (co >= cout) continue;
           const float v = acc[i][j][half * 2 + e];
-          const bf16 r = __float2bfloat16(bias != nullptr ? v + bias[co] : v);
-          o[static_cast<long long>(co) * HW] = r;
-          const float f = __bfloat162float(r);
+          const float f =
+              store_as(o + static_cast<long long>(co) * HW, bias != nullptr ? v + bias[co] : v);
           s1[j][e] = s1[j][e] + f;
           s2[j][e] = s2[j][e] + f * f;
         }
@@ -831,18 +907,31 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[kAlign]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(q[0], q[1], q[2], q[3]);
 }
 
-// out = the channels-last (M, padded(C)) copy of the NCHW x, the padding
-// channels 0, through a shared-memory transpose: a block reads a tile of
-// kPackChans channels x kPackRows rows along the rows (a channel's pixels
-// are contiguous in an image) and writes it along the channels, 16 bytes a
-// thread, whole rows of the tile at once. Block b takes row tile b / groups,
-// channel tile b % groups.
+// v as bf16; `changed` set if that rounds it (an fp32 v only).
+__device__ __forceinline__ bf16 to_bf16(bf16 v, bool&) { return v; }
+__device__ __forceinline__ bf16 to_bf16(float v, bool& changed) {
+  const bf16 r = __float2bfloat16(v);
+  changed = changed || !isfinite(v) || __bfloat162float(r) != v;
+  return r;
+}
+
+// out = the bf16 channels-last (M, padded(C)) copy of the NCHW x, the
+// padding channels 0, through a shared-memory transpose: a block reads a
+// tile of kPackChans channels x kPackRows rows along the rows (a channel's
+// pixels are contiguous in an image) and writes it along the channels, 16
+// bytes a thread, whole rows of the tile at once. Block b takes row tile b
+// / groups, channel tile b % groups. An fp32 x sets *inexact (atomicOr, so
+// in no particular order and with one result) if any element changed when
+// rounded to bf16 or is not finite (an inf meets the planes' zeros, and inf
+// x 0 is NaN); a bf16 x never does.
 constexpr int kPackRows = 64;
 constexpr int kPackChans = 64;
 constexpr int kPackLd = kPackRows + 1;  // odd: the column reads spread over the banks
 
+template <typename In>
 __global__ void __launch_bounds__(kRedThreads)
-pack_cl_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int M, int C, int HW) {
+pack_cl_kernel(const In* __restrict__ x, bf16* __restrict__ out, int* __restrict__ inexact,
+               int M, int C, int HW) {
   __shared__ bf16 tile[kPackChans * kPackLd];
   const int cp = padded(C);
   const int groups = (cp + kPackChans - 1) / kPackChans;
@@ -854,15 +943,16 @@ pack_cl_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int M, int C,
   const int m = m0 + r;
   const bool m_ok = m < M;
   const int img = m_ok ? m / HW : 0;
-  const bf16* px = x + static_cast<long long>(img) * C * HW + (m - img * HW);
+  const In* px = x + static_cast<long long>(img) * C * HW + (m - img * HW);
+  bool changed = false;
 #pragma unroll
   for (int i = 0; i < kPackChans * kPackRows / kRedThreads; ++i) {
     const int cl = threadIdx.x / kPackRows + (kRedThreads / kPackRows) * i;
     const int c = c0 + cl;
-    tile[cl * kPackLd + r] =
-        m_ok && c < C ? px[static_cast<long long>(c) * HW] : __float2bfloat16(0.0f);
+    tile[cl * kPackLd + r] = m_ok && c < C ? to_bf16(px[static_cast<long long>(c) * HW], changed)
+                                           : __float2bfloat16(0.0f);
   }
-  __syncthreads();
+  if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(inexact, 1);
   // write: channels c0 + (tid % 8) * 8.. of rows m0 + tid / 8 + 32 j
   const int ch = (threadIdx.x % (kPackChans / kAlign)) * kAlign;
 #pragma unroll
@@ -911,9 +1001,11 @@ inline int sum_partials(const float* part_a, const float* part_b, float* a, floa
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int pack_cl(const void* x, void* out, int M, int C, int HW, cudaStream_t st) {
-  pack_cl_kernel<<<cdiv(M, kPackRows) * cdiv(padded(C), kPackChans), kRedThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), M, C, HW);
+template <typename In>
+inline int pack_cl(const void* x, void* out, int* inexact, int M, int C, int HW,
+                   cudaStream_t st) {
+  pack_cl_kernel<In><<<cdiv(M, kPackRows) * cdiv(padded(C), kPackChans), kRedThreads, 0, st>>>(
+      static_cast<const In*>(x), static_cast<bf16*>(out), inexact, M, C, HW);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -957,28 +1049,89 @@ grad_out_cl_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
   }
 }
 
-inline int launch_conv(const void* src, const void* wk, const float* bias, void* out,
-                       float* part_s1, float* part_s2, float* s1, float* s2, int M, int cin,
-                       int cout, int H, int W, cudaStream_t st) {
-  const unsigned tiles_m = cdiv(M, kBM);
+// conv_mma_kernel<Out> over the whole of out; the moments' partials (row
+// tiles of kBM, cout), when asked for, are the caller's to sum.
+template <typename Out>
+inline int launch_mma(const void* src, const void* wk, const float* bias, void* out,
+                      float* part_s1, float* part_s2, const int* inexact, int* tally, int M,
+                      int cin, int cout, int H, int W, cudaStream_t st) {
   const int bytes = smem_bytes(false);
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      conv_mma_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
-  conv_mma_kernel<<<tiles_m * cdiv(cout, kBN), kThreads, bytes, st>>>(
-      static_cast<const bf16*>(src), static_cast<const bf16*>(wk), bias,
-      static_cast<bf16*>(out), part_s1, part_s2, M, cin, cout, H, W);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || part_s1 == nullptr) return rc;
-  return sum_partials(part_s1, part_s2, s1, s2, tiles_m, cout, st);
+  conv_mma_kernel<Out><<<cdiv(M, kBM) * cdiv(cout, kBN), kThreads, bytes, st>>>(
+      static_cast<const bf16*>(src), static_cast<const bf16*>(wk), bias, static_cast<Out*>(out),
+      part_s1, part_s2, inexact, tally, M, cin, cout, H, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 inline int launch_fwd(const void* x, void* xcl, const void* wk, const float* bias, void* y,
                       float* part_s1, float* part_s2, float* s1, float* s2, int M, int cin,
                       int cout, int H, int W, cudaStream_t st) {
-  const int rc = pack_cl(x, xcl, M, cin, H * W, st);
+  int rc = pack_cl<bf16>(x, xcl, nullptr, M, cin, H * W, st);
   if (rc != 0) return rc;
-  return launch_conv(xcl, wk, bias, y, part_s1, part_s2, s1, s2, M, cin, cout, H, W, st);
+  rc = launch_mma<bf16>(xcl, wk, bias, y, part_s1, part_s2, nullptr, nullptr, M, cin, cout,
+                        H, W, st);
+  if (rc != 0 || part_s1 == nullptr) return rc;
+  return sum_partials(part_s1, part_s2, s1, s2, cdiv(M, kBM), cout, st);
+}
+
+// The fp32 forward's two weight matrices from the OIHW fp32 weight w, one
+// thread per element of a plane: wk the three bf16 planes W2, W1, W0 (W0 =
+// bf16(w), W1 = bf16(w - W0), W2 = bf16(w - W0 - W1); both differences are
+// exact in fp32) stacked as (3 * 9 * Cp_in, Cp_out), row p * 9 * Cp_in + tap
+// * Cp_in + ci, zero in the padding; wk_cc the CUDA cores' (cin * 9, cout)
+// fp32 matrix, row ci * 9 + tap. Also clears the route flag for the pack.
+__global__ void __launch_bounds__(kRedThreads)
+split_weight_kernel(const float* __restrict__ w, bf16* __restrict__ wk,
+                    float* __restrict__ wk_cc, int* __restrict__ inexact, int cin, int cout) {
+  const int cp = padded(cin);
+  const int np = padded(cout);
+  const int e = blockIdx.x * kRedThreads + threadIdx.x;
+  if (e == 0) *inexact = 0;
+  if (e >= 9 * cp * np) return;
+  const int co = e % np;
+  const int row = e / np;  // tap * cp + ci
+  const int tap = row / cp;
+  const int ci = row - tap * cp;
+  const bool ok = ci < cin && co < cout;
+  const float v = ok ? w[(static_cast<long long>(co) * cin + ci) * 9 + tap] : 0.0f;
+  const bf16 w0 = __float2bfloat16(v);
+  const float rest = v - __bfloat162float(w0);
+  const bf16 w1 = __float2bfloat16(rest);
+  const long long plane = 9LL * cp * np;
+  wk[e] = __float2bfloat16(rest - __bfloat162float(w1));
+  wk[plane + e] = w1;
+  wk[2 * plane + e] = w0;
+  if (ok) wk_cc[(static_cast<long long>(ci) * 9 + tap) * cout + co] = v;
+}
+
+// The fp32 forward: the pack sets *inexact if x is not exact in bf16; the
+// tensor-core kernel (wk: the three planes) runs if it is not set, the
+// CUDA-core kernel (wk_cc: the fp32 (cin * 9, cout) matrix over the NCHW
+// x) if it is, and one second stage sums the partials of either. More rows
+// than the tensor-core loop's 32-bit index go to the CUDA cores alone,
+// with no pack and the flag unread.
+inline int launch_fwd_f32(const void* x, void* xcl, const void* wk, const void* wk_cc,
+                          const float* bias, void* y, float* part_s1, float* part_s2,
+                          float* s1, float* s2, int* inexact, int* tally, long long n_img,
+                          int cin, int cout, int H, int W, cudaStream_t st) {
+  static_assert(kBM == ::kBM, "both routes write partials per 128-row tile");
+  const long long M = n_img * H * W;
+  int rc = 0;
+  if (M > 0x7fffffffLL) {
+    inexact = nullptr;
+  } else {
+    rc = pack_cl<float>(x, xcl, inexact, static_cast<int>(M), cin, H * W, st);
+    if (rc != 0) return rc;
+    rc = launch_mma<float>(xcl, wk, bias, y, part_s1, part_s2, inexact, tally,
+                           static_cast<int>(M), cin, cout, H, W, st);
+    if (rc != 0) return rc;
+  }
+  rc = launch_conv<float>(x, wk_cc, bias, y, part_s1, part_s2, inexact, tally, n_img, cin,
+                          cout, H, W, st);
+  if (rc != 0 || part_s1 == nullptr) return rc;
+  return sum_partials(part_s1, part_s2, s1, s2, cdiv(M, kBM), cout, st);
 }
 
 inline int launch_bwd(const void* x, void* xcl, const void* w2, const void* y,
@@ -994,7 +1147,7 @@ inline int launch_bwd(const void* x, void* xcl, const void* w2, const void* y,
   if (rc != 0) return rc;
   rc = sum_partials(part_db, nullptr, db, nullptr, row_blocks, cout, st);
   if (rc != 0) return rc;
-  rc = pack_cl(x, xcl, M, cin, H * W, st);
+  rc = pack_cl<bf16>(x, xcl, nullptr, M, cin, H * W, st);
   if (rc != 0) return rc;
   const int K = 9 * padded(cin);
   const int bytes = smem_bytes(true);
@@ -1012,44 +1165,62 @@ inline int launch_bwd(const void* x, void* xcl, const void* w2, const void* y,
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0 || dx == nullptr) return rc;
   // dx: the forward's GEMM on g, Cout channels in, Cin out, no bias or moments
-  return launch_conv(g, w2, nullptr, dx, nullptr, nullptr, nullptr, nullptr, M, cout,
-                     cin, H, W, st);
+  return launch_mma<bf16>(g, w2, nullptr, dx, nullptr, nullptr, nullptr, nullptr, M, cout,
+                          cin, H, W, st);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// Both launch on `stream` (a cudaStream_t), allocate nothing and do not
-// synchronise; `bf16` selects the storage type of x, the weight matrices,
-// y, gy, g and dx, and the route: 0 fp32 (NCHW x and g), 1 bf16 (channels-
-// last copies of x and g, Cp = C rounded up to a multiple of 8, the padding
-// zero; n_img * H * W below 2^31). xcl is the bf16 route's (n_img * H * W,
-// Cp_in) scratch for x's copy (fp32: unused, may be null). Each returns the
-// first CUDA error of its launches, 0 if none.
+// Each entry point launches on `stream` (a cudaStream_t), allocates nothing
+// and does not synchronise; `bf16` selects the storage type of x, the weight matrices,
+// y, gy, g and dx: 0 fp32, 1 bf16. Cp = C rounded up to a multiple of 8.
+// xcl is the (n_img * H * W, Cp_in) bf16 scratch for x's channels-last copy
+// (the fp32 backward: unused, may be null). Each returns the first CUDA
+// error of its launches, 0 if none.
 //
-// spike_conv_fwd: x (n_img, cin, H, W); wk (cin * 9, cout), row ci * 9 +
-// tap, bf16 (9 * Cp_in, Cp_out), row tap * Cp_in + ci; bias (cout,) fp32
-// or null; y (n_img, cout, H, W). With
-// `with_moments`, part_s1 and part_s2 are (ceil(n_img * H * W / 128), cout)
-// fp32 scratch and s1, s2 (cout,) fp32 outputs; without, all four are
-// unused (may be null).
-extern "C" int spike_conv_fwd(const void* x, void* xcl, const void* wk, const float* bias,
-                              void* y, float* part_s1, float* part_s2, float* s1,
-                              float* s2, long long n_img, int cin, int cout, int H,
-                              int W, int with_moments, int bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!with_moments) part_s1 = part_s2 = s1 = s2 = nullptr;
-  if (bf16) {
-    if (n_img * H * W > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    return tc::launch_fwd(x, xcl, wk, bias, y, part_s1, part_s2, s1, s2,
-                          static_cast<int>(n_img * H * W), cin, cout, H, W, st);
-  }
-  return launch_conv<float>(x, wk, bias, y, part_s1, part_s2, s1, s2, n_img,
-                            cin, cout, H, W, st);
+// spike_conv_weight_f32: the fp32 forward's wk and wk_cc (below) from the
+// contiguous OIHW fp32 weight w (cout, cin, 3, 3), and inexact set to 0.
+extern "C" int spike_conv_weight_f32(const float* w, void* wk, float* wk_cc, int* inexact,
+                                     int cin, int cout, void* stream) {
+  const long long n = 9LL * tc::padded(cin) * tc::padded(cout);
+  tc::split_weight_kernel<<<cdiv(n, kRedThreads), kRedThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<tc::bf16*>(wk), wk_cc, inexact, cin, cout);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// spike_conv_bwd: x (n_img, cin, H, W); w2 (cout * 9, cin), row co * 9 +
+// spike_conv_fwd: x (n_img, cin, H, W), bf16 n_img * H * W below 2^31; wk the
+// tensor-core matrix, bf16 (9 * Cp_in, Cp_out), row tap * Cp_in + ci, fp32
+// the three bf16 planes of the weight stacked as (3 * 9 * Cp_in, Cp_out),
+// smallest first; wk_cc (fp32 only) the CUDA-core matrix (cin * 9, cout),
+// row ci * 9 + tap, fp32; bias (cout,) fp32 or null; y (n_img, cout, H, W).
+// fp32 only: inexact one int, 0 on entry, set to 1 if x is not exact in
+// bf16 or not finite (then the CUDA cores computed y, else the tensor
+// cores; from 2^31 rows on, the CUDA cores and the flag is unread), and
+// tally two ints to which the call adds one, at [0] for the tensor cores,
+// at [1] for the CUDA cores. With `with_moments`, part_s1 and part_s2 are
+// (ceil(n_img * H * W / 128), cout) fp32 scratch and s1, s2 (cout,) fp32
+// outputs; without, all four are unused (may be null).
+extern "C" int spike_conv_fwd(const void* x, void* xcl, const void* wk, const void* wk_cc,
+                              const float* bias, void* y, float* part_s1, float* part_s2,
+                              float* s1, float* s2, int* inexact, int* tally, long long n_img,
+                              int cin, int cout, int H, int W, int with_moments, int bf16,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!with_moments) part_s1 = part_s2 = s1 = s2 = nullptr;
+  if (!bf16) {
+    return tc::launch_fwd_f32(x, xcl, wk, wk_cc, bias, y, part_s1, part_s2, s1, s2, inexact,
+                              tally, n_img, cin, cout, H, W, st);
+  }
+  if (n_img * H * W > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_fwd(x, xcl, wk, bias, y, part_s1, part_s2, s1, s2,
+                        static_cast<int>(n_img * H * W), cin, cout, H, W, st);
+}
+
+// spike_conv_bwd: x (n_img, cin, H, W), bf16 n_img * H * W below 2^31; w2
+// (cout * 9, cin), row co * 9 +
 // t, bf16 (9 * Cp_out, Cp_in), row t * Cp_out + co, the flipped and
 // transposed weight, read only with dx; y, gy
 // (n_img, cout, H, W); gs1, gs2 (cout,) fp32, read only with

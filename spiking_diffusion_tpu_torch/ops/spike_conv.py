@@ -28,18 +28,30 @@ only for tensors on the CPU; :func:`spike_conv3x3` puts the two behind one
 ``torch.autograd.Function``. ``LAUNCHES_FWD`` and ``LAUNCHES_BWD`` count
 the kernels' launches.
 
-The kernels take fp32 as it lies (NCHW, CUDA cores) and bf16 on the
-tensor cores through channels-last operands: the kernels copy x (and write
-the backward's g) as (N * H * W, Cp) with Cp = C rounded up to
-``CHANNEL_ALIGN``, the padding zero (plain version:
+bf16 runs on the tensor cores through channels-last operands: the kernels
+copy x (and write the backward's g) as (N * H * W, Cp) with Cp = C rounded
+up to ``CHANNEL_ALIGN``, the padding zero (plain version:
 :func:`channels_last`), the wrapper lays the weight out as (9 * Cp_in,
 Cp_out) and (9 * Cp_out, Cp_in) matrices with row tap * Cp + channel
 (:func:`kernel_weight_cl`, :func:`dx_weight_cl`) and unpacks dW from
 (Cout, 9 * Cp_in) (:func:`dw_from_cl`); y, dx and the interface stay
-NCHW.
+NCHW. The fp32 backward runs on the CUDA cores over NCHW operands.
+
+The fp32 forward takes one of two routes, chosen on the card per call
+with no host synchronisation. The kernel copies x to bf16 channels-last
+and flags whether any element changed or is not finite (plain version:
+:func:`bf16_exact`). An x that bf16 holds exactly meets the weight's three
+bf16 planes, whose fp32 sum is the weight (:func:`weight_planes`, stacked
+by :func:`kernel_weight_planes`), on the tensor cores: every product is
+exact and is summed in fp32. Every x of the model's path is such an x
+(spikes, token ids up to ``mask_id``, timesteps) while ``mask_id`` and the
+number of timesteps are at most 256. Any other x, and any call of more
+than ``MAX_ROWS`` rows, takes the CUDA cores over the NCHW x and the fp32
+weight. :func:`fp32_route_counts` reads how many fp32 calls took each
+route since :func:`reset_fp32_route_counts`.
 
 The kernel and the plain version sum in different orders: y agrees
-within about 1e-5 in fp32 (a bf16 rounding step in bf16), s1 and s2
+within about 1e-5 in fp32 on either route (a bf16 rounding step in bf16), s1 and s2
 within rtol 1e-4, and dx, dW, db within 1e-4, the JAX package's own
 tolerances for its kernel against XLA's conv (tests/test_spike_conv.py).
 """
@@ -61,21 +73,24 @@ LAUNCHES_BWD = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_ROWS = 128  # rows of a forward block (csrc/spike_conv.cu kBM, tc::kBM)
 CHANNEL_ALIGN = 8  # bf16: channels padded to whole 16-byte copies (tc::kAlign)
-MAX_ROWS = 2**31 - 1  # bf16: N * H * W is a 32-bit index
+MAX_ROWS = 2**31 - 1  # the tensor-core kernels: N * H * W is a 32-bit index
 RED_THREADS = 256  # elements of one channel per block of the g pass
 WGRAD_BLOCKS = 4 * 132  # dW's row split aims at this many blocks (132 SMs)
 WGRAD_MIN_ROWS = 64  # rows a split covers at least
 WGRAD_PARTIAL_BYTES = 256 * 2**20  # at most this much fp32 dW partials
 
 _FNS = {}
+_ROUTE_TALLY = {}  # device -> int32 (2,): fp32 forwards on the tensor cores, on the CUDA cores
 
 
 def _kernel(name: str):
     if name not in _FNS:
         fn = getattr(_build.load(SOURCE), name)
         if name == "spike_conv_fwd":
-            fn.argtypes = [*(ctypes.c_void_p,) * 9, ctypes.c_longlong,
+            fn.argtypes = [*(ctypes.c_void_p,) * 12, ctypes.c_longlong,
                            *(ctypes.c_int,) * 6, ctypes.c_void_p]
+        elif name == "spike_conv_weight_f32":
+            fn.argtypes = [*(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         else:
             fn.argtypes = [*(ctypes.c_void_p,) * 13, ctypes.c_longlong,
                            *(ctypes.c_int,) * 5, ctypes.c_longlong,
@@ -247,6 +262,31 @@ def dx_weight_cl(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w.reshape(9 * cpo, cpi).contiguous()
 
 
+def weight_planes(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(W0, W1, W2): three bf16 tensors whose fp32 sum is the fp32 weight,
+    W0 = bf16(W), W1 = bf16(W - W0), W2 = bf16(W - W0 - W1), each taking 8
+    of fp32's 24 significant bits. Exact for every |W| >= 2^-110 (and 0);
+    below, within 2^-134, half bf16's least subnormal."""
+    w0 = weight.to(torch.bfloat16)
+    rest = weight - w0.float()
+    w1 = rest.to(torch.bfloat16)
+    return w0, w1, (rest - w1.float()).to(torch.bfloat16)
+
+
+def kernel_weight_planes(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW fp32 -> the fp32 forward's tensor-core matrix: the planes of
+    :func:`weight_planes` laid out as :func:`kernel_weight_cl` and stacked
+    smallest first (W2, W1, W0), (3 * 9 * Cp_in, Cp_out) bf16."""
+    planes = reversed(weight_planes(weight))
+    return torch.cat([kernel_weight_cl(p, torch.bfloat16) for p in planes])
+
+
+def bf16_exact(x: torch.Tensor) -> bool:
+    """True if every element of x is finite and exact in bf16: the plain
+    version of the flag by which the fp32 forward picks the tensor cores."""
+    return bool(torch.isfinite(x).all()) and torch.equal(x.to(torch.bfloat16).to(x.dtype), x)
+
+
 def dw_from_cl(dwm: torch.Tensor, cin: int) -> torch.Tensor:
     """The bf16 dW pass's (Cout, 9 * Cp_in) matrix, column tap * Cp_in + ci
     -> OIHW (Cout, Cin, 3, 3), the padding dropped."""
@@ -270,15 +310,53 @@ def wgrad_splits(rows: int, cin: int, cout: int, fill: bool = False) -> Tuple[in
     return math.ceil(rows / per_split), per_split
 
 
-def _check_cuda(*tensors):
+def _check_cuda(*tensors, max_rows: bool = True):
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"spike_conv3x3 runs on CUDA or CPU, not {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spike_conv3x3 needs contiguous inputs")
     rows = x.shape[0] * x.shape[2] * x.shape[3]
-    if x.dtype == torch.bfloat16 and rows > MAX_ROWS:
-        raise ValueError(f"the bf16 kernels take at most {MAX_ROWS} rows N * H * W, got {rows}")
+    if max_rows and rows > MAX_ROWS:
+        raise ValueError(f"the tensor-core kernels take at most {MAX_ROWS} rows N * H * W, "
+                         f"got {rows}")
+
+
+def _route_tally(device: torch.device) -> torch.Tensor:
+    if device not in _ROUTE_TALLY:
+        _ROUTE_TALLY[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _ROUTE_TALLY[device]
+
+
+def fp32_weights(weight: torch.Tensor, stream: int) -> Tuple[torch.Tensor, ...]:
+    """The fp32 forward's operands from a contiguous OIHW fp32 weight on the
+    card, by one kernel on ``stream``: (the planes' matrix, as
+    :func:`kernel_weight_planes`; the CUDA cores' matrix, as
+    :func:`kernel_weight`; the route flag, a one-element int32 0)."""
+    cout, cin = weight.shape[:2]
+    dev = weight.device
+    wk = torch.empty((27 * padded_channels(cin), padded_channels(cout)), dtype=torch.bfloat16,
+                     device=dev)
+    wk_cc = torch.empty((9 * cin, cout), dtype=torch.float32, device=dev)
+    inexact = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = _kernel("spike_conv_weight_f32")(weight.data_ptr(), wk.data_ptr(), wk_cc.data_ptr(),
+                                          inexact.data_ptr(), cin, cout, stream)
+    if rc != 0:
+        raise RuntimeError(f"spike_conv_weight_f32 launch failed: CUDA error {rc}")
+    return wk, wk_cc, inexact
+
+
+def fp32_route_counts() -> Tuple[int, int]:
+    """(tensor cores, CUDA cores): the fp32 forwards that took each route
+    since the last :func:`reset_fp32_route_counts`, over every device.
+    Synchronises with the card."""
+    counts = [t.tolist() for t in _ROUTE_TALLY.values()]
+    return sum(c[0] for c in counts), sum(c[1] for c in counts)
+
+
+def reset_fp32_route_counts() -> None:
+    for tally in _ROUTE_TALLY.values():
+        tally.zero_()
 
 
 def spike_conv3x3_fwd(
@@ -294,25 +372,30 @@ def spike_conv3x3_fwd(
     n, cin, cout, h, w = _check(x, weight, bias)
     if x.device.type == "cpu":
         return spike_conv3x3_fwd_reference(x, weight, bias, with_moments)
-    _check_cuda(x, weight, bias)
+    fp32 = x.dtype == torch.float32
+    _check_cuda(x, weight, bias, max_rows=not fp32)
     dev = x.device
-    if x.dtype == torch.bfloat16:  # the kernel copies x channels-last into xcl
-        xcl = torch.empty((n * h * w, padded_channels(cin)), dtype=x.dtype, device=dev)
-        wk = kernel_weight_cl(weight, x.dtype)
-    else:
-        xcl, wk = None, kernel_weight(weight, x.dtype)
+    # the kernel copies x to bf16 channels-last into xcl (fp32 beyond
+    # MAX_ROWS rows: the CUDA cores read x as it lies)
+    xcl = (torch.empty((n * h * w, padded_channels(cin)), dtype=torch.bfloat16, device=dev)
+           if n * h * w <= MAX_ROWS else None)
     y = torch.empty((n, cout, h, w), dtype=x.dtype, device=dev)
     sums = torch.zeros((2, cout), dtype=torch.float32, device=dev)
     parts = (torch.empty((2, math.ceil(n * h * w / TILE_ROWS), cout), dtype=torch.float32,
                          device=dev) if with_moments else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        if fp32:  # both routes' weights; the route flag, 0 until the copy sets it
+            (wk, wk_cc, inexact), tally = fp32_weights(weight, stream), _route_tally(dev)
+        else:
+            wk, wk_cc, inexact, tally = kernel_weight_cl(weight, x.dtype), None, None, None
         rc = _kernel("spike_conv_fwd")(
-            x.data_ptr(), None if xcl is None else xcl.data_ptr(), wk.data_ptr(),
-            bias.data_ptr(), y.data_ptr(),
+            x.data_ptr(), ptr(xcl), wk.data_ptr(), ptr(wk_cc), bias.data_ptr(),
+            y.data_ptr(),
             *((parts[0].data_ptr(), parts[1].data_ptr()) if with_moments else (None, None)),
-            sums[0].data_ptr(), sums[1].data_ptr(), n, cin, cout, h, w,
-            int(with_moments), DTYPES[x.dtype], stream)
+            sums[0].data_ptr(), sums[1].data_ptr(), ptr(inexact), ptr(tally), n, cin, cout,
+            h, w, int(with_moments), DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"spike_conv_fwd launch failed: CUDA error {rc}")
     LAUNCHES_FWD += 1
@@ -338,7 +421,7 @@ def spike_conv3x3_bwd(
         return spike_conv3x3_bwd_reference(x, weight, y, gy, gs1, gs2, with_moments,
                                            need_dx)
     _check_grads(x, y, gy, gs1, gs2, cout)
-    _check_cuda(x, weight, y, gy, gs1, gs2)
+    _check_cuda(x, weight, y, gy, gs1, gs2, max_rows=x.dtype == torch.bfloat16)
     dev = x.device
     rows = n * h * w
     if x.dtype == torch.bfloat16:  # channels-last operands, (tap, channel) order

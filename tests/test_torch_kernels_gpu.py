@@ -16,8 +16,11 @@ fp32 loss. K4 (the training conv)
 agrees with its plain version at the JAX package's tolerances for its
 kernel against XLA's conv: y within 1e-5 (bf16 2e-2), s1 and s2 within
 rtol 1e-4, atol 1e-3, dx, dW, db within 1e-4 (bf16 dx 2e-2), and s1, s2,
-dW, db equal from launch to launch. K2 (the fused denoiser) must agree bitwise in int8, where every
-partial sum is an exact integer; in fp32 and bf16 its sums run in another
+dW, db equal from launch to launch; its fp32 forward takes the tensor
+cores for an x exact in bf16 and the CUDA cores for any other (an inf
+included, and from 2^31 rows on), at the same tolerances, and its weight
+split is bitwise its plain version. K2 (the fused denoiser) must agree
+bitwise in int8, where every partial sum is an exact integer; in fp32 and bf16 its sums run in another
 order than cuBLAS's, so a membrane one rounding from threshold may flip a
 spike: at least 99 % of the logits lie within 1e-4 and the median
 |difference| is at most 1e-6.
@@ -389,16 +392,15 @@ K4_CASES = {  # (N images, Cin, Cout, H = W)
     "hw4_3to5": (6, 3, 5, 4),
 }
 K4_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# bf16 (the tensor-core route) also across several 128 x 128 tiles in M
-# (37), N and the contraction (2304, 2880) at the path's channel counts,
-# dW over several row splits
-K4_BF16_CASES = {
+# also across several 128 x 128 tiles in M (37), N and the contraction
+# (2304, 2880; fp32's three planes 6912, 8640) at the path's channel
+# counts, dW over several row splits
+K4_TILE_CASES = {
     "tiles_96_256to512": (96, 256, 512, 7),
     "tiles_96_320to128": (96, 320, 128, 7),
 }
 K4_RUNS = [pytest.param(case, dtype, id=f"{case}-{dtype}")
-           for case in sorted(K4_CASES) for dtype in sorted(K4_DTYPES)]
-K4_RUNS += [pytest.param(case, "bf16", id=f"{case}-bf16") for case in sorted(K4_BF16_CASES)]
+           for case in sorted({**K4_CASES, **K4_TILE_CASES}) for dtype in sorted(K4_DTYPES)]
 K4_Y_TOL = {"fp32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 K4_MOMENT_TOL = dict(rtol=1e-4, atol=1e-3)
 K4_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -412,8 +414,8 @@ def test_spike_conv_kernels_match_reference(cuda_device, case, dtype, moments):
     (bf16 2e-2), s1 and s2 within rtol 1e-4, atol 1e-3, dx, dW and db
     within 1e-4 (dx in bf16 2e-2), the JAX package's tolerances for its
     kernel against XLA's conv; s1, s2, dW and db equal from launch to
-    launch (fixed sum orders)."""
-    n, cin, cout, hw = {**K4_CASES, **K4_BF16_CASES}[case]
+    launch (fixed sum orders). fp32 spikes take the tensor-core route."""
+    n, cin, cout, hw = {**K4_CASES, **K4_TILE_CASES}[case]
     dt = K4_DTYPES[dtype]
     gen = torch.Generator(device=cuda_device).manual_seed(13)
     x = (torch.rand((n, cin, hw, hw), generator=gen, device=cuda_device) < 0.3).to(dt)
@@ -423,6 +425,7 @@ def test_spike_conv_kernels_match_reference(cuda_device, case, dtype, moments):
     gs1 = torch.randn((cout,), generator=gen, device=cuda_device)
     gs2 = torch.randn((cout,), generator=gen, device=cuda_device) * 0.1
     before = (port_spike_conv.LAUNCHES_FWD, port_spike_conv.LAUNCHES_BWD)
+    port_spike_conv.reset_fp32_route_counts()
     y, s1, s2 = port_spike_conv.spike_conv3x3_fwd(x, w, b, moments)
     _, s1b, s2b = port_spike_conv.spike_conv3x3_fwd(x, w, b, moments)
     y_ref, s1_ref, s2_ref = port_spike_conv.spike_conv3x3_fwd_reference(x, w, b, moments)
@@ -434,6 +437,7 @@ def test_spike_conv_kernels_match_reference(cuda_device, case, dtype, moments):
     torch.cuda.synchronize()
     assert (port_spike_conv.LAUNCHES_FWD - before[0],
             port_spike_conv.LAUNCHES_BWD - before[1]) == (2, 3)
+    assert port_spike_conv.fp32_route_counts() == ((2, 0) if dtype == "fp32" else (0, 0))
     assert y.dtype == dt and float(y_ref.float().std()) > 0.1
     torch.testing.assert_close(y.float(), y_ref.float(), **K4_Y_TOL[dtype])
     if moments:
@@ -450,6 +454,92 @@ def test_spike_conv_kernels_match_reference(cuda_device, case, dtype, moments):
                                **(K4_GRAD_TOL if dtype == "fp32" else K4_Y_TOL[dtype]))
     torch.testing.assert_close(dw, dw_ref, **K4_GRAD_TOL)
     torch.testing.assert_close(db, db_ref, **K4_GRAD_TOL)
+
+
+def _k4_x(kind, n, cin, hw, gen, device):
+    """fp32 x of one kind: spikes, spikes with one +inf and one -inf, block
+    0's token ids (<= 128) and timesteps (<= 49), or normal values."""
+    if kind in ("spikes", "inf"):
+        x = (torch.rand((n, cin, hw, hw), generator=gen, device=device) < 0.3).float()
+        if kind == "inf":
+            x[0, 0, 3, 3], x[1, 5, 0, 0] = float("inf"), -float("inf")
+        return x
+    if kind == "tokens":
+        tok = torch.randint(0, 129, (n, 1, hw, hw), generator=gen, device=device)
+        t = torch.randint(1, 50, (n, 1, 1, 1), generator=gen, device=device)
+        return torch.cat([tok, t.expand(n, 1, hw, hw)], 1).float()
+    return torch.randn((n, cin, hw, hw), generator=gen, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,cin,route", [("spikes", 64, 0), ("tokens", 2, 0),
+                                            ("normal", 64, 1), ("inf", 64, 1)])
+def test_spike_conv_fp32_forward_routes(cuda_device, kind, cin, route):
+    """The fp32 forward takes the tensor cores for an x exact in bf16
+    (spikes, token ids and timesteps) and the CUDA cores for any other,
+    an x with an inf included (its y is then the plain version's +-inf, not
+    the NaN of inf times a zero plane): the route counts say which, y is
+    within 1e-5 and s1, s2 within rtol 1e-4, atol 1e-3 of the plain
+    version on both, and s1, s2 are equal from launch to launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(16)
+    n, cout = 40, 128
+    x = _k4_x(kind, n, cin, 7, gen, cuda_device)
+    w = torch.randn((cout, cin, 3, 3), generator=gen, device=cuda_device) * 0.2 / cin ** 0.5
+    b = torch.randn((cout,), generator=gen, device=cuda_device) * 0.1
+    assert port_spike_conv.bf16_exact(x) == (route == 0)
+    port_spike_conv.reset_fp32_route_counts()
+    y, s1, s2 = port_spike_conv.spike_conv3x3_fwd(x, w, b)
+    _, s1b, s2b = port_spike_conv.spike_conv3x3_fwd(x, w, b)
+    assert port_spike_conv.fp32_route_counts() == ((2, 0) if route == 0 else (0, 2))
+    y_ref, s1_ref, s2_ref = port_spike_conv.spike_conv3x3_fwd_reference(x, w, b)
+    finite = y_ref.isfinite()
+    assert float(y_ref[finite].std()) > 0.1
+    assert int((~finite).sum()) == (13 * cout if kind == "inf" else 0)  # 9 + 4 pixels
+    assert not y_ref.isnan().any()
+    torch.testing.assert_close(y, y_ref, **K4_Y_TOL["fp32"])
+    for got, second, want in ((s1, s1b, s1_ref), (s2, s2b, s2_ref)):
+        torch.testing.assert_close(got, second, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(got, want, **K4_MOMENT_TOL, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(2, 64), (6, 10), (256, 512), (320, 128)])
+def test_spike_conv_fp32_weights_match_plain(cuda_device, cin, cout):
+    """The fp32 forward's weight kernel gives the planes' matrix and the
+    CUDA cores' matrix bitwise as their plain versions do, and a cleared
+    route flag."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    w = torch.randn((cout, cin, 3, 3), generator=gen, device=cuda_device) * 0.2
+    wk, wk_cc, inexact = port_spike_conv.fp32_weights(w, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert torch.equal(wk, port_spike_conv.kernel_weight_planes(w))
+    assert torch.equal(wk_cc, port_spike_conv.kernel_weight(w, torch.float32))
+    assert int(inexact) == 0
+
+
+@pytest.mark.gpu
+def test_spike_conv_fp32_forward_beyond_32bit_rows(cuda_device):
+    """An fp32 forward of more rows than the tensor-core loop's 32-bit
+    index runs on the CUDA cores: with x zero but for its first and last
+    two images and a zero bias, y is zero between them and within 1e-5 of
+    the plain version on them, and s1, s2 are the plain version's over
+    those four images within rtol 1e-4, atol 1e-3."""
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    n = port_spike_conv.MAX_ROWS // 49 + 2
+    ends = torch.randn((4, 1, 7, 7), generator=gen, device=cuda_device)
+    w = torch.randn((1, 1, 3, 3), generator=gen, device=cuda_device)
+    b = torch.zeros(1, device=cuda_device)
+    x = torch.zeros((n, 1, 7, 7), device=cuda_device)
+    x[:2], x[-2:] = ends[:2], ends[2:]
+    port_spike_conv.reset_fp32_route_counts()
+    y, s1, s2 = port_spike_conv.spike_conv3x3_fwd(x, w, b)
+    assert port_spike_conv.fp32_route_counts() == (0, 1)
+    del x
+    y_ref, s1_ref, s2_ref = port_spike_conv.spike_conv3x3_fwd_reference(ends, w, b)
+    torch.testing.assert_close(torch.cat([y[:2], y[-2:]]), y_ref, **K4_Y_TOL["fp32"])
+    assert int(torch.count_nonzero(y[2:-2])) == 0
+    torch.testing.assert_close(s1, s1_ref, **K4_MOMENT_TOL)
+    torch.testing.assert_close(s2, s2_ref, **K4_MOMENT_TOL)
 
 
 @pytest.mark.gpu
