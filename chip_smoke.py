@@ -14,9 +14,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
 1. build: compiles every CUDA source of the port (K1 forward, K1
    backward, K2, K3, K4) with ``nvcc`` (into ``build/``), all at once, and
    prints the build times and ``-Xptxas -v`` lines; then the ``HMMA``
-   (tensor-core) instructions of each K4 kernel in the built library's
-   SASS (``cuobjdump -sass``): K4's bf16 kernels and its fp32-output
-   forward kernel must have some.
+   (tensor-core) instructions of each K2 and K4 kernel in the built
+   libraries' SASS (``cuobjdump -sass``): K2's conv and readout kernels
+   in each weight type, K4's bf16 kernels and its fp32-output forward
+   kernel must have some.
 2. models: the full-width MNIST flagship (49-step sampler, T=16 denoiser
    64-128-256-512-256, K=128, then the VQ-VAE decode) with seeded random
    weights whose BN statistics are set from one batch; the card's logits
@@ -25,10 +26,15 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    the shapes its path gives it at batch 256, and timed beside the
    kernel's bound on an H100 (CUDA events, L2 flushed, each launch queued
    behind a spin kernel). K1 (LIF forward): bitwise, median of 20. K2 (the
-   fused denoiser) in fp32, bf16 and int8: int8 bitwise; fp32 and bf16 at
-   least 99 % of logits within 1e-4 and a median |difference| of at most
-   1e-6 (sums in another order can flip a spike at threshold); median of
-   5; and a ragged batch of 13. K1 backward at the five LIF shapes of the
+   fused denoiser, tensor cores) in fp32, bf16 and int8: int8 bitwise;
+   fp32 and bf16 at least 99 % of logits within 1e-4 and a median
+   |difference| of at most 1e-6 (sums in another order can flip a spike at
+   threshold); median of 5; and a ragged batch of 13; its bound is its
+   operations over the bf16 tensor-core rate for fp32 (three bf16 products
+   per product) and bf16, over the int8 rate for int8, with the CUDA-core
+   and bf16-rate bounds logged beside; one call split by kernel
+   (``torch.profiler``, the weight packing included), the host's time per
+   call and per reverse step, and the peak memory of a call. K1 backward at the five LIF shapes of the
    training step: bitwise with atan; with sigmoid within rtol 1e-5, atol
    1e-6 (``expf`` against PyTorch's exp); other neuron settings bitwise.
    K3 forward and backward at the five block shapes (block 0 with T_in =
@@ -65,7 +71,7 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    plain version give identical codes and equal images. The share of codes
    that agree with the layerwise fp32 run is reported, not bounded (BN
    folding moves the logits by one fp32 rounding).
-6. generation_bnlifconv: one layerwise-sampler request at batch 16
+6. generation_bnlifconv: layerwise-sampler requests at batch 16 and 256
    through a 'bnlifconv' denoiser with the models' weights, in eval mode:
    exactly 6 K4-forward and 5 K3-forward launches per reverse step, no
    backward, 3 K1 launches (the decode), every K4 forward on the
@@ -139,6 +145,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BATCH = 256  # batch of the kernel shapes and of the large request
 REQUESTS = (16, 16, 16, 256)  # 16 is the reference's per-call batch
 FUSED_REQUESTS = (3, 0, 1)  # indices into REQUESTS: batch 256, 16, 16
+BNLIFCONV_REQUESTS = (0, 3)  # batch 16, 256
 T = 16
 TIMING_REPS = 20
 K2_TIMING_REPS = 5
@@ -383,7 +390,61 @@ def compare_k2(name, folded, a1, dcfg) -> float:
     return max_d
 
 
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn`` from a synchronised start; with ``sync``
+    false in ``fn`` it is the time to enqueue."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def k2_split(den, dcfg, dtype, a1, folded, gen) -> dict:
+    """One K2 call at batch 256 by kernel: {kernel: [device ms, launches]}
+    (``torch.profiler``; the weight packing's PyTorch kernels included); the
+    host's ms to enqueue a call (the packing runs there); one reverse step's
+    denoise function (folding, first conv, K2) to its end, and the folding
+    and first conv alone (medians of 5); and the peak device memory a K2
+    call adds (MiB)."""
+    profile = kernel_profile(lambda: fd.fused_denoise(a1, folded, dcfg))
+    host_ms = wall_ms(lambda: fd.fused_denoise(a1, folded, dcfg))
+    h = dcfg.latent_size
+    tokens = torch.randint(0, dcfg.num_embeddings + 1, (BATCH, h, h), generator=gen,
+                           device="cuda")
+    t = torch.randint(1, dcfg.num_timesteps + 1, (BATCH,), generator=gen, device="cuda")
+    denoise = fd.make_fused_denoise_fn(den, dcfg, dtype)
+
+    def fold():
+        f = fd.fold_denoiser_weights(den, dtype)
+        return fd.first_preactivation(tokens, t, f.k1, f.b1)
+
+    def step():
+        denoise(tokens, t)
+        torch.cuda.synchronize()
+
+    fold_ms = wall_ms(lambda: (fold(), torch.cuda.synchronize()))
+    step_ms = wall_ms(step)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fd.fused_denoise(a1, folded, dcfg)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return {"profile": profile, "host_ms": host_ms, "fold_ms": fold_ms, "step_ms": step_ms,
+            "peak_mib": peak}
+
+
 def phase_k2(den, dcfg, gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
+    """K2 against its plain version at batch 256 and 13 in each weight type,
+    timed beside its bounds. The route does bf16 products on the tensor
+    cores: three per product for fp32 weights (exact planes), one for bf16
+    and int8 (int8 values are exact in bf16). ``bound_ms`` is the work's
+    operations over the peak of its type (fp32: three bf16 products per
+    product); the CUDA-core bound (fp32) and the bf16-rate bound (int8) are
+    logged beside."""
     rows = {}
     for name, dtype in K2_DTYPES.items():
         folded, a1 = k2_inputs(den, dcfg, dtype, BATCH, gen)
@@ -396,20 +457,38 @@ def phase_k2(den, dcfg, gen: torch.Generator, flush: torch.Tensor, card: str) ->
         itemsize = folded.weights[0].element_size()
         useful, nbytes = fd.denoiser_cost(dcfg, BATCH, itemsize, useful_only=True)
         executed, _ = fd.denoiser_cost(dcfg, BATCH, itemsize)
-        ops_ms = useful / PEAK_OPS[dtype] * 1e3
+        planes = fd.planes_of(dtype)
+        ops_ms = planes * useful / PEAK_OPS[torch.bfloat16 if planes == 3 else dtype] * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound = max(ops_ms, bytes_ms)
+        # beside it: fp32 on the CUDA cores, int8 at the bf16 rate it runs at
+        other_dtype = {torch.float32: torch.float32, torch.int8: torch.bfloat16}.get(dtype)
+        other_ms = useful / PEAK_OPS[other_dtype] * 1e3 if other_dtype else None
+        split = k2_split(den, dcfg, dtype, a1, folded, gen)
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                       "max_abs_err": max_err, "useful_tflop": useful / 1e12,
-                      "tflops": useful / ms / 1e9, "share_of_bound": bound / ms}
+                      "tflops": useful / ms / 1e9, "share_of_bound": bound / ms,
+                      "bf16_products_tflops": planes * executed / ms / 1e9,
+                      **({"bound_cuda_cores_ms" if dtype == torch.float32
+                          else "bound_bf16_rate_ms": other_ms} if other_ms else {}),
+                      **split}
         log(f"  K2 {name} batch {BATCH}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
             f"bound {bound:.3f} ms ({rows[name]['bound_by']}: {useful / 1e12:.4f} "
-            f"TFLOP useful at {PEAK_OPS[dtype] / 1e12:g} TFLOP/s; {nbytes / 1e6:.1f} "
-            f"MB at 3.35 TB/s = {bytes_ms:.4f} ms), kernel at {bound / ms:.2%} of "
-            f"bound, {useful / ms / 1e9:.2f} TFLOP/s useful ({executed / ms / 1e9:.2f} "
-            f"counting all 9 taps); per generated batch (49 calls) {49 * ms:.1f} ms, "
-            f"bound {49 * bound:.1f} ms [{card}]")
+            f"TFLOP useful x {planes} bf16 products at "
+            f"{PEAK_OPS[torch.bfloat16 if planes == 3 else dtype] / 1e12:g} TFLOP/s; "
+            f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {bytes_ms:.4f} ms)"
+            + (f", {'CUDA-core' if dtype == torch.float32 else 'bf16-rate'} bound "
+               f"{other_ms:.3f} ms" if other_ms else "")
+            + f", kernel at {bound / ms:.2%} of bound, {useful / ms / 1e9:.2f} TFLOP/s useful "
+            f"({planes * executed / ms / 1e9:.2f} of bf16 products counting all 9 taps); per "
+            f"generated batch (49 calls) {49 * ms:.1f} ms, bound {49 * bound:.1f} ms [{card}]")
+        for kname, (kms, count) in sorted(split["profile"].items(), key=lambda kv: -kv[1][0]):
+            log(f"    {kname}: {kms:.3f} ms device, {count} launches")
+        log(f"    host: enqueue of a K2 call (packing included) {split['host_ms']:.3f} ms; "
+            f"folding + first conv to their end {split['fold_ms']:.3f} ms; one reverse "
+            f"step's denoise function to its end {split['step_ms']:.3f} ms; peak memory of "
+            f"a K2 call {split['peak_mib']:.1f} MiB")
     return rows
 
 
@@ -1045,35 +1124,46 @@ def phase_generation_fused(models, dcfg, layerwise, card: str) -> dict:
     return launches
 
 
-def phase_generation_bnlifconv(models, dcfg, layerwise, card: str) -> tuple:
-    """One layerwise-sampler request at batch 16 through a 'bnlifconv'
-    denoiser (the models' weights) in eval mode: (K4 fwd, K3 fwd)
-    launches, exactly 6 and 5 per reverse step, no backward, 3 K1 in the
-    decode."""
+def phase_generation_bnlifconv(models, dcfg, layerwise, card: str) -> dict:
+    """Layerwise-sampler requests at batch 16 and 256 through a 'bnlifconv'
+    denoiser (the models' weights) in eval mode: exactly 6 K4-forward and
+    5 K3-forward launches per reverse step, no backward, 3 K1 in the
+    decode. Returns the launches and fp32 routes summed over both, and each
+    request's times."""
     den, vq = models[:2]
     fused = SpikingDenoiser(dcfg, lif_backend="bnlifconv").cuda().eval()
     fused.load_state_dict(den.state_dict())
     steps = len(diffusion.schedule(dcfg)[0])
-    i = 0  # the first batch-16 request, on its noise
-    n = REQUESTS[i]
-    reset_launch_counts()
-    codes, images, sample_ms, decode_ms = run_request(fused, vq, dcfg, n,
-                                                      request_noise(dcfg, i, steps))
-    counts = launch_counts()
-    lw_codes, lw_sample_ms, _ = layerwise[i]
-    agree = float((codes == lw_codes).float().mean())
-    log(f"  bnlifconv request {i} batch {n}: launches {format_counts(counts)}, sampler "
-        f"{sample_ms:.1f} ms ({sample_ms / steps:.3f} ms/step; layerwise fp32 "
-        f"{lw_sample_ms / steps:.3f}), decode {decode_ms:.2f} ms; codes agreeing with "
-        f"layerwise fp32 {agree:.4f} [{card}]")
-    want = (K1_DECODE_LAUNCHES, 0, K3_PER_STEP * steps, 0, 0, K4_PER_STEP * steps, 0)
-    check(counts == want, f"bnlifconv generation launches {counts}, expected {want}")
-    routes = check_fp32_routes("bnlifconv generation", counts[5])
-    log(f"  bnlifconv request {i}: fp32 K4 forwards on the tensor cores / CUDA cores: "
-        f"{routes[0]} / {routes[1]}")
-    check_outputs(codes, images, n, dcfg)
-    return {"launches": counts, "fp32_routes": routes, "sample_ms": sample_ms,
-            "decode_ms": decode_ms, "agree_with_layerwise": agree}
+    total = [0] * 7
+    total_routes = [0, 0]
+    requests = {}
+    for i in BNLIFCONV_REQUESTS:  # on the layerwise requests' noise
+        n = REQUESTS[i]
+        reset_launch_counts()
+        codes, images, sample_ms, decode_ms = run_request(fused, vq, dcfg, n,
+                                                          request_noise(dcfg, i, steps))
+        counts = launch_counts()
+        lw_codes, lw_sample_ms, lw_decode_ms = layerwise[i]
+        agree = float((codes == lw_codes).float().mean())
+        log(f"  bnlifconv request {i} batch {n}: launches {format_counts(counts)}, sampler "
+            f"{sample_ms:.1f} ms ({sample_ms / steps:.3f} ms/step; layerwise fp32 "
+            f"{lw_sample_ms / steps:.3f}), decode {decode_ms:.2f} ms, "
+            f"{n / ((sample_ms + decode_ms) / 1e3):.1f} images/s (layerwise fp32 "
+            f"{n / ((lw_sample_ms + lw_decode_ms) / 1e3):.1f}); codes agreeing with "
+            f"layerwise fp32 {agree:.4f} [{card}]")
+        want = (K1_DECODE_LAUNCHES, 0, K3_PER_STEP * steps, 0, 0, K4_PER_STEP * steps, 0)
+        check(counts == want, f"bnlifconv generation launches {counts}, expected {want}")
+        routes = check_fp32_routes("bnlifconv generation", counts[5])
+        log(f"  bnlifconv request {i}: fp32 K4 forwards on the tensor cores / CUDA cores: "
+            f"{routes[0]} / {routes[1]}")
+        check_outputs(codes, images, n, dcfg)
+        total = [a + b for a, b in zip(total, counts)]
+        total_routes = [a + b for a, b in zip(total_routes, routes)]
+        requests[n] = {"sample_ms": sample_ms, "decode_ms": decode_ms,
+                       "images_per_s": n / ((sample_ms + decode_ms) / 1e3),
+                       "agree_with_layerwise": agree}
+    return {"launches": tuple(total), "fp32_routes": tuple(total_routes),
+            "requests": requests}
 
 
 # --- phase 6: stage-2 training at full width ----------------------------------
@@ -1355,6 +1445,14 @@ def main() -> int:
                     log(f"    {line}")
                 if built.name == sc.SOURCE:
                     k4_hmma = sass_hmma(built.path)
+                if built.name == fd.SOURCE:
+                    k2_hmma = sass_hmma(built.path)
+            for name, count in k2_hmma.items():
+                log(f"  K2 SASS: {count:3d} HMMA in {name}")
+            for kname in ("conv_lif_kernel", "readout_kernel"):
+                found = [n for n in k2_hmma if kname in n]
+                check(len(found) == 3 and all(k2_hmma[n] > 0 for n in found),
+                      f"K2's {kname} does not reach the tensor cores in every weight type")
             for name, count in k4_hmma.items():
                 log(f"  K4 SASS: {count:3d} HMMA in {name}")
             mma = [n for n in k4_hmma if "mma_kernel" in n]
@@ -1423,7 +1521,7 @@ def main() -> int:
             "source": "spiking_diffusion_tpu_torch/csrc/fused_denoiser.cu",
             "replaces": K2_REPLACES, "launches": fused_launches[name][0],
             # one call at batch 256; no single PyTorch call is the denoiser
-            "library_ms": None, **row,
+            "library_ms": None, **row, "sass_hmma": k2_hmma,
         })
     for key, name, replaces, idx in (("fwd", "K3 bn_lif_fwd", K3_FWD_REPLACES, 2),
                                      ("bwd", "K3 bn_lif_bwd", K3_BWD_REPLACES, 3)):
@@ -1459,6 +1557,7 @@ def main() -> int:
             "library_ms": k4["fp32"][f"{key}_library_ms"],
             "launches_per_train_step": K4_PER_STEP,
             "launches_generation": conv_gen["launches"][idx],
+            **({"generation_requests": conv_gen["requests"]} if key == "fwd" else {}),
             # fwd: the fp32 route (tensor cores for an x exact in bf16, bound
             # at three bf16 products per product) and the CUDA-core route's
             # time and bound on the same x moved off bf16's grid; the path's

@@ -1,10 +1,10 @@
-// K2: the whole spiking-denoiser inference forward in one launch, for Hopper
-// (sm_90a). fp32, bf16 or int8 weights share one templated body.
+// K2: the spiking-denoiser inference forward of the fused sampler, for Hopper
+// (sm_90a). fp32, bf16 or int8 weights share one tensor-core body.
 //
 // Replaces the Pallas TPU kernel spiking_diffusion_tpu/ops/fused_denoiser.py
 // `_make_kernel` / `kernel` (launched by the `pallas_call` of
-// `make_fused_denoise_apply`). For each image it runs the T-step loop of the
-// BN-folded denoiser:
+// `make_fused_denoise_apply`). It computes, for every image, the T-step loop
+// of the BN-folded denoiser:
 //
 //   s1 = LIF_1(a1)                       a1: the first conv's output, the
 //                                        same current at every step
@@ -16,92 +16,77 @@
 // h >= v_th, membranes start at v_reset), every fp32 operation rounded on
 // its own (built with --fmad=false).
 //
-// Each 3x3 conv is taken as three kernel-row products: for dy in (1, 0, 2)
-// (centre, top, bottom) a partial sum over (dx, cin), then
+// Layer by layer, not step by step. Layer l at step t reads only layer l-1's
+// spikes at step t and its own membrane from step t-1, so the conv of a
+// layer runs for all T steps at once, once the layer below has, and the
+// LIF recurrence then runs per neuron over t. Each conv is one implicit
+// GEMM over M = N * P * T rows (P = hw * hw), ordered (n, p, t) with t
+// fastest, on the tensor-core loop of mma_loop.cuh (128 x 128 block tiles,
+// `mma.sync.m16n8k16` bf16 -> fp32). The launches of one call:
+//   lif1_kernel        s1 for every t from a1;
+//   conv_lif_kernel    one per block 2..L: the conv, then in its epilogue
+//                      the LIF scan over t of each (position, channel);
+//   readout_kernel     the readout conv, then in its epilogue the sum over
+//                      t in order, times 1 / T.
+//
+// Spikes live in device memory as bf16 (0 or 1, exact), channels-last,
+// each layer's channels padded to a multiple of 8 (zero), so a tap's 8
+// channels are one 16-byte `cp.async`. The neighbour of row (n, p, t)
+// under a tap is row ((n * P + p') * T + t); a tap off the 7x7 grid, or a
+// row past M, is a zero-filled copy, so no row reads another image. One
+// concat buffer holds (x_L | s1), x first as in the skip concat, so the
+// readout reads one operand and block 2 reads s1 through a channel offset
+// and the buffer's row stride; two ping-pong buffers hold blocks 2..L-1.
+//
+// The weights, per conv, are one bf16 matrix B (3 * Kr, Np): its kernel
+// rows in the order dy = 1, 0, 2 (centre, top, bottom), each a range of
+// Kr rows, Kr = planes * 3 * Cp_in rounded up to whole 64-deep stages
+// (zero below), row plane * 3 * Cp_in + dx * Cp_in + ci within it. fp32
+// weights are three bf16 planes whose fp32 sum is the weight (smallest
+// first); bf16 weights one plane; int8 weights one plane of their integer
+// values (exact in bf16), with one scale per kernel row and output channel.
+// Spikes are 0 or 1, so every product is exact in fp32. The loop's hook
+// folds each kernel row's sum into `out` at the row's last stage and
+// zeroes the accumulators:
 //   fp32, bf16:  out = ((p1 + p0) + p2) + bias
 //   int8:        out = ((p1 * s1 + p0 * s0) + p2 * s2) + bias
-// with one dequant scale per kernel row and output channel. Spikes are
-// exactly 0 or 1 and the weights are exact in fp32 (int8 values, bf16
-// values), so every product is exact; in int8 every partial is an integer
-// below 2^24 and so exact in fp32 in any order. The int8 logits therefore
-// equal bitwise those of the plain version (ops/fused_denoiser.py
-// `fused_denoise_reference`), which forms the same partials with fp32
-// matrix products and combines them in the same order. fp32 and bf16
-// partials are summed here in another order than cuBLAS's.
+// the order of the plain version (ops/fused_denoiser.py `_conv_rows`). In
+// int8 a kernel row's sum is an integer below 3 * 512 * 127 < 2^24, exact in
+// fp32 in any order, so the int8 logits equal the plain version's bitwise.
+// fp32 and bf16 sums within a kernel row run in the tensor cores' order,
+// not cuBLAS's.
+//
+// The row tile holds whole T sequences: floor(128 / T) positions of T rows
+// (8 x 16 at T = 16; T <= 128). After the loop the ring is drained, and the
+// epilogue stages z = out + bias as an fp32 tile there; each thread then
+// scans whole (position, channel) sequences, t = 0..T-1.
 //
 // What bounds it on an H100: operations. One call at batch 256 needs ~1.0
-// TFLOP of useful multiply-adds against ~22 MB of device-memory traffic
-// (a1 in, logits out, the weights once). This first version runs them on
-// the fp32 CUDA cores (67 TFLOP/s), not the tensor cores, for all three
-// weight types: products with a 0/1 spike are taken as fmaf, which is
-// exact and equal to a separate multiply and add.
-//
-// What the design keeps on chip: one block per image. The spikes of the
-// current and next layer, the first layer's spikes (for the skip) and a
-// ring of two weight tiles live in shared memory as fp32 (~182 KB at the
-// flagship widths, 64-128-256-512-256), so no spike train ever touches
-// device memory. The membranes of the five layers (238 KB per image, more
-// than a block's shared memory) live in a per-image scratch in device
-// memory that stays in L2 (61 MB at batch 256). The only other device
-// memory traffic is a1 in, the weights (read through L2 by every block)
-// and the logits out. SAME padding: a tap outside the 7x7 grid reads a row
-// of zeros in shared memory, so it never reaches another image.
-//
-// Thread layout of a conv: 8 warps x 32 lanes; warp w takes rows w, w+8,
-// ..., (7 rows, 56 >= 49), lane l takes 4 output channels of a 128-wide
-// tile, so a warp's spike reads are broadcasts and its weight reads 512
-// contiguous bytes. Weight tiles of 16 (dx, cin) rows x 128 channels go
-// through registers into a double buffer, one __syncthreads per tile.
+// TFLOP of useful multiply-adds (1.24 padded; fp32 three times that in
+// bf16 products) against ~0.9 GB of spike traffic. `out` and the
+// accumulators take 128 registers a thread, so one block runs per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_loop.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 7;           // rows per thread per pass
-constexpr int kPassRows = kWarps * kRows;
-constexpr int kCoTile = 128;       // output channels per tile (4 per lane)
-constexpr int kKTile = 16;         // (dx, cin) rows per weight tile
-constexpr int kTileElems = kKTile * kCoTile;
-constexpr int kLoadsPerThread = kTileElems / kThreads;
-constexpr int kMaxLayers = 8;
-constexpr int kSmemLimit = 232448;  // bytes a block may use on an H100
+using tc::bf16;
 
-struct Params {
-  int n_layers;                 // LIF conv blocks, the first included
-  int ch[kMaxLayers];           // their output channels
-  int stride[kMaxLayers];       // spike row stride in shared memory
-  int classes;                  // K, the readout's output channels
-  int steps;                    // T
-  int hw;                       // latent side
-  int P;                        // hw * hw
-  int v_per_image;              // P * sum(ch)
-  const float* a1;              // (N, P, ch[0])
-  const void* w[kMaxLayers];    // blocks 2..L, then the readout: (3, 3 Cin, Cout)
-  const float* b[kMaxLayers];   // (1, Cout) bias, or (4, Cout) bias + 3 scales
-  float* v;                     // (N, v_per_image) scratch
-  float* logits;                // (N, P, K)
+constexpr int kMaxLayers = 8;
+constexpr int kMaxSteps = tc::kBM;  // a row tile holds at least one sequence
+constexpr int kZLd = tc::kBN + 8;   // row stride (floats) of the staged z tile
+static_assert(tc::kBM * kZLd * 4 <= tc::smem_bytes(false), "z tile fits the ring");
+
+struct Lif {
   float decay, v_th, v_reset;
   int decay_input, hard_reset;
-  int off_zero, off_s1, off_buf[2], off_wt;  // shared-memory offsets (floats)
-  int smem_floats;
 };
 
-struct Seg {      // one input of a conv: a spike buffer in shared memory
-  int off;        // its offset (floats)
-  int stride;     // its row stride (a multiple of kKTile)
-  int c;          // its channels
-  int wbase;      // its first channel in the conv's input
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ float lif(float& v, float x, const Params& p) {
+__device__ __forceinline__ float lif(float& v, float x, const Lif& p) {
   float h;
   if (p.decay_input) {
     h = v + (x - (v - p.v_reset)) * p.decay;
@@ -117,287 +102,354 @@ __device__ __forceinline__ float lif(float& v, float x, const Params& p) {
   return s;
 }
 
-// One 3x3 SAME conv of the spikes in `segs` (concatenated on channels) with
-// W (3, 3 * cin, cout). READOUT: add the result to `acc` (P, cout) in device
-// memory; else apply the LIF step with membranes `v` (P, cout) and write the
-// spikes to shared memory at `out_off` with row stride `out_stride`.
-template <typename W, bool READOUT>
-__device__ void conv3x3(const Params& p, float* sm, const Seg* segs, int nseg,
-                        const W* __restrict__ w, const float* __restrict__ b,
-                        int cin, int cout, bool int8_scales, float* v,
-                        float* acc, int out_off, int out_stride) {
+// The row geometry shared by every launch of a call.
+struct Rows {
+  int M;      // N * P * T
+  int T;      // steps
+  int hw;     // latent side
+  int P;      // hw * hw
+  int G;      // positions per row tile: floor(kBM / T)
+};
+
+// One conv: its spike operand and weights, and where its output goes.
+struct Conv {
+  const bf16* src;  // the operand's first channel in row 0
+  int src_ld;       // the operand buffer's row stride (elements)
+  int cp;           // the operand's channels (padded)
+  const bf16* w;    // B, (3 * kr, np)
+  int kr;           // rows of one kernel row's range
+  const float* b;   // (1, cout) bias, or (4, cout) bias + 3 scales
+  int cout;
+  int np;           // padded(cout)
+  bf16* dst;        // conv_lif: the output's first channel in row 0
+  int dst_ld;       // its buffer's row stride
+  float* logits;    // readout: (N, P, cout)
+};
+
+// Weight planes of W: an fp32 weight is three bf16 planes.
+template <typename W>
+constexpr int kPlanes = 1;
+template <>
+constexpr int kPlanes<float> = 3;
+
+// The conv of `c` over the block's tile: rows m0.. (row tile blockIdx.x /
+// tiles_n, whole T sequences), columns n0.. (column tile blockIdx.x %
+// tiles_n). Leaves z = conv + bias, fp32, in the drained ring as a
+// [row][kZLd] tile and returns it.
+template <typename W>
+__device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv& c,
+                                            const Rows& g, int& m0, int& n0) {
+  using namespace tc;
+  const int tiles_n = (c.np + kBN - 1) / kBN;
+  const int m_tile = blockIdx.x / tiles_n;
+  n0 = (blockIdx.x - m_tile * tiles_n) * kBN;
+  m0 = m_tile * g.G * g.T;
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x;
+  const int rows_tile = g.G * g.T;
+  const int spr = c.kr / kBK;  // stages per kernel row
+
+  // A: rows a_row + r * (kThreads / kRowChunks), columns a_c.. of the stage
+  const int a_c = (tid % kRowChunks) * 8;
+  const int a_row = tid / kRowChunks;
+  int a_base[kRowPasses], a_y[kRowPasses], a_x[kRowPasses];
+  bool a_ok[kRowPasses];
+#pragma unroll
+  for (int r = 0; r < kRowPasses; ++r) {
+    const int lr = a_row + r * (kThreads / kRowChunks);
+    const int m = m0 + lr;
+    a_ok[r] = lr < rows_tile && m < g.M;
+    const int pos = a_ok[r] ? m / g.T : 0;
+    const int t = a_ok[r] ? m - pos * g.T : 0;
+    const int img = pos / g.P;
+    const int p = pos - img * g.P;
+    a_base[r] = img * g.P * g.T + t;  // row of position 0 of the image at step t
+    a_y[r] = p / g.hw;
+    a_x[r] = p - a_y[r] * g.hw;
+  }
+  // B: k rows tid / kKChunks + r * (kThreads / kKChunks), columns b_c..
+  const int b_c = (tid % kKChunks) * 8;
+  const bool b_col_ok = n0 + b_c < c.np;
+
+  // the A columns' (plane * 3 + dx, ci) of the stage's column a_c within the
+  // kernel row dyi, stepped by kBK a stage
+  int dyi = 0, s_row = 0, ptap = 0, ci = a_c;
+  while (ci >= c.cp) {
+    ci -= c.cp;
+    ++ptap;
+  }
+  auto load = [&](bf16* As, bf16* Bs, int s) {
+    const int dy = dyi == 0 ? 1 : (dyi == 1 ? 0 : 2);
+    const bool k_ok = ptap < 3 * kPlanes<W>;
+    const int dx = ptap % 3;
+#pragma unroll
+    for (int r = 0; r < kRowPasses; ++r) {
+      const int yy = a_y[r] + dy - 1;
+      const int xx = a_x[r] + dx - 1;
+      const bool ok = k_ok && a_ok[r] && yy >= 0 && yy < g.hw && xx >= 0 && xx < g.hw;
+      const bf16* from =
+          ok ? c.src + static_cast<long long>(a_base[r] + (yy * g.hw + xx) * g.T) * c.src_ld + ci
+             : c.src;
+      cp_async16(As + (a_row + r * (kThreads / kRowChunks)) * kLdRow + a_c, from, ok);
+    }
+    if (++s_row == spr) {
+      s_row = 0;
+      ++dyi;
+      ptap = 0;
+      ci = a_c;
+    } else {
+      ci += kBK;
+    }
+    while (ci >= c.cp) {
+      ci -= c.cp;
+      ++ptap;
+    }
+#pragma unroll
+    for (int r = 0; r < kKPasses; ++r) {
+      const int kr = tid / kKChunks + r * (kThreads / kKChunks);
+      const long long kb = static_cast<long long>(s) * kBK + kr;
+      const bf16* from = b_col_ok ? c.w + kb * c.np + n0 + b_c : c.w;
+      cp_async16(Bs + kr * kLdK + b_c, from, b_col_ok);
+    }
+  };
+
+  // Element e of acc[i][j] lies at row 16 i + lane / 4 + 8 (e / 2), column
+  // 8 j + 2 (lane % 4) + e % 2 of the warp's 64 x 32 tile.
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int hw = p.hw;
-  int seg_tiles[2];
-  int tiles_per_dx = 0;
-  for (int s = 0; s < nseg; ++s) {
-    seg_tiles[s] = segs[s].stride / kKTile;
-    tiles_per_dx += seg_tiles[s];
-  }
-  const int tiles_per_dy = 3 * tiles_per_dx;
-  const int n_tiles = 3 * tiles_per_dy;
-  float* wt0 = sm + p.off_wt;
-
-  for (int co0 = 0; co0 < cout; co0 += kCoTile) {
-    for (int r0 = 0; r0 < p.P; r0 += kPassRows) {
-      // tile i -> (kernel row, dx, input segment, first channel)
-      auto decode = [&](int i, int& dy, int& dx, int& s, int& c0) {
-        const int dyi = i / tiles_per_dy;
-        dy = dyi == 0 ? 1 : (dyi == 1 ? 0 : 2);
-        const int rem = i % tiles_per_dy;
-        dx = rem / tiles_per_dx;
-        int q = rem % tiles_per_dx;
-        s = 0;
-        if (q >= seg_tiles[0]) {
-          q -= seg_tiles[0];
-          s = 1;
-        }
-        c0 = q * kKTile;
-      };
-      W pre[kLoadsPerThread];
-      auto fetch = [&](int i) {
-        int dy, dx, s, c0;
-        decode(i, dy, dx, s, c0);
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
+  float out[4][4][4];
+  int h_row = 0, h_dyi = 0;
+  auto fold = [&](int, float (&acc)[4][4][4]) {
+    if (++h_row < spr) return;
+    h_row = 0;
+    const int dy = h_dyi == 0 ? 1 : (h_dyi == 1 ? 0 : 2);
 #pragma unroll
-        for (int m = 0; m < kLoadsPerThread; ++m) {
-          const int e = tid + m * kThreads;
-          const int c = c0 + e / kCoTile;
-          const int co = co0 + e % kCoTile;
-          W val{};
-          if (c < segs[s].c && co < cout) {
-            const long long row = static_cast<long long>(dy) * 3 * cin +
-                                  static_cast<long long>(dx) * cin + segs[s].wbase + c;
-            val = w[row * cout + co];
-          }
-          pre[m] = val;
-        }
-      };
-      auto stash = [&](int i) {
-        float* wt = wt0 + (i & 1) * kTileElems;
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int m = 0; m < kLoadsPerThread; ++m) {
-          wt[tid + m * kThreads] = to_float(pre[m]);
-        }
-      };
-
-      fetch(0);
-      stash(0);
-      __syncthreads();
-
-      float out[kRows][4];
-      float part[kRows][4];
-      int base[kRows];
-      for (int i = 0; i < n_tiles; ++i) {
-        int dy, dx, s, c0;
-        decode(i, dy, dx, s, c0);
-        if (i + 1 < n_tiles) fetch(i + 1);
-        if (c0 == 0) {
-          // a new (dy, dx, segment): the source row of each of my rows, or
-          // the zero row where the tap falls outside the grid
+      for (int e = 0; e < 2; ++e) {
+        const int co = n0 + wn * 32 + j * 8 + 2 * (lane & 3) + e;
+        float sc = 1.0f;
+        if (sizeof(W) == 1 && co < c.cout) sc = c.b[(1 + dy) * c.cout + co];
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            const int r = r0 + warp + kWarps * j;
-            base[j] = p.off_zero;
-            if (r < p.P) {
-              const int y = r / hw + dy - 1;
-              const int x = r % hw + dx - 1;
-              if (y >= 0 && y < hw && x >= 0 && x < hw) {
-                base[j] = segs[s].off + (y * hw + x) * segs[s].stride;
-              }
-            }
-          }
-        }
-        if (i % tiles_per_dy == 0) {
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[j][c] = 0.0f;
-          }
-        }
-        const float* wt = wt0 + (i & 1) * kTileElems + lane * 4;
-#pragma unroll
-        for (int k4 = 0; k4 < kKTile; k4 += 4) {
-          float4 wk[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            wk[q] = *reinterpret_cast<const float4*>(wt + (k4 + q) * kCoTile);
-          }
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            const float4 sp = *reinterpret_cast<const float4*>(sm + base[j] + c0 + k4);
-            const float sv[4] = {sp.x, sp.y, sp.z, sp.w};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              part[j][0] = fmaf(sv[q], wk[q].x, part[j][0]);
-              part[j][1] = fmaf(sv[q], wk[q].y, part[j][1]);
-              part[j][2] = fmaf(sv[q], wk[q].z, part[j][2]);
-              part[j][3] = fmaf(sv[q], wk[q].w, part[j][3]);
-            }
-          }
-        }
-        if ((i + 1) % tiles_per_dy == 0) {
-          // the kernel row is complete: fold it into the output in the
-          // order centre, top, bottom
-          const int dyi = i / tiles_per_dy;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int co = co0 + lane * 4 + c;
-            const float sc = (int8_scales && co < cout) ? b[(1 + dy) * cout + co] : 1.0f;
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) {
-              const float pj = int8_scales ? part[j][c] * sc : part[j][c];
-              out[j][c] = dyi == 0 ? pj : out[j][c] + pj;
-            }
-          }
-        }
-        if (i + 1 < n_tiles) stash(i + 1);
-        __syncthreads();
-      }
-
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const int r = r0 + warp + kWarps * j;
-        if (r >= p.P) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int co = co0 + lane * 4 + c;
-          if (co >= cout) continue;
-          const float z = out[j][c] + b[co];
-          if (READOUT) {
-            acc[r * cout + co] = acc[r * cout + co] + z;
-          } else {
-            float vm = v[r * cout + co];
-            const float spike = lif(vm, z, p);
-            v[r * cout + co] = vm;
-            sm[out_off + r * out_stride + co] = spike;
+          for (int half = 0; half < 2; ++half) {
+            float pj = acc[i][j][half * 2 + e];
+            if (sizeof(W) == 1) pj = pj * sc;
+            out[i][j][half * 2 + e] = h_dyi == 0 ? pj : out[i][j][half * 2 + e] + pj;
+            acc[i][j][half * 2 + e] = 0.0f;
           }
         }
       }
     }
+    ++h_dyi;
+  };
+  float acc[4][4][4];
+  mainloop<false>(smem, 3 * spr, load, acc, fold);
+
+  float* zs = reinterpret_cast<float*>(smem_raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = wn * 32 + j * 8 + 2 * (lane & 3);
+    const int co = n0 + col;
+    const float b0 = co < c.cout ? c.b[co] : 0.0f;
+    const float b1 = co + 1 < c.cout ? c.b[co + 1] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = wm * 64 + i * 16 + (lane >> 2) + half * 8;
+        *reinterpret_cast<float2*>(zs + row * kZLd + col) =
+            make_float2(out[i][j][half * 2] + b0, out[i][j][half * 2 + 1] + b1);
+      }
+    }
   }
   __syncthreads();
+  return zs;
 }
 
+// A LIF conv block over all T steps: the conv, then each thread scans whole
+// (position, channel) sequences of the tile from v_reset and writes the
+// spikes (and zeros in the padding channels up to np) to c.dst.
 template <typename W>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_denoiser_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const int n = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int L = p.n_layers;
-  const int P = p.P;
-  const int K = p.classes;
-  float* v_img = p.v + static_cast<long long>(n) * p.v_per_image;
-  float* acc = p.logits + static_cast<long long>(n) * P * K;
-  const float* a1 = p.a1 + static_cast<long long>(n) * P * p.ch[0];
-  const bool int8_scales = sizeof(W) == 1;
-
-  for (int i = tid; i < p.smem_floats; i += kThreads) sm[i] = 0.0f;
-  for (int i = tid; i < p.v_per_image; i += kThreads) v_img[i] = p.v_reset;
-  for (int i = tid; i < P * K; i += kThreads) acc[i] = 0.0f;
-  __syncthreads();
-
-  for (int t = 0; t < p.steps; ++t) {
-    const int c0 = p.ch[0];
-    for (int i = tid; i < P * c0; i += kThreads) {
-      float vm = v_img[i];
-      const float spike = lif(vm, a1[i], p);
-      v_img[i] = vm;
-      sm[p.off_s1 + (i / c0) * p.stride[0] + i % c0] = spike;
+__global__ void __launch_bounds__(tc::kThreads, 1)
+conv_lif_kernel(const Conv c, const Rows g, const Lif lp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int m0, n0;
+  const float* zs = conv_tile<W>(smem_raw, c, g, m0, n0);
+  for (int q = threadIdx.x; q < g.G * tc::kBN; q += tc::kThreads) {
+    const int gi = q / tc::kBN;
+    const int col = q - gi * tc::kBN;
+    const int co = n0 + col;
+    const int m = m0 + gi * g.T;  // the sequence's first row
+    if (m >= g.M || co >= c.np) continue;
+    bf16* d = c.dst + static_cast<long long>(m) * c.dst_ld + co;
+    const float* z = zs + gi * g.T * kZLd + col;
+    float v = lp.v_reset;
+    for (int t = 0; t < g.T; ++t) {
+      const float s = co < c.cout ? lif(v, z[t * kZLd], lp) : 0.0f;
+      d[static_cast<long long>(t) * c.dst_ld] = __float2bfloat16(s);
     }
-    __syncthreads();
-    Seg in = {p.off_s1, p.stride[0], c0, 0};
-    long long v_off = static_cast<long long>(P) * c0;
-    for (int l = 1; l < L; ++l) {
-      const int out_off = p.off_buf[(l - 1) & 1];
-      conv3x3<W, false>(p, sm, &in, 1, static_cast<const W*>(p.w[l - 1]),
-                        p.b[l - 1], p.ch[l - 1], p.ch[l], int8_scales,
-                        v_img + v_off, nullptr, out_off, p.stride[l]);
-      v_off += static_cast<long long>(P) * p.ch[l];
-      in = Seg{out_off, p.stride[l], p.ch[l], 0};
-    }
-    Seg cat[2] = {in, Seg{p.off_s1, p.stride[0], c0, p.ch[L - 1]}};
-    conv3x3<W, true>(p, sm, cat, 2, static_cast<const W*>(p.w[L - 1]),
-                     p.b[L - 1], p.ch[L - 1] + c0, K, int8_scales, nullptr,
-                     acc, 0, 0);
   }
-  const float steps = static_cast<float>(p.steps);
-  for (int i = tid; i < P * K; i += kThreads) acc[i] = acc[i] / steps;
+}
+
+// The readout conv over all T steps: each thread sums whole (position,
+// class) sequences of the tile in t order from 0 and writes the sum times
+// the fp32 reciprocal of T, which is how PyTorch's CUDA division by a
+// scalar computes the plain version's acc / T (the same as dividing when T
+// is a power of two).
+template <typename W>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+readout_kernel(const Conv c, const Rows g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int m0, n0;
+  const float* zs = conv_tile<W>(smem_raw, c, g, m0, n0);
+  const float inv_steps = 1.0f / static_cast<float>(g.T);
+  for (int q = threadIdx.x; q < g.G * tc::kBN; q += tc::kThreads) {
+    const int gi = q / tc::kBN;
+    const int col = q - gi * tc::kBN;
+    const int co = n0 + col;
+    const int m = m0 + gi * g.T;
+    if (m >= g.M || co >= c.cout) continue;
+    const float* z = zs + gi * g.T * kZLd + col;
+    float acc = 0.0f;
+    for (int t = 0; t < g.T; ++t) acc = acc + z[t * kZLd];
+    c.logits[static_cast<long long>(m / g.T) * c.cout + co] = acc * inv_steps;
+  }
+}
+
+// s1 at every step from the constant current a1 (n_pos, c1): one thread
+// per (position, padded channel), writing T rows of dst (zeros in the
+// padding channels).
+__global__ void __launch_bounds__(256)
+lif1_kernel(const float* __restrict__ a1, bf16* __restrict__ dst, int dst_ld, int n_pos,
+            int c1, int cp1, int T, const Lif lp) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(n_pos) * cp1) return;
+  const int pos = static_cast<int>(e / cp1);
+  const int ch = static_cast<int>(e - static_cast<long long>(pos) * cp1);
+  bf16* d = dst + static_cast<long long>(pos) * T * dst_ld + ch;
+  const float x = ch < c1 ? a1[static_cast<long long>(pos) * c1 + ch] : 0.0f;
+  float v = lp.v_reset;
+  for (int t = 0; t < T; ++t) {
+    const float s = ch < c1 ? lif(v, x, lp) : 0.0f;
+    d[static_cast<long long>(t) * dst_ld] = __float2bfloat16(s);
+  }
 }
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 template <typename W>
-int launch(Params p, int n_images, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(p.smem_floats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_denoiser_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_denoiser_kernel<W><<<n_images, kThreads, bytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+int launch(const Rows& g, int n_layers, const int* ch, int classes, const float* a1,
+           const long long* w_ptrs, const long long* b_ptrs, bf16* cat, bf16* ping, bf16* pong,
+           float* logits, const Lif& lp, cudaStream_t st) {
+  const int bytes = tc::smem_bytes(false);
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      conv_lif_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc != 0) return rc;
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      readout_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc != 0) return rc;
+  const int L = n_layers;
+  const int cp1 = tc::padded(ch[0]);
+  const int cpL = tc::padded(ch[L - 1]);
+  const int cat_ld = cpL + cp1;
+  const int n_pos = g.M / g.T;
+  const long long n1 = static_cast<long long>(n_pos) * cp1;
+  lif1_kernel<<<static_cast<unsigned>((n1 + 255) / 256), 256, 0, st>>>(
+      a1, cat + cpL, cat_ld, n_pos, ch[0], cp1, g.T, lp);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const unsigned tiles_m = static_cast<unsigned>((n_pos + g.G - 1) / g.G);
+  bf16* bufs[2] = {ping, pong};
+  for (int i = 0; i <= L - 1; ++i) {
+    const bool readout = i == L - 1;
+    Conv c = {};
+    if (i == 0) {
+      c.src = cat + cpL;
+      c.src_ld = cat_ld;
+      c.cp = cp1;
+    } else if (readout) {
+      c.src = cat;
+      c.src_ld = cat_ld;
+      c.cp = cat_ld;
+    } else {
+      c.src = bufs[(i - 1) & 1];
+      c.src_ld = c.cp = tc::padded(ch[i]);
+    }
+    c.w = reinterpret_cast<const bf16*>(w_ptrs[i]);
+    c.kr = round_up(kPlanes<W> * 3 * c.cp, tc::kBK);
+    c.b = reinterpret_cast<const float*>(b_ptrs[i]);
+    c.cout = readout ? classes : ch[i + 1];
+    c.np = tc::padded(c.cout);
+    const unsigned blocks = tiles_m * static_cast<unsigned>((c.np + tc::kBN - 1) / tc::kBN);
+    if (readout) {
+      c.logits = logits;
+      readout_kernel<W><<<blocks, tc::kThreads, bytes, st>>>(c, g);
+    } else {
+      if (i == L - 2) {
+        c.dst = cat;
+        c.dst_ld = cat_ld;
+      } else {
+        c.dst = bufs[i & 1];
+        c.dst_ld = c.np;
+      }
+      conv_lif_kernel<W><<<blocks, tc::kThreads, bytes, st>>>(c, g, lp);
+    }
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Launches one block per image on `stream` (a cudaStream_t); allocates
+// Launches K2's L + 1 kernels on `stream` (a cudaStream_t); allocates
 // nothing and does not synchronise. wtype: 0 fp32, 1 bf16, 2 int8 weights.
-// w_ptrs / b_ptrs: device pointers of the n_layers weights and bias packs
-// (blocks 2..L, then the readout). Returns cudaGetLastError() after the
-// launch, or -1 for arguments it does not take and -2 when the shared
-// memory exceeds what a block may use.
+// channels: the n_layers LIF conv blocks' output channels, the first
+// included; Cp(c) = c rounded up to a multiple of 8. a1 (N, P, ch[0]) fp32.
+// w_ptrs: device pointers of the n_layers bf16 matrices B (blocks 2..L,
+// then the readout), each (3 * Kr, Cp(cout)), Kr = planes * 3 * Cp_in
+// rounded up to a multiple of 64, planes 3 for fp32 and 1 otherwise, Cp_in
+// = Cp(ch[i]) for block i + 2 and Cp(ch[L-1]) + Cp(ch[0]) for the readout,
+// whose input channels are laid out as (x_L | s1), each part padded.
+// b_ptrs: the (1, cout) fp32 biases, int8 (4, cout): bias, then the
+// scales of kernel rows dy = 0, 1, 2. cat: bf16 (N * P * T, Cp(ch[L-1]) +
+// Cp(ch[0])); ping, pong: bf16 scratch of N * P * T * Cp(ch[i + 1])
+// elements for blocks i + 2 = 2, 4, .. (ping) and 3, 5, .. (pong) below L;
+// logits (N, P, classes) fp32. Returns the first cudaGetLastError() of the
+// launches, or -1 for arguments it does not take (T > 128, N * P * T of
+// 2^31 or more).
 extern "C" int fused_denoiser_fwd(int wtype, int n_images, int hw, int n_layers,
                                   const int* channels, int classes, int steps,
                                   const float* a1, const long long* w_ptrs,
-                                  const long long* b_ptrs, float* v_scratch,
-                                  float* logits, float decay, float v_th,
-                                  float v_reset, int decay_input, int hard_reset,
-                                  void* stream) {
-  if (n_layers < 2 || n_layers > kMaxLayers || n_images < 1 || hw < 1 ||
-      classes < 1 || steps < 1) {
+                                  const long long* b_ptrs, void* cat, void* ping, void* pong,
+                                  float* logits, float decay, float v_th, float v_reset,
+                                  int decay_input, int hard_reset, void* stream) {
+  if (n_layers < 2 || n_layers > kMaxLayers || n_images < 1 || hw < 1 || classes < 1 ||
+      steps < 1 || steps > kMaxSteps) {
     return -1;
   }
-  Params p = {};
-  p.n_layers = n_layers;
-  p.classes = classes;
-  p.steps = steps;
-  p.hw = hw;
-  p.P = hw * hw;
-  int sum_ch = 0, buf[2] = {0, 0}, max_stride = 0;
   for (int l = 0; l < n_layers; ++l) {
     if (channels[l] < 1) return -1;
-    p.ch[l] = channels[l];
-    p.stride[l] = round_up(channels[l], kKTile);
-    sum_ch += channels[l];
-    max_stride = p.stride[l] > max_stride ? p.stride[l] : max_stride;
-    if (l > 0) buf[(l - 1) & 1] = p.stride[l] > buf[(l - 1) & 1] ? p.stride[l] : buf[(l - 1) & 1];
-    p.w[l] = reinterpret_cast<const void*>(w_ptrs[l]);
-    p.b[l] = reinterpret_cast<const float*>(b_ptrs[l]);
   }
-  p.v_per_image = p.P * sum_ch;
-  p.a1 = a1;
-  p.v = v_scratch;
-  p.logits = logits;
-  p.decay = decay;
-  p.v_th = v_th;
-  p.v_reset = v_reset;
-  p.decay_input = decay_input;
-  p.hard_reset = hard_reset;
-  p.off_zero = 0;
-  p.off_s1 = max_stride;
-  p.off_buf[0] = p.off_s1 + p.P * p.stride[0];
-  p.off_buf[1] = p.off_buf[0] + p.P * buf[0];
-  p.off_wt = p.off_buf[1] + p.P * buf[1];
-  p.smem_floats = p.off_wt + 2 * kTileElems;
-  if (p.smem_floats * 4LL > kSmemLimit) return -2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = static_cast<long long>(n_images) * hw * hw * steps;
+  if (rows > 0x7fffffffLL) return -1;
+  const Rows g = {static_cast<int>(rows), steps, hw, hw * hw, tc::kBM / steps};
+  const Lif lp = {decay, v_th, v_reset, decay_input, hard_reset};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* c = static_cast<bf16*>(cat);
+  bf16* p0 = static_cast<bf16*>(ping);
+  bf16* p1 = static_cast<bf16*>(pong);
   switch (wtype) {
-    case 0: return launch<float>(p, n_images, s);
-    case 1: return launch<__nv_bfloat16>(p, n_images, s);
-    case 2: return launch<int8_t>(p, n_images, s);
+    case 0: return launch<float>(g, n_layers, channels, classes, a1, w_ptrs, b_ptrs, c, p0, p1,
+                                 logits, lp, st);
+    case 1: return launch<__nv_bfloat16>(g, n_layers, channels, classes, a1, w_ptrs, b_ptrs, c,
+                                         p0, p1, logits, lp, st);
+    case 2: return launch<int8_t>(g, n_layers, channels, classes, a1, w_ptrs, b_ptrs, c, p0, p1,
+                                  logits, lp, st);
     default: return -1;
   }
 }

@@ -1,14 +1,14 @@
-"""K2: the whole spiking denoiser in one kernel launch per call (fused sampler).
+"""K2: the spiking denoiser on the tensor cores, a few launches per call (fused sampler).
 
 Counterpart of ``spiking_diffusion_tpu/ops/fused_denoiser.py``. The
 denoiser's BatchNorms are folded into its convolutions
 (:func:`fold_denoiser_weights`); the first conv runs once per call on the
 constant (token, t) map (:func:`first_preactivation`); then
 :func:`fused_denoise` runs the T-step loop of every LIF layer, the skip
-concat and the firing-rate readout in one launch of the hand-written CUDA
-kernel ``csrc/fused_denoiser.cu`` for a tensor on a CUDA device, and takes
+concat and the firing-rate readout through the hand-written CUDA kernels
+of ``csrc/fused_denoiser.cu`` for a tensor on a CUDA device, and takes
 :func:`fused_denoise_reference`, its plain PyTorch version, only for a
-tensor on the CPU. ``LAUNCHES`` counts the kernel's launches.
+tensor on the CPU. ``LAUNCHES`` counts the calls that launch K2.
 
 Weights come in fp32, bf16 (rounded to nearest even) or int8 (symmetric,
 one scale per kernel row and output channel, the JAX package's default
@@ -17,6 +17,13 @@ are fp32. Every conv is three kernel-row partial sums combined in the
 order centre, top, bottom, then bias (int8: each partial times its
 scale), the JAX mirror's int8 order; in int8 the partials are exact
 integers, so kernel and plain version agree bitwise.
+
+The kernel runs layer by layer over all T steps at once: each conv is one
+tensor-core GEMM over N * P * T bf16 spike rows ordered (n, p, t),
+channels-last and padded to a multiple of 8 channels, against a bf16
+matrix built per call from the folded weights
+(:func:`kernel_matrix`: three exact bf16 planes for fp32), and the LIF
+scan over t runs in the GEMM's epilogue.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models.diffusion import DenoiseFn
 from spiking_diffusion_tpu_torch.ops import _build
+from spiking_diffusion_tpu_torch.ops.spike_conv import padded_channels, weight_planes
 from spiking_diffusion_tpu_torch.snn.functional import fuse_conv_bn
 from spiking_diffusion_tpu_torch.snn.neuron import lif_step
 
@@ -41,6 +49,10 @@ LAUNCHES = 0
 # weight dtype -> the kernel's template selector
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 MAX_LAYERS = 8  # LIF conv blocks the kernel takes
+MAX_STEPS = 128  # T: a 128-row tile holds whole T-step sequences (tc::kBM)
+MAX_ROWS = 2**31 - 1  # N * P * T: the kernels' 32-bit row index
+STAGE_DEPTH = 64  # a kernel row's contraction is padded to whole stages (tc::kBK)
+ROW_ORDER = (1, 0, 2)  # kernel rows dy in the kernel's contraction: centre, top, bottom
 
 _FN = None
 
@@ -53,9 +65,9 @@ def _kernel():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -241,6 +253,68 @@ def fused_denoise_reference(a1: torch.Tensor, folded: FoldedDenoiser,
     return (acc / cfg.num_steps).reshape(n, hw2, -1)
 
 
+# --- the kernel's operand layout ----------------------------------------------
+
+
+def planes_of(dtype: torch.dtype) -> int:
+    """bf16 planes of a weight of ``dtype``: fp32 three, bf16 and int8 one."""
+    return 3 if dtype == torch.float32 else 1
+
+
+def kernel_row_depth(planes: int, cp: int) -> int:
+    """Kr: one kernel row's contraction over (plane, dx, channel) of a
+    ``cp``-channel operand, rounded up to whole stages."""
+    return -(-planes * 3 * cp // STAGE_DEPTH) * STAGE_DEPTH
+
+
+def conv_segments(chans: Tuple[int, ...]) -> Tuple[Tuple[int, ...], ...]:
+    """The input channels of each conv of the kernel, as the parts of its
+    spike operand: blocks 2..L one part each, the readout (x_L, s1)."""
+    return tuple((c,) for c in chans[:-1]) + ((chans[-1], chans[0]),)
+
+
+def kernel_matrix(w: torch.Tensor, segments: Tuple[int, ...]) -> torch.Tensor:
+    """A folded (3, 3 * Cin, Cout) weight -> the kernel's bf16 B matrix.
+
+    (3 * Kr, Cp(Cout)): the kernel rows in :data:`ROW_ORDER`, each a range
+    of Kr rows (:func:`kernel_row_depth`, zero below its products), row
+    plane * 3 * Cp_in + dx * Cp_in + c within it, where Cp_in lays the
+    input channels out as ``segments``, each part padded to a multiple of
+    8 (:func:`padded_channels`, zero), as the spike operand holds them. fp32
+    weights are three bf16 planes (:func:`weight_planes`, exact), smallest
+    first; bf16 weights one plane; int8 weights one plane of their
+    integers, exact in bf16 (their scales stay in the bias pack).
+    """
+    cin, cout = w.shape[1] // 3, w.shape[2]
+    if sum(segments) != cin:
+        raise ValueError(f"segments {segments} do not add up to {cin} channels")
+    w4 = w.reshape(3, 3, cin, cout)
+    if w.dtype == torch.float32:
+        planes = list(reversed(weight_planes(w4)))
+    else:
+        planes = [w4.to(torch.bfloat16)]
+    stacked = torch.stack(planes, 1)  # (dy, plane, dx, Cin, Cout)
+    parts, start = [], 0
+    for c in segments:
+        parts.append(F.pad(stacked[..., start:start + c, :],
+                           (0, padded_channels(cout) - cout, 0, padded_channels(c) - c)))
+        start += c
+    m = torch.cat(parts, dim=-2)  # (3, planes, 3, Cp_in, Np)
+    depth = m.shape[1] * 3 * m.shape[3]
+    m = F.pad(m.reshape(3, depth, m.shape[-1]),
+              (0, 0, 0, kernel_row_depth(m.shape[1], m.shape[3]) - depth))
+    return m[list(ROW_ORDER)].reshape(-1, m.shape[-1]).contiguous()
+
+
+def buffer_channels(chans: Tuple[int, ...]) -> Tuple[int, int, int]:
+    """Channels of the kernel's three spike buffers: the concat (x_L | s1),
+    ping (blocks 2, 4, ..) and pong (blocks 3, 5, ..), blocks below L; 0
+    for a buffer no block uses."""
+    mid = [padded_channels(c) for c in chans[1:-1]]
+    return (padded_channels(chans[-1]) + padded_channels(chans[0]),
+            max(mid[0::2], default=0), max(mid[1::2], default=0))
+
+
 # --- the kernel's wrapper ----------------------------------------------------
 
 
@@ -278,12 +352,23 @@ def _check(a1: torch.Tensor, folded: FoldedDenoiser, cfg: DiffusionConfig):
             raise ValueError(f"a1 on {a1.device}, weights on {x.device}")
 
 
+def _check_card(a1: torch.Tensor, cfg: DiffusionConfig):
+    """Raise on inputs that K2's plain version takes and the kernel does not."""
+    steps = cfg.num_steps
+    if steps > MAX_STEPS:
+        raise ValueError(f"K2 takes T <= {MAX_STEPS} steps, got {steps}: a row tile "
+                         "holds whole T-step sequences")
+    if a1.shape[0] * a1.shape[1] * steps > MAX_ROWS:
+        raise ValueError(f"K2 takes N * P * T <= {MAX_ROWS} rows, got "
+                         f"{a1.shape[0]} * {a1.shape[1]} * {steps}")
+
+
 def fused_denoise(a1: torch.Tensor, folded: FoldedDenoiser,
                   cfg: DiffusionConfig) -> torch.Tensor:
     """The denoiser after its first conv: (N, h*w, C1) a1 -> (N, h*w, K).
 
     A CPU tensor takes :func:`fused_denoise_reference`; a CUDA tensor
-    launches K2 once, or raises.
+    launches K2 (its L + 1 kernels), or raises.
     """
     global LAUNCHES
     _check(a1, folded, cfg)
@@ -294,26 +379,30 @@ def fused_denoise(a1: torch.Tensor, folded: FoldedDenoiser,
     tensors = (a1,) + folded.weights + folded.biases
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("fused_denoise needs contiguous a1, weights and biases")
+    _check_card(a1, cfg)
     chans = tuple(cfg.denoiser_channels)
     n, hw2 = a1.shape[:2]
+    rows = n * hw2 * cfg.num_steps
     p = cfg.lif.to_params()
-    v = torch.empty((n, hw2 * sum(chans)), dtype=torch.float32, device=a1.device)
+    mats = [kernel_matrix(w, seg) for w, seg in zip(folded.weights, conv_segments(chans))]
+    cat_c, ping_c, pong_c = buffer_channels(chans)
+    cat = torch.empty((rows, cat_c), dtype=torch.bfloat16, device=a1.device)
+    ping = torch.empty((rows * ping_c,), dtype=torch.bfloat16, device=a1.device)
+    pong = torch.empty((rows * pong_c,), dtype=torch.bfloat16, device=a1.device)
     out = torch.empty((n, hw2, cfg.num_embeddings), dtype=torch.float32,
                       device=a1.device)
     n_l = len(chans)
     c_chans = (ctypes.c_int * n_l)(*chans)
-    w_ptrs = (ctypes.c_longlong * n_l)(*[w.data_ptr() for w in folded.weights])
+    w_ptrs = (ctypes.c_longlong * n_l)(*[m.data_ptr() for m in mats])
     b_ptrs = (ctypes.c_longlong * n_l)(*[b.data_ptr() for b in folded.biases])
     fn = _kernel()
     with torch.cuda.device(a1.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(DTYPES[folded.dtype], n, cfg.latent_size, n_l, c_chans,
                 cfg.num_embeddings, cfg.num_steps, a1.data_ptr(), w_ptrs,
-                b_ptrs, v.data_ptr(), out.data_ptr(), p.decay, p.v_threshold,
-                p.v_reset, int(p.decay_input), int(p.hard_reset), stream)
-    if rc == -2:
-        raise RuntimeError(f"fused_denoiser: channels {chans} need more shared "
-                           "memory than one block may use")
+                b_ptrs, cat.data_ptr(), ping.data_ptr(), pong.data_ptr(),
+                out.data_ptr(), p.decay, p.v_threshold, p.v_reset,
+                int(p.decay_input), int(p.hard_reset), stream)
     if rc != 0:
         raise RuntimeError(f"fused_denoiser launch failed: code {rc}")
     LAUNCHES += 1

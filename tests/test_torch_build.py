@@ -31,7 +31,9 @@ def test_every_local_include_exists():
 @pytest.mark.parametrize("edited,rebuilt", [
     ("lif_neuron.cuh", {"lif_fwd", "lif_bwd", "bn_lif"}),
     ("channel_sum.cuh", {"bn_lif", "spike_conv"}),
+    ("mma_loop.cuh", {"fused_denoiser", "spike_conv"}),
     ("bn_lif.cu", {"bn_lif"}),
+    ("fused_denoiser.cu", {"fused_denoiser"}),
     ("spike_conv.cu", {"spike_conv"}),
 ])
 def test_library_name_follows_source_and_headers(csrc_copy, edited, rebuilt):

@@ -23,7 +23,8 @@ split is bitwise its plain version. K2 (the fused denoiser) must agree
 bitwise in int8, where every partial sum is an exact integer; in fp32 and bf16 its sums run in another
 order than cuBLAS's, so a membrane one rounding from threshold may flip a
 spike: at least 99 % of the logits lie within 1e-4 and the median
-|difference| is at most 1e-6.
+|difference| is at most 1e-6; its conv and readout kernels run on the
+tensor cores (HMMA in their SASS), and it refuses T > 128.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed. Without a CUDA device every test skips with a reason. On a
@@ -34,12 +35,16 @@ machine with the card, from the root of a checkout:
 (``--noconftest`` because tests/conftest.py imports JAX.)
 """
 
+import subprocess
+from pathlib import Path
+
 import pytest
 import torch
 
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models import diffusion, weights
 from spiking_diffusion_tpu_torch.models.layers import SeqConv
+from spiking_diffusion_tpu_torch.ops import _build
 from spiking_diffusion_tpu_torch.ops import bn_lif as port_bn_lif
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as port_lif
@@ -302,10 +307,14 @@ def test_train_step_bf16(cuda_device, backend):
 # --- K2 ----------------------------------------------------------------------
 
 K2_WIDTHS = {
-    # 24 is not a multiple of the kernel's 16-channel tiles, 16 < its
-    # 128-channel output tile
+    # 3 * 24 channels is no whole number of 64-deep stages, 16 < the
+    # 128-column output tile; T = 3 leaves 2 of a tile's 128 rows unused
+    # (42 sequences of 3)
     "small": dict(denoiser_channels=(8, 16, 24, 32, 16), num_embeddings=16,
                   mask_id=16, num_steps=4),
+    "small_t3": dict(denoiser_channels=(8, 16, 24, 32, 16), num_embeddings=16,
+                     mask_id=16, num_steps=3),
+    # batch 13: 637 positions, 80 row tiles of 8 sequences, the last ragged
     "full": {},
 }
 K2_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
@@ -357,9 +366,10 @@ def test_fused_denoiser_kernel_matches_reference(cuda_device, dtype, width, n):
 
 
 @pytest.mark.gpu
-def test_fused_denoiser_int8_rows_are_independent(cuda_device):
+@pytest.mark.parametrize("width", ["small", "full"])
+def test_fused_denoiser_int8_rows_are_independent(cuda_device, width):
     """An image's logits do not depend on the other images of its batch."""
-    cfg, den, tokens, t = _k2_setup("small", 13, cuda_device, seed=3)
+    cfg, den, tokens, t = _k2_setup(width, 13, cuda_device, seed=3)
     whole, _ = _k2_pair(cfg, den, tokens, t, torch.int8)
     part, _ = _k2_pair(cfg, den, tokens[5:9], t[5:9], torch.int8)
     assert torch.equal(whole[5:9], part)
@@ -381,6 +391,29 @@ def test_fused_denoiser_rejects_what_it_does_not_take(cuda_device):
                          folded, cfg)
     with pytest.raises(TypeError):
         fd.make_fused_denoise_fn(den, cfg, torch.float16)
+    long_cfg = DiffusionConfig(**dict(K2_WIDTHS["small"], num_steps=129))
+    with pytest.raises(ValueError, match="T <= 128"):
+        fd.fused_denoise(a1, folded, long_cfg)
+
+
+@pytest.mark.gpu
+def test_fused_denoiser_kernels_reach_the_tensor_cores(cuda_device):
+    """K2's conv and readout kernels, for each weight type, hold HMMA
+    (tensor-core) instructions in the built library's SASS."""
+    (built,) = _build.build([fd.SOURCE])
+    cuobjdump = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(built.path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    for kernel in ("conv_lif_kernel", "readout_kernel"):
+        found = {k: v for k, v in counts.items() if kernel in k}
+        assert len(found) == 3 and all(v > 0 for v in found.values()), found
 
 
 # --- K4 ----------------------------------------------------------------------
