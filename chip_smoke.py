@@ -16,8 +16,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    prints the build times and ``-Xptxas -v`` lines; then the ``HMMA``
    (tensor-core) instructions of each K2 and K4 kernel in the built
    libraries' SASS (``cuobjdump -sass``): K2's conv and readout kernels
-   in each weight type, K4's bf16 kernels and its fp32-output forward
-   kernel must have some.
+   in each weight type, and K4's five (bf16 forward and dx, bf16 dW,
+   fp32 forward, fp32 dx, fp32 dW) must have some.
 2. models: the full-width MNIST flagship (49-step sampler, T=16 denoiser
    64-128-256-512-256, K=128, then the VQ-VAE decode) with seeded random
    weights whose BN statistics are set from one batch; the card's logits
@@ -48,18 +48,20 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    1e-3; dx, dW, db 1e-4), the sums' also widened by 1e-6 of the sum of
    their terms' absolute values (a sum of up to 200,704 terms in another
    order), s1, s2, dW and db equal from launch to launch; every fp32
-   forward of the path's x (spikes, token ids, timesteps) must take the
-   tensor-core route, and the same x with one element off bf16's grid
-   the CUDA-core route, held at the same tolerances;
+   forward and backward (dW and dx) of the path's x (spikes, token ids,
+   timesteps) must take the tensor-core route; the same x with one
+   element off bf16's grid the CUDA-core route in the forward and dW, and
+   with one inf in gy as well the CUDA-core route in dx, held at the same
+   tolerances (with inf and NaN where the plain version has them);
    median of 10, beside its bound (operations over the peak of the type,
-   or bytes; the fp32 forward's tensor-core route does three bf16
-   products per product, so its bound is three times its operations over
-   the bf16 peak, logged beside the CUDA-core bound) and the library
-   call (cuDNN: ``F.conv2d`` plus the two sums,
+   or bytes; fp32's tensor-core routes do three bf16 products per
+   product in the forward and dW and six in dx, so their bound counts
+   those over the bf16 peak, logged beside the CUDA-core bound) and the
+   library call (cuDNN: ``F.conv2d`` plus the two sums,
    ``aten.convolution_backward``); the backward also without dx, which
-   splits it into its dW + db and dx parts; and by kernel
-   (``torch.profiler``) the fp32 forward's and the bf16 step's device
-   time.
+   splits it into its dW + db and dx parts (fp32 on both routes); and by
+   kernel (``torch.profiler``) the fp32 forward's and backward's and the
+   bf16 step's device time.
 4. generation: the layerwise sampler, three requests at batch 16 and one
    at batch 256, each twice on the same noise, through K1 and through the
    plain LIF: codes and images identical, codes valid, images finite in
@@ -84,7 +86,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    batch 32 and 256, a few AdamW steps each with the launch counts reset
    just before: exactly 5 + 5 K1 launches per layerwise step, 5 + 5 K3
    per 'bnlif' step, 6 + 6 K4 and 5 + 5 K3 per 'bnlifconv' step, no other
-   kernel, every fp32 K4 forward on the tensor-core route; finite losses.
+   kernel, every fp32 K4 forward, dW and dx on the tensor-core route;
+   finite losses.
    The first step at batch 32 must equal the same step through the plain
    versions on the card on the layerwise and 'bnlif' branches (the same
    operations, with kernels bitwise their plain versions) and agree with
@@ -153,8 +156,16 @@ K2_RAGGED = 13
 # peak rate of the work's type on an H100 SXM (NVIDIA data sheet, dense):
 # fp32 on the CUDA cores, bf16 and int8 on the tensor cores
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12, torch.int8: 1979e12}
-# K4's fp32 forward of an x exact in bf16: three bf16 products per product
+# K4's fp32 tensor-core routes: three bf16 products per product in the
+# forward and dW (x exact in bf16, three planes of the other operand), six
+# in dx (the plane products of g and the weight that it keeps)
 K4_FP32_PLANES = 3
+K4_FP32_DX_TERMS = len(sc.DX_TERMS)
+# the five tensor-core kernels of K4 by what they run, as their SASS names
+# them: conv_mma_kernel<Out, terms>, wgrad_mma_kernel<g planes>
+K4_MMA_KERNELS = {"bf16 forward and dx": "conv_mma_kernelI13__nv_bfloat16Li1E",
+                  "bf16 dW": "wgrad_mma_kernelILi1E", "fp32 forward": "conv_mma_kernelIfLi3E",
+                  "fp32 dx": "conv_mma_kernelIfLi6E", "fp32 dW": "wgrad_mma_kernelILi3E"}
 K2_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 K2_STEP_LAUNCHES = 49  # one per reverse step
 K1_DECODE_LAUNCHES = 3
@@ -182,6 +193,7 @@ K4_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 # with block 0's inputs (token ids and timesteps up to 128)
 K4_SUM_SHARE = 1e-6
 K4_PER_STEP = 6  # five blocks and the readout
+K4_DX_PER_STEP = 5  # block 0's input is the token map: no dx
 K3_PER_STEP = 5
 SIGMOID_TOL = dict(rtol=1e-5, atol=1e-6)  # expf against PyTorch's exp
 K3_SUM_RTOL = 1e-5  # dscale, dshift: per-channel sums of 12,544 x 16 terms
@@ -672,6 +684,19 @@ def k4_fwd_bounds(flops, nbytes, dtype):
     return k4_bound_ms(flops, nbytes, PEAK_OPS[dtype]), None
 
 
+def k4_bwd_bounds(flops, dx, nbytes, dtype):
+    """The backward's bound (ms, what bounds it) on the route its path
+    takes, and (fp32) the CUDA-core route's: fp32 runs dW at
+    K4_FP32_PLANES and dx at K4_FP32_DX_TERMS bf16 products per product;
+    ``flops`` is one product's (the forward's) operations."""
+    work = flops * (2 if dx else 1)
+    if dtype == torch.float32:
+        products = K4_FP32_PLANES + (K4_FP32_DX_TERMS if dx else 0)
+        return (k4_bound_ms(products * flops, nbytes, PEAK_OPS[torch.bfloat16]),
+                k4_bound_ms(work, nbytes, PEAK_OPS[torch.float32]))
+    return k4_bound_ms(work, nbytes, PEAK_OPS[dtype]), None
+
+
 def k4_inputs(n, cin, cout, dtype, gen):
     """x as the path gives it (block 0: token ids and timesteps; else
     spikes at a rate of 0.25), the init's weights and bias, and random
@@ -717,6 +742,28 @@ def check_fp32_routes(what: str, tensor_cores: int, cuda_cores: int = 0) -> tupl
     return routes
 
 
+def check_fp32_bwd_routes(what: str, dw_tc: int, dx_tc: int, dw_cc: int = 0,
+                          dx_cc: int = 0) -> tuple:
+    """Since the route counts were reset, K4's fp32 backwards took dW on
+    the tensor cores ``dw_tc`` times and on the CUDA cores ``dw_cc``
+    times, dx ``dx_tc`` and ``dx_cc`` times: (dW tensor cores, dW CUDA
+    cores, dx tensor cores, dx CUDA cores)."""
+    routes = sc.fp32_bwd_route_counts()
+    want = (dw_tc, dw_cc, dx_tc, dx_cc)
+    check(routes == want, f"{what}: fp32 K4 backward passes by route (dW tensor cores, dW "
+          f"CUDA cores, dx tensor cores, dx CUDA cores) {routes}, expected {want}")
+    return routes
+
+
+def k4_bwd_abs_sums(x, w, y, gy, gs1, gs2, moments, dx_needed):
+    """(dx, dW, db) of the backward's contractions over absolute values:
+    each element's sum of |terms|."""
+    g = sc.grad_out(y, gy, gs1, gs2, moments)
+    zeros = torch.zeros_like(gs1)
+    return sc.spike_conv3x3_bwd_reference(x.abs(), w.abs(), y, g.abs().to(x.dtype), zeros,
+                                          zeros, False, dx_needed)
+
+
 def compare_k4(x, w, b, gy, gs1, gs2, moments, dx_needed, dname):
     """K4 forward and backward against their plain versions: (max |d y|,
     max |d| / |plain| of s1 and s2, max |d| of dx, dW and db). An fp32 x
@@ -728,12 +775,10 @@ def compare_k4(x, w, b, gy, gs1, gs2, moments, dx_needed, dname):
     y_ref, s1_ref, s2_ref = sc.spike_conv3x3_fwd_reference(x, w, b, moments)
     got = sc.spike_conv3x3_bwd(x, w, y_ref, gy, gs1, gs2, moments, dx_needed)
     again = sc.spike_conv3x3_bwd(x, w, y_ref, gy, gs1, gs2, moments, dx_needed)
+    n_tc = 2 if dname == "fp32" else 0
+    check_fp32_bwd_routes("K4 backward on the path's x", n_tc, n_tc if dx_needed else 0)
     want = sc.spike_conv3x3_bwd_reference(x, w, y_ref, gy, gs1, gs2, moments, dx_needed)
-    # the same contractions over absolute values: each element's sum of |terms|
-    g = sc.grad_out(y_ref, gy, gs1, gs2, moments)
-    zeros = torch.zeros_like(gs1)
-    abs_sums = sc.spike_conv3x3_bwd_reference(x.abs(), w.abs(), y_ref, g.abs().to(x.dtype),
-                                              zeros, zeros, False, dx_needed)
+    abs_sums = k4_bwd_abs_sums(x, w, y_ref, gy, gs1, gs2, moments, dx_needed)
     torch.cuda.synchronize()
     check(float(y_ref.float().std()) > 0.1, "K4: near-constant reference y")
     torch.testing.assert_close(y.float(), y_ref.float(), **K4_Y_TOL[dname])
@@ -783,10 +828,22 @@ def add_profile(profile: dict, fn) -> None:
         row[1] += count
 
 
-def compare_k4_cuda_cores(x, w, b, moments) -> float:
-    """The fp32 forward of x with one element moved off bf16's grid: the
-    CUDA-core route, against the plain version at the same tolerances;
-    max |d y|."""
+def assert_near_nonfinite(what, got, want, abs_sum, rtol, atol):
+    """``assert_near`` on the elements where ``want`` is finite; inf, -inf
+    and NaN at the same places as in ``want``."""
+    for kind in ("isnan", "isposinf", "isneginf"):
+        check(torch.equal(getattr(got, kind)(), getattr(want, kind)()),
+              f"{what}: {kind} differs from the plain version")
+    finite = want.isfinite()
+    return assert_near(what, got[finite], want[finite], abs_sum[finite], rtol, atol)
+
+
+def compare_k4_cuda_cores(x, w, b, gy, gy_inf, gs1, gs2, moments, dx_needed) -> tuple:
+    """K4 fp32 with x's first element moved off bf16's grid: the forward
+    and dW on the CUDA-core route, dx on the tensor cores; then with one
+    inf in gy as well: dW and dx on the CUDA-core route. Each against the
+    plain version at the same tolerances (inf and NaN where it has them);
+    (max |d y|, max |d| of the finite dx, dW and db)."""
     sc.reset_fp32_route_counts()
     y, s1, s2 = sc.spike_conv3x3_fwd(x, w, b, moments)
     check_fp32_routes("K4 on an x that bf16 cannot hold", 0, 1)
@@ -796,7 +853,26 @@ def compare_k4_cuda_cores(x, w, b, moments) -> float:
         for what, a, a_ref, abs_sum in (("s1", s1, s1_ref, y_ref.abs().sum((0, 2, 3))),
                                         ("s2", s2, s2_ref, s2_ref)):
             assert_near(f"K4 CUDA-core route {what}", a, a_ref, abs_sum, **K4_MOMENT_TOL)
-    return float((y - y_ref).abs().max())
+    err_bwd = 0.0
+    for what, g_in, routes in (("x off the grid", gy, (0, 1 if dx_needed else 0, 1, 0)),
+                               ("and g with an inf", gy_inf, (0, 0, 1, 1 if dx_needed else 0))):
+        sc.reset_fp32_route_counts()
+        got = sc.spike_conv3x3_bwd(x, w, y_ref, g_in, gs1, gs2, moments, dx_needed)
+        check_fp32_bwd_routes(f"K4 backward, {what}", *routes)
+        want = sc.spike_conv3x3_bwd_reference(x, w, y_ref, g_in, gs1, gs2, moments, dx_needed)
+        abs_sums = k4_bwd_abs_sums(x, w, y_ref, g_in, gs1, gs2, moments, dx_needed)
+        for name, a, a_ref, abs_sum in zip(("dx", "dW", "db"), got, want, abs_sums):
+            if a_ref is not None:
+                err_bwd = max(err_bwd, assert_near_nonfinite(
+                    f"K4 fp32 {name}, {what}", a, a_ref, abs_sum, **K4_GRAD_TOL))
+    return float((y - y_ref).abs().max()), err_bwd
+
+
+def with_inf(t: torch.Tensor) -> torch.Tensor:
+    """t with its middle element set to +inf."""
+    t = t.clone()
+    t.view(-1)[t.numel() // 2] = float("inf")
+    return t
 
 
 def off_grid(x: torch.Tensor) -> torch.Tensor:
@@ -811,10 +887,11 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
     shapes of a 'bnlifconv' training step at batch 256, in fp32 and bf16,
     timed beside their bound and the library call (cuDNN through
     ``F.conv2d`` plus the two sums; ``aten.convolution_backward``): the
-    times per training step. fp32 also on its CUDA-core route."""
+    times per training step. fp32 also on its CUDA-core routes."""
     out = {}
     profile = {}  # bf16 kernel -> [device ms, launches] per training step
     profile_fp32 = {}  # the same for the fp32 forward
+    profile_fp32_bwd = {}  # and the fp32 backward
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         rows = []
         err_fwd = err_moments = err_bwd = 0.0
@@ -861,21 +938,35 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
             f_flops, f_bytes, b_flops, b_bytes = k4_cost(n, cin, cout, moments, dx_needed,
                                                          itemsize)
             (fwd_bound, fwd_by), cc_bound = k4_fwd_bounds(f_flops, f_bytes, dtype)
-            bwd_bound, bwd_by = k4_bound_ms(b_flops, b_bytes, PEAK_OPS[dtype])
-            extra, cc_log = {}, ""
-            if dtype == torch.float32:  # the other route, on the path's x moved off the grid
+            (bwd_bound, bwd_by), bwd_cc_bound = k4_bwd_bounds(f_flops, dx_needed, b_bytes, dtype)
+            extra, cc_log, bwd_cc_log = {}, "", ""
+            if dtype == torch.float32:  # the other routes, on the path's x moved off the grid
                 add_profile(profile_fp32, lambda: sc.spike_conv3x3_fwd(x, w, b, moments))
-                x_off = off_grid(x)
-                err_cc = compare_k4_cuda_cores(x_off, w, b, moments)
-                err_fwd = max(err_fwd, err_cc)
+                add_profile(profile_fp32_bwd, lambda: sc.spike_conv3x3_bwd(
+                    x, w, y, gy, gs1, gs2, moments, dx_needed))
+                x_off, gy_inf = off_grid(x), with_inf(gy)
+                err_cc, err_bwd_cc = compare_k4_cuda_cores(x_off, w, b, gy, gy_inf, gs1, gs2,
+                                                           moments, dx_needed)
+                err_fwd, err_bwd = max(err_fwd, err_cc), max(err_bwd, err_bwd_cc)
                 sc.reset_fp32_route_counts()
                 extra = {"fwd_cc_ms": cuda_ms(lambda: sc.spike_conv3x3_fwd(x_off, w, b, moments),
                                               flush, reps),
-                         "fwd_cc_bound_ms": cc_bound[0]}
+                         "fwd_cc_bound_ms": cc_bound[0],
+                         # dW and dx on the CUDA cores: x off the grid, an inf in g
+                         "bwd_cc_ms": cuda_ms(lambda: sc.spike_conv3x3_bwd(
+                             x_off, w, y, gy_inf, gs1, gs2, moments, dx_needed), flush, reps),
+                         "bwd_cc_nodx_ms": cuda_ms(lambda: sc.spike_conv3x3_bwd(
+                             x_off, w, y, gy_inf, gs1, gs2, moments, False), flush, reps),
+                         "bwd_cc_bound_ms": bwd_cc_bound[0]}
                 check_fp32_routes("K4 timed on an x that bf16 cannot hold", 0, reps + 1)
+                check_fp32_bwd_routes("K4 backward timed on the CUDA-core routes", 0,
+                                      0, 2 * (reps + 1), reps + 1 if dx_needed else 0)
                 cc_log = (f" CUDA-core route {extra['fwd_cc_ms']:.3f} ms (bound "
                           f"{cc_bound[0]:.3f}, max|d y| {err_cc:.3g});")
-                del x_off
+                bwd_cc_log = (f"; CUDA-core routes {extra['bwd_cc_ms']:.3f} ms, dW + db "
+                              f"{extra['bwd_cc_nodx_ms']:.3f} (bound {bwd_cc_bound[0]:.3f}, "
+                              f"max|d dx, dW, db| {err_bwd_cc:.3g})")
+                del x_off, gy_inf
             rows.append({"shape": name, "M": n * 49, "Cin": cin, "Cout": cout, **times,
                          **extra, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
                          "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
@@ -888,15 +979,16 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
                 f"{times['bwd_plain_ms']:.3f}, cuDNN {times['bwd_library_ms']:.3f}, bound "
                 f"{bwd_bound:.3f} {bwd_by}, {b_flops / times['bwd_ms'] / 1e9:.2f} TFLOP/s "
                 f"useful; dW + db {times['bwd_nodx_ms']:.3f}, dx "
-                f"{times['bwd_ms'] - times['bwd_nodx_ms']:.3f}); max|d y| {e_f:.3g}, max "
-                f"rel |d s1, s2| {e_m:.3g}, max|d dx, dW, db| {e_b:.3g} [{card}]")
+                f"{times['bwd_ms'] - times['bwd_nodx_ms']:.3f}{bwd_cc_log}); max|d y| "
+                f"{e_f:.3g}, max rel |d s1, s2| {e_m:.3g}, max|d dx, dW, db| {e_b:.3g} [{card}]")
             del x, y, gy
         per_step = lambda key: sum(r[key] for r in rows)  # noqa: E731
         keys = ["fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms", "bwd_ms",
                 "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_nodx_ms", "fwd_gflop",
                 "bwd_gflop"]
         if dtype == torch.float32:
-            keys += ["fwd_cc_ms", "fwd_cc_bound_ms"]
+            keys += ["fwd_cc_ms", "fwd_cc_bound_ms", "bwd_cc_ms", "bwd_cc_nodx_ms",
+                     "bwd_cc_bound_ms"]
         out[dname] = {"rows": rows, "fwd_err": err_fwd, "bwd_err": err_bwd,
                       "moments_rel_err": err_moments, **{k: per_step(k) for k in keys}}
         for key in ("fwd", "bwd"):  # what bounds most of the step's bound
@@ -907,18 +999,22 @@ def phase_k4(gen: torch.Generator, flush: torch.Tensor, card: str) -> dict:
         o = out[dname]
         cc = (f"; CUDA-core route {o['fwd_cc_ms']:.2f}, its bound {o['fwd_cc_bound_ms']:.2f}"
               if "fwd_cc_ms" in o else "")
+        bwd_cc = (f"; CUDA-core routes {o['bwd_cc_ms']:.2f}, dW + db {o['bwd_cc_nodx_ms']:.2f}, "
+                  f"their bound {o['bwd_cc_bound_ms']:.2f}" if "bwd_cc_ms" in o else "")
         log(f"  K4 {dname} per training step (6 calls): fwd {o['fwd_ms']:.2f} ms (cuDNN "
             f"{o['fwd_library_ms']:.2f}, bound {o['fwd_bound_ms']:.2f}, "
             f"{o['fwd_bound_ms'] / o['fwd_ms']:.1%} of it, "
             f"{o['fwd_gflop'] / o['fwd_ms']:.1f} TFLOP/s useful{cc}); bwd {o['bwd_ms']:.2f} ms "
             f"(cuDNN {o['bwd_library_ms']:.2f}, bound {o['bwd_bound_ms']:.2f}, "
             f"{o['bwd_gflop'] / o['bwd_ms']:.1f} TFLOP/s useful; dW + db "
-            f"{o['bwd_nodx_ms']:.2f}, dx {o['bwd_ms'] - o['bwd_nodx_ms']:.2f}) [{card}]")
-    for what, prof in (("fp32 fwd", profile_fp32), ("bf16 fwd + bwd", profile)):
+            f"{o['bwd_nodx_ms']:.2f}, dx {o['bwd_ms'] - o['bwd_nodx_ms']:.2f}{bwd_cc}) [{card}]")
+    for what, prof in (("fp32 fwd", profile_fp32), ("fp32 bwd", profile_fp32_bwd),
+                       ("bf16 fwd + bwd", profile)):
         by_time = sorted(prof.items(), key=lambda kv: -kv[1][0])
         log(f"  K4 {what} per training step by kernel (torch.profiler): "
             + "; ".join(f"{k} {v[0]:.3f} ms / {v[1]}" for k, v in by_time) + f" [{card}]")
     out["fp32"]["fwd_profile"] = profile_fp32
+    out["fp32"]["bwd_profile"] = profile_fp32_bwd
     return out
 
 
@@ -1265,6 +1361,7 @@ def check_k4_in_step(variables, dcfg, step_fn, x0, corruption) -> float:
         h.remove()
     check(len(calls) == K4_PER_STEP, f"{len(calls)} K4 forwards in a step")
     check_fp32_routes("the first bnlifconv step", K4_PER_STEP)
+    check_fp32_bwd_routes("the first bnlifconv step", K4_PER_STEP, K4_DX_PER_STEP)
     err = err_k4 = err_plain = 0.0
     for i, (x, w, b, moments, y, s1, s2) in enumerate(calls):
         y_ref, s1_ref, s2_ref = sc.spike_conv3x3_fwd_reference(x, w, b, moments)
@@ -1281,8 +1378,15 @@ def check_k4_in_step(variables, dcfg, step_fn, x0, corruption) -> float:
     log(f"  first bnlifconv step, each K4 forward against its plain version on its own "
         f"inputs: max|d y| {err:.3g} (tolerance rtol {K4_Y_TOL['fp32']['rtol']:g}, atol "
         f"{K4_Y_TOL['fp32']['atol']:g}), moments within theirs, all {K4_PER_STEP} on the "
-        f"tensor cores; max|y - fp64 conv| kernel {err_k4:.3g}, plain version {err_plain:.3g}")
+        f"tensor cores, and every dW and dx of the step; max|y - fp64 conv| kernel "
+        f"{err_k4:.3g}, plain version {err_plain:.3g}")
     return err
+
+
+def check_path_bwd_routes(what: str, launches: int) -> tuple:
+    """``launches`` fp32 K4 backwards of 'bnlifconv' training steps, every
+    dW and every dx (five a step) on the tensor cores."""
+    return check_fp32_bwd_routes(what, launches, launches // K4_PER_STEP * K4_DX_PER_STEP)
 
 
 def train_batches(dcfg, codes, n):
@@ -1339,7 +1443,8 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
             check(all(math.isfinite(v) for v in losses), f"{branch}: loss not finite")
             row = {"launches": counts, "ms": times, "ms_median": statistics.median(times[1:]),
                    "losses": losses, "peak_bytes": peak,
-                   "fp32_routes": check_fp32_routes(f"{branch} batch {n}", counts[5])}
+                   "fp32_routes": check_fp32_routes(f"{branch} batch {n}", counts[5]),
+                   "fp32_bwd_routes": check_path_bwd_routes(f"{branch} batch {n}", counts[6])}
             if n == TRAIN_BATCHES[0]:
                 firsts[branch] = first
                 before = launch_counts()
@@ -1381,11 +1486,13 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
             f"{', '.join(f'{v:.3f}' for v in losses)}")
         check(state.step == len(codes) // TRAIN_BATCHES[0], "train_diffusion step count")
         check_fp32_routes(f"{branch} train_diffusion", counts[5])
+        bwd_routes = check_path_bwd_routes(f"{branch} train_diffusion", counts[6])
         check(counts == tuple(k * state.step for k in STEP_LAUNCHES[branch]),
               f"{branch} train_diffusion launches {counts}")
         check(len(losses) == state.step and all(math.isfinite(v) for v in losses),
               f"{branch} train_diffusion losses {losses}")
-        results[branch]["loop"] = {"launches": counts, "seconds": seconds, "losses": losses}
+        results[branch]["loop"] = {"launches": counts, "seconds": seconds, "losses": losses,
+                                   "fp32_bwd_routes": bwd_routes}
     for branch, (backend, _) in TRAIN_BRANCHES.items():
         n = TRAIN_BATCHES[-1]
         state = train_state(variables, dcfg, backend, "cuda", torch.bfloat16)
@@ -1411,6 +1518,7 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
         want = tuple(k * TRAIN_STEPS for k in STEP_LAUNCHES[branch])
         check(counts == want, f"{branch} bf16: launches {counts}, expected {want}")
         check_fp32_routes(f"{branch} bf16", 0)
+        check_fp32_bwd_routes(f"{branch} bf16", 0, 0)
         check(all(math.isfinite(v) for v in losses), f"{branch} bf16: loss not finite")
         check(rel <= BF16_LOSS_RTOL, f"{branch} bf16 first loss {rel:.3%} from fp32's")
         results[branch]["bf16"] = {"launches": counts, "ms": times,
@@ -1456,10 +1564,11 @@ def main() -> int:
             for name, count in k4_hmma.items():
                 log(f"  K4 SASS: {count:3d} HMMA in {name}")
             mma = [n for n in k4_hmma if "mma_kernel" in n]
-            check(len(mma) == 3 and all(k4_hmma[n] > 0 for n in mma),
-                  "K4's tensor-core kernels do not reach the tensor cores")
-            check(any("conv_mma_kernelIf" in n for n in mma),
-                  "K4 builds no fp32-output tensor-core forward")
+            check(len(mma) == len(K4_MMA_KERNELS), f"K4 builds {len(mma)} tensor-core kernels")
+            for what, kname in K4_MMA_KERNELS.items():
+                found = [n for n in mma if kname in n]
+                check(len(found) == 1 and k4_hmma[found[0]] > 0,
+                      f"K4's {what} kernel does not reach the tensor cores")
             check(not any(re.search(r"\d(conv|wgrad|grad_out)_kernelI13__nv_bfloat16", n)
                           for n in k4_hmma), "K4 still builds a bf16 CUDA-core kernel")
         with Phase("models"):
@@ -1570,7 +1679,19 @@ def main() -> int:
                 "fp32_profile": k4["fp32"]["fwd_profile"]} if key == "fwd" else {}),
             "bf16": {k: k4["bf16"][f"{key}_{k}"]
                      for k in ("ms", "plain_ms", "bound_ms", "library_ms", "err")},
-            **({"bwd_nodx_ms": {d: k4[d]["bwd_nodx_ms"] for d in k4}} if key == "bwd" else {}),
+            # bwd: the fp32 routes (dW on the tensor cores at three bf16 products
+            # per product, dx at six, bound so) and the CUDA-core routes' times
+            # and bound on the same x moved off bf16's grid with an inf in g;
+            # dW + db alone on each; the path's fp32 backwards by route (dW
+            # tensor cores, dW CUDA cores, dx tensor cores, dx CUDA cores)
+            **({"bwd_nodx_ms": {d: k4[d]["bwd_nodx_ms"] for d in k4},
+                "cuda_core_route_ms": k4["fp32"]["bwd_cc_ms"],
+                "cuda_core_route_nodx_ms": k4["fp32"]["bwd_cc_nodx_ms"],
+                "cuda_core_route_bound_ms": k4["fp32"]["bwd_cc_bound_ms"],
+                "fp32_bwd_routes_on_path": [
+                    sum(r["fp32_bwd_routes"][i] for r in train["bnlifconv"].values()
+                        if "fp32_bwd_routes" in r) for i in range(4)],
+                "fp32_profile": k4["fp32"]["bwd_profile"]} if key == "bwd" else {}),
             "sass_hmma": k4_hmma,
             "shapes": [{k: v for k, v in r.items() if k.startswith(key) or k in (
                 "shape", "M", "Cin", "Cout")} for r in k4["fp32"]["rows"]],

@@ -27,9 +27,9 @@
 // What bounds it on an H100: operations. A training step of the full-width
 // denoiser at batch 256 runs 1.24 TFLOP through the forward and 2.49 through
 // the backward (1.02 and 2.03 inside the 7x7 grid), against ~2 GB of
-// activations. bf16 and the fp32 forward run on the tensor cores; the fp32
-// backward, and the fp32 forward of an x that bf16 cannot hold, on the CUDA
-// cores.
+// activations. Every pass runs on the tensor cores: bf16 as it is, fp32
+// through exact bf16 planes (below); an fp32 operand that the planes cannot
+// carry takes the CUDA cores.
 //
 // The tensor-core route. The operands are channels-last and padded: x (and
 // g for dx and dW) is copied (written, for g) as bf16 (M, Cp) with Cp = C
@@ -49,60 +49,80 @@
 // warp-level `mma.sync` feeds them; Hopper's `wgmma` would lift that
 // ceiling.
 //
-// fp32 forward (T = float), two routes, chosen on the device per call. On
-// the model's path every x is exact in bf16: spikes (0, 1), token ids (<=
-// mask_id, 128) and timesteps (<= 49). That holds while mask_id and the
-// number of timesteps are at most 256, since every integer up to 256 is
-// exact in bf16; a larger codebook sends block 0 to the CUDA-core route,
-// still correct. And any fp32 weight W is the exact sum of
-// three bf16 planes, W0 = bf16(W), W1 = bf16(W - W0), W2 = bf16(W - W0 -
-// W1), each holding 8 of fp32's 24 significant bits (for |W| >= 2^-110;
-// below, the sum is within 2^-134, half bf16's least subnormal). A bf16 x
-// bf16 product is exact in fp32, so y = sum x W2 + sum x W1 + sum x W0 has
-// exact products summed in fp32: the CUDA cores' arithmetic in another
-// order, at three bf16 products per product.
-//  - The pack copies the fp32 x to the bf16 channels-last scratch and sets
-//    a device flag (atomicOr) if any element changed when rounded.
-//  - Exact x: the tensor-core loop above over K' = 3 * 9 * Cp_in, B the
-//    three planes stacked as (3 * 9 * Cp_in, Cp_out), smallest first (W2,
-//    W1, W0) so that the small terms are summed before the large ones; A's
+// fp32 (T = float): bf16 planes. Any fp32 value v is the exact sum of
+// three bf16 planes, V0 = bf16(v), V1 = bf16(v - V0), V2 = bf16(v - V0 -
+// V1), each holding 8 of fp32's 24 significant bits (for |v| >= 2^-110;
+// below, the sum is within 2^-134, half bf16's least subnormal), and a
+// bf16 x bf16 product is exact in fp32. On the model's path every x is
+// exact in bf16: spikes (0, 1), token ids (<= mask_id, 128) and timesteps
+// (<= 49). That holds while mask_id and the number of timesteps are at
+// most 256, since every integer up to 256 is exact in bf16; a larger
+// codebook sends block 0 to the CUDA-core routes, still correct. So:
+//  - forward: y = sum x W2 + sum x W1 + sum x W0, exact products summed in
+//    fp32, the CUDA cores' arithmetic in another order at three bf16
+//    products per product;
+//  - dW = sum G2 x + sum G1 x + sum G0 x over the planes of g, the same
+//    with the planes on the other operand;
+//  - dx = sum over the six plane products Gi Wj with i + j <= 2 (g and the
+//    weight both fp32). Term (i, j) is about 2^-8(i+j) of g W; the three
+//    dropped, (1, 2), (2, 1) and (2, 2), add up to at most (2 * 2^-24 +
+//    2^-32) |g W| a product, one fp32 rounding of it: as accurate as an
+//    fp32 FMA chain, the standard bf16 emulation of an fp32 GEMM.
+// Each longer contraction keeps the loop, its ring and its occupancy as
+// they are: A's loader reads the same rows of x (dW: of x again, per g
+// plane) for each plane, from L2, and the planes are stacked smallest
+// first so that the small terms are summed before the large ones. The
+// sums stay in the mma's fp32 accumulators, but for dx's last term: the
+// mma's accumulation truncates, so one chain over dx's 6 * 9 * Cp_out
+// terms drifted past the plain version's 1e-4 where dx cancels (card
+// tests, 256 -> 512 channels); G0 W0 is summed in chains of 1,024
+// products, each folded into dx with fp32 adds, which holds it.
+//  - Forward: the pack copies the fp32 x to the bf16 channels-last scratch
+//    and sets a device flag (atomicOr) if any element changed when
+//    rounded. Exact x: the loop over K' = 3 * 9 * Cp_in, B the weight's
+//    three planes stacked as (3 * 9 * Cp_in, Cp_out) (W2, W1, W0); A's
 //    loader reads column k' at k' mod (9 * Cp_in), which needs no extra
 //    copy of x (9 * Cp is a multiple of 8, so no 16-byte piece straddles
-//    two planes). Three B fragments against each A fragment would read A
-//    once instead of three times, but triple B's share of the ring; the
-//    longer contraction keeps the loop, its ring and its occupancy as they
-//    are. The whole K'-deep sum stays in the mma's fp32 accumulators: y
-//    meets the plain version's 1e-5 at the path's shapes and the card
-//    tests' without promoting partial sums through CUDA-core adds. y is
-//    stored in fp32. One kernel (split_weight_kernel) writes both routes'
-//    weight matrices per call. Bounded, like bf16, by the tensor cores, at
-//    three products per useful one.
-//  - Other x (an element off bf16's grid, or not finite: inf times a zero
-//    plane would give NaN), and any call of 2^31 rows or more (the
-//    tensor-core loop's index is 32-bit; no pack then): the CUDA cores,
-//    column k = ci * 9 + kh * 3 + kw, x and the (Cin * 9, Cout) weight
-//    matrix read as they lie (NCHW). A classic
-//    register-blocked SGEMM: a block computes a 128 x 128 output tile with
-//    256 threads, 8 x 8 outputs each, from double-buffered 8-deep tiles of
-//    A and B in shared memory, A gathered from NCHW as the tile is loaded.
-//    Bounded by the CUDA cores' 67 TFLOP/s. It is also the fp32 backward's
-//    dx.
-//  Both kernels are launched after the pack; each reads the flag first and
-//  the one not chosen returns at once, so the choice needs no host
-//  synchronisation. Both write the moments' partials in one (row tiles,
-//  Cout) layout for one second stage, and count the calls they take in a
-//  device tally (tensor cores, CUDA cores).
+//    two planes). One kernel (split_weight_kernel) writes both routes'
+//    weight matrices per call.
+//  - Backward: the g pass writes g's three planes channels-last, (3, M,
+//    Cp_out), and sets a second flag if any g is not finite or its first
+//    plane is not (a plane of +-inf holds inf - inf = NaN); the pack sets
+//    the first flag for x. dW runs the loop once per g plane over each
+//    row split (G2, G1, G0). dx runs it over K' = 6 * 9 * Cp_out, B the
+//    (6 * 9 * Cp_out, Cp_in) matrix of the flipped weight's planes in the
+//    terms' order (written per call by split_dx_weight_kernel, with the
+//    CUDA cores' dx matrix), A's loader reading the g plane of each term.
+//    The caller gives the terms' order (ops/spike_conv.py DX_TERMS, two
+//    bits a plane index).
+//  - Other operands, and any call of 2^31 rows or more (the tensor-core
+//    loop's index is 32-bit; no pack then): the CUDA cores, column k = ci *
+//    9 + kh * 3 + kw, over NCHW operands as they lie (the backward's g
+//    formed from gy and y as it is read, no fp32 copy of g). The forward
+//    and dW go there for an x that is off bf16's grid or not finite (inf
+//    times a zero plane is NaN), dW and dx for a g that is not finite. A
+//    classic register-blocked SGEMM: a block computes a 128 x 128 output
+//    tile with 256 threads, 8 x 8 outputs each, from double-buffered
+//    8-deep tiles of A and B in shared memory, A gathered from NCHW as the
+//    tile is loaded. Bounded by the CUDA cores' 67 TFLOP/s.
+//  Both routes' kernels are launched; each reads the flags first and the
+//  one not chosen returns at once, so the choice needs no host
+//  synchronisation. Both write one layout for one last stage (the
+//  moments' partials per row tile; dW's partials, which the last stage
+//  sums from either route's layout into (Cout, 9 * Cp_in)), and count the
+//  calls they take in a device tally: forward, dW, dx, each (tensor
+//  cores, CUDA cores).
 //
-// Fixed orders, no atomics in any sum (the route's flag and tally are
+// Fixed orders, no atomics in any sum (the routes' flags and tally are
 // the only atomics): the moments and db are summed per thread over its
-// rows, then in a fixed shuffle tree (forward) or shared-memory tree (db),
-// into per-block partials, and a second kernel adds the partials of a
-// channel in a fixed order (the moments: a warp per channel; db: block
-// order, csrc/channel_sum.cuh, shared with K3); dW is contracted over a
-// fixed split of the rows, one partial per split, which a last kernel adds
-// in split order. So s1, s2, db and dW are equal from run to run. The
-// plain PyTorch versions (ops/spike_conv.py) sum in other orders; the
-// tolerances are stated there.
+// rows, then in a fixed shuffle tree (forward) or shared-memory tree (db,
+// csrc/channel_sum.cuh, shared with K3), into per-block partials, and a
+// second kernel adds the partials of a channel in a fixed order (a warp
+// per channel); dW is contracted over a fixed split of the rows, one
+// partial per split, which a last kernel adds in split order. So s1, s2,
+// db and dW are equal from run to run. The plain PyTorch versions
+// (ops/spike_conv.py) sum in other orders; the tolerances are stated
+// there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,27 +139,42 @@ constexpr int kThreads = 256; // 16 x 16 threads, 8 x 8 outputs each
 constexpr int kPad = 4;       // row padding of the wgrad tiles (bank spread)
 constexpr int kRedThreads = chsum::kBlock;
 
-// The CUDA-core kernels below are instantiated for fp32 only; bf16 takes
-// the tensor-core route (namespace tc).
-__device__ __forceinline__ float to_f32(float v) { return v; }
+// The NCHW operands that the CUDA-core kernels (fp32 only; bf16 takes the
+// tensor cores) gather: at(i, c) is element i, of channel c. Plain reads x
+// as it lies; Grad forms the backward's g = gy (+ gs1 + 2 gs2 y) from gy
+// and y as it reads them, in grad_out_cl_kernel's operations and order, so
+// that the CUDA-core routes need no fp32 copy of g.
+struct Plain {
+  const float* x;
+  __device__ __forceinline__ float at(long long i, int) const { return x[i]; }
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+struct Grad {
+  const float* gy;
+  const float* y;
+  const float* gs1;
+  const float* gs2;
+  int with_moments;
+  __device__ __forceinline__ float at(long long i, int c) const {
+    float g = gy[i];
+    if (with_moments) g = g + (gs1[c] + 2.0f * gs2[c] * y[i]);
+    return g;
+  }
+};
 
-// One element of the implicit im2col matrix: x[img, ci, h + dh, w + dw] for
-// column k = ci * 9 + (dh + 1) * 3 + (dw + 1), 0 off the edge.
-template <typename T>
-__device__ __forceinline__ float im2col(const T* __restrict__ x_img, int k, int h,
-                                        int w, int H, int W) {
+// One element of the implicit im2col matrix of the image that starts at
+// element `img` of src: src[img + (ci, h + dh, w + dw)] for column k = ci *
+// 9 + (dh + 1) * 3 + (dw + 1), 0 off the edge.
+template <typename Src>
+__device__ __forceinline__ float im2col(const Src& src, long long img, int k, int h, int w,
+                                        int H, int W) {
   const int ci = k / 9;
   const int tap = k - ci * 9;
   const int kh = tap / 3;
   const int hh = h + kh - 1;
   const int ww = w + (tap - kh * 3) - 1;
   if (hh < 0 || hh >= H || ww < 0 || ww >= W) return 0.0f;
-  return to_f32(x_img[static_cast<long long>(ci) * H * W + hh * W + ww]);
+  return src.at(img + static_cast<long long>(ci) * H * W + hh * W + ww, ci);
 }
 
 // The 8 x 8 register tile's update from one shared-memory stage. Thread
@@ -169,22 +204,22 @@ __device__ __forceinline__ int tile_offset(int i, int t4) {
   return (i < 4 ? 0 : 64) + t4 * 4 + (i & 3);
 }
 
-// y = conv3x3(x, B) (+ bias), rows m = (img, h, w), columns co; with
+// y = conv3x3(src, B) (+ bias), rows m = (img, h, w), columns co; with
 // `part_s1` non-null also the per-block moments partials (gridDim.x, cout).
-// With `inexact` non-null (the fp32 forward's route for an x that bf16
-// cannot hold) the blocks return at once unless the flag is set; with
-// `tally` non-null block 0 counts the call in tally[1].
-template <typename T>
+// With `flag` non-null (a route that the card chooses: the fp32 forward
+// of an x that bf16 cannot hold, the dx of a g that is not finite) the
+// blocks return at once unless *flag is set; with `tally` non-null block
+// 0 counts the call in tally[1].
+template <typename Src>
 __global__ void __launch_bounds__(kThreads)
-conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
-            const float* __restrict__ bias, T* __restrict__ y,
-            float* __restrict__ part_s1, float* __restrict__ part_s2,
-            const int* __restrict__ inexact, int* __restrict__ tally,
-            long long n_img, int cin, int cout, int H, int W) {
+conv_kernel(Src src, const float* __restrict__ wk, const float* __restrict__ bias,
+            float* __restrict__ y, float* __restrict__ part_s1, float* __restrict__ part_s2,
+            const int* __restrict__ flag, int* __restrict__ tally, long long n_img, int cin,
+            int cout, int H, int W) {
   __shared__ __align__(16) float As[2][kBK * kBM];
   __shared__ __align__(16) float Bs[2][kBK * kBN];
   const int tid = threadIdx.x;
-  if (inexact != nullptr && *inexact == 0) return;
+  if (flag != nullptr && *flag == 0) return;
   if (tally != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) {
     atomicAdd(&tally[1], 1);
   }
@@ -204,7 +239,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
   const int a_p = a_ok ? static_cast<int>(am - a_img * HW) : 0;
   const int a_h = a_ok ? a_p / W : 0;
   const int a_w = a_ok ? a_p - a_h * W : 0;
-  const T* x_img = x + a_img * cin * HW;
+  const long long img = a_img * cin * HW;
   const int bcol = n0 + lrow;
   const bool b_ok = bcol < cout;
 
@@ -213,8 +248,8 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int k = k0 + kl + 2 * i;
-      ra[i] = (a_ok && k < K) ? im2col(x_img, k, a_h, a_w, H, W) : 0.0f;
-      rb[i] = (b_ok && k < K) ? to_f32(wk[static_cast<long long>(k) * cout + bcol]) : 0.0f;
+      ra[i] = (a_ok && k < K) ? im2col(src, img, k, a_h, a_w, H, W) : 0.0f;
+      rb[i] = (b_ok && k < K) ? wk[static_cast<long long>(k) * cout + bcol] : 0.0f;
     }
   };
   auto stash = [&](int buf) {
@@ -245,7 +280,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
     __syncthreads();
   }
 
-  // Epilogue: bias, rounding to T, NCHW store, moments of the rounded y.
+  // Epilogue: bias, NCHW store, moments.
   float s1[8], s2[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) s1[j] = s2[j] = 0.0f;
@@ -253,17 +288,15 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
   for (int i = 0; i < 8; ++i) {
     const long long m = m0 + tile_offset(i, tx);
     if (m >= M) continue;
-    const long long img = m / HW;
-    const int p = static_cast<int>(m - img * HW);
-    T* y_px = y + img * cout * HW + p;
+    const long long im = m / HW;
+    const int p = static_cast<int>(m - im * HW);
+    float* y_px = y + im * cout * HW + p;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int co = n0 + tile_offset(j, ty);
       if (co >= cout) continue;
-      const float v = bias != nullptr ? acc[i][j] + bias[co] : acc[i][j];
-      const T r = from_f32<T>(v);
-      y_px[static_cast<long long>(co) * HW] = r;
-      const float f = to_f32(r);
+      const float f = bias != nullptr ? acc[i][j] + bias[co] : acc[i][j];
+      y_px[static_cast<long long>(co) * HW] = f;
       s1[j] = s1[j] + f;
       s2[j] = s2[j] + f * f;
     }
@@ -289,42 +322,43 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ wk,
   }
 }
 
-// g = gy (+ gs1 + 2 gs2 y) in fp32, stored rounded to T; per-block db
-// partials (gridDim.x, C) of the unrounded g. A block takes 256 consecutive
-// (img, p) of one channel (blockIdx.y), as K3's backward does.
-template <typename T>
-__global__ void grad_out_kernel(const T* __restrict__ gy, const T* __restrict__ y,
-                                const float* __restrict__ gs1,
-                                const float* __restrict__ gs2, T* __restrict__ g,
-                                float* __restrict__ part_db, long long n_img,
-                                int C, int HW, int with_moments) {
+// Per-block db partials (gridDim.x, C) of g: a block takes 256 consecutive
+// (img, p) of one channel (blockIdx.y), as K3's backward does. The fp32
+// backward of 2^31 rows or more, whose g the tensor-core g pass cannot
+// index.
+__global__ void grad_out_kernel(Grad g, float* __restrict__ part_db, long long n_img, int C,
+                                int HW) {
   __shared__ float red[1][kRedThreads];
   const long long e = static_cast<long long>(blockIdx.x) * kRedThreads + threadIdx.x;
   const int c = blockIdx.y;
   float gf = 0.0f;
   if (e < n_img * HW) {
     const long long img = e / HW;
-    const long long i = (img * C + c) * HW + (e - img * HW);
-    gf = to_f32(gy[i]);
-    if (with_moments) gf = gf + (gs1[c] + 2.0f * gs2[c] * to_f32(y[i]));
-    g[i] = from_f32<T>(gf);
+    gf = g.at((img * C + c) * HW + (e - img * HW), c);
   }
   float acc[1] = {gf};
   chsum::block_tree_sum<1>(red, acc);
   if (threadIdx.x == 0) part_db[static_cast<long long>(blockIdx.x) * C + c] = acc[0];
 }
 
-// dW partial of one row split: part[split, co, k] = sum over the split's
-// rows m of g[m, co] * A[m, k]. Tile rows co, columns k, contraction m.
-template <typename T>
+// dW partial of one row split on the CUDA cores: part[split, co, k] = sum
+// over the split's rows m of g[m, co] * A[m, k], k = ci * 9 + tap. Tile
+// rows co, columns k, contraction m. The blocks return at once unless
+// route[0] (x not exact in bf16) or route[1] (g not finite) is set; block
+// 0 counts the call in tally[1].
 __global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const T* __restrict__ g, const T* __restrict__ x,
-             float* __restrict__ part, long long n_img, int cin, int cout, int H,
-             int W, long long rows_per_split) {
+wgrad_kernel(Grad g, const float* __restrict__ x, float* __restrict__ part,
+             const int* __restrict__ route, int* __restrict__ tally, long long n_img, int cin,
+             int cout, int H, int W, long long rows_per_split) {
   constexpr int kLd = kBM + kPad;
   __shared__ __align__(16) float As[2][kBK * kLd];
   __shared__ __align__(16) float Bs[2][kBK * kLd];
   const int tid = threadIdx.x;
+  if ((route[0] | route[1]) == 0) return;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && tid == 0) {
+    atomicAdd(&tally[1], 1);
+  }
+  const Plain xs{x};
   const int HW = H * W;
   const long long M = n_img * HW;
   const int K = cin * 9;
@@ -346,14 +380,12 @@ wgrad_kernel(const T* __restrict__ g, const T* __restrict__ x,
     const int p = ok ? static_cast<int>(m - img * HW) : 0;
     const int h = ok ? p / W : 0;
     const int w = ok ? p - h * W : 0;
-    const T* g_px = g + img * cout * HW + p;
-    const T* x_img = x + img * cin * HW;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int co = co0 + lc + 32 * i;
       const int k = k0 + lc + 32 * i;
-      ra[i] = (ok && co < cout) ? to_f32(g_px[static_cast<long long>(co) * HW]) : 0.0f;
-      rb[i] = (ok && k < K) ? im2col(x_img, k, h, w, H, W) : 0.0f;
+      ra[i] = (ok && co < cout) ? g.at((img * cout + co) * HW + p, co) : 0.0f;
+      rb[i] = (ok && k < K) ? im2col(xs, img * cin * HW, k, h, w, H, W) : 0.0f;
     }
   };
   auto stash = [&](int buf) {
@@ -398,14 +430,33 @@ wgrad_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// dW[e] = sum over splits, in split order, of part[split, e].
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ dw, long long n,
-                                  int splits) {
+// dw[co, tap * Cp + ci] (Cp = cin padded to a multiple of 8: the tensor-core
+// route's layout, 0 in the padding) = the sum over splits, in split order,
+// of the partials of the route that ran: the tensor cores' part[split, co,
+// tap * Cp + ci] (splits_tc of them), or, if route is non-null and
+// route[0] or route[1] is set, the CUDA cores' part[split, co, ci * 9 +
+// tap] (splits_cc). One thread per element of dw.
+__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ dw,
+                                  const int* __restrict__ route, int cin, int cout,
+                                  int splits_tc, int splits_cc) {
+  const int cp = tc::padded(cin);
+  const long long n = 9LL * cp * cout;
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float s = 0.0f;
-  for (int k = 0; k < splits; ++k) s = s + part[k * n + e];
+  if (route == nullptr || (route[0] | route[1]) == 0) {
+    for (int k = 0; k < splits_tc; ++k) s = s + part[k * n + e];
+  } else {
+    const int co = static_cast<int>(e / (9 * cp));
+    const int col = static_cast<int>(e - static_cast<long long>(co) * 9 * cp);
+    const int tap = col / cp;
+    const int ci = col - tap * cp;
+    if (ci < cin) {
+      const long long n_cc = 9LL * cin * cout;
+      const long long at = (static_cast<long long>(co) * cin + ci) * 9 + tap;
+      for (int k = 0; k < splits_cc; ++k) s = s + part[k * n_cc + at];
+    }
+  }
   dw[e] = s;
 }
 
@@ -415,63 +466,22 @@ inline unsigned int cdiv(long long a, long long b) {
 
 // conv_kernel over the whole of y; the moments' partials (row tiles of kBM,
 // cout), when asked for, are the caller's to sum.
-template <typename T>
-int launch_conv(const void* x, const void* wk, const float* bias, void* y,
-                float* part_s1, float* part_s2, const int* inexact, int* tally,
-                long long n_img, int cin, int cout, int H, int W, cudaStream_t st) {
+template <typename Src>
+int launch_conv(Src src, const float* wk, const float* bias, float* y, float* part_s1,
+                float* part_s2, const int* flag, int* tally, long long n_img, int cin,
+                int cout, int H, int W, cudaStream_t st) {
   const long long M = n_img * H * W;
   const dim3 grid(cdiv(M, kBM), cdiv(cout, kBN));
-  conv_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wk), bias,
-      static_cast<T*>(y), part_s1, part_s2, inexact, tally, n_img, cin, cout, H, W);
+  conv_kernel<Src><<<grid, kThreads, 0, st>>>(src, wk, bias, y, part_s1, part_s2, flag,
+                                               tally, n_img, cin, cout, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* w2, const void* y, const void* gy,
-               const float* gs1, const float* gs2, void* g, float* part_db,
-               float* db, void* dx, float* part_dw, float* dw, long long n_img,
-               int cin, int cout, int H, int W, int splits,
-               long long rows_per_split, int with_moments, cudaStream_t st) {
-  const int HW = H * W;
-  const dim3 ggrid(cdiv(n_img * HW, kRedThreads), cout);
-  grad_out_kernel<T><<<ggrid, kRedThreads, 0, st>>>(
-      static_cast<const T*>(gy), static_cast<const T*>(y), gs1, gs2,
-      static_cast<T*>(g), part_db, n_img, cout, HW, with_moments);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  chsum::sum_partials(part_db, nullptr, db, nullptr, ggrid.x, cout, st);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const int K = cin * 9;
-  const dim3 wgrid(cdiv(K, kBN), cdiv(cout, kBM), splits);
-  wgrad_kernel<T><<<wgrid, kThreads, 0, st>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x), part_dw, n_img, cin,
-      cout, H, W, rows_per_split);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const long long n = static_cast<long long>(cout) * K;
-  sum_splits_kernel<<<cdiv(n, kRedThreads), kRedThreads, 0, st>>>(part_dw, dw, n,
-                                                                  splits);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0 || dx == nullptr) return rc;
-  // dx: the forward GEMM on g, Cout channels in, Cin out, no bias or moments
-  return launch_conv<T>(g, w2, nullptr, dx, nullptr, nullptr, nullptr, nullptr,
-                        n_img, cout, cin, H, W, st);
-}
-
-
-// --- tensor cores: bf16, and the fp32 forward of an x exact in bf16 --------
+// --- tensor cores: bf16, and fp32 through exact bf16 planes -----------------
 
 namespace tc {
 
 // The loop itself (tc::mainloop and its constants) is in mma_loop.cuh.
-
-// bf16 planes of the weight: an fp32 weight is three (the fp32 forward)
-template <typename Out>
-constexpr int kPlanes = 1;
-template <>
-constexpr int kPlanes<float> = 3;
 
 // The stored value of v in `out`, as a float.
 __device__ __forceinline__ float store_as(bf16* out, float v) {
@@ -484,26 +494,74 @@ __device__ __forceinline__ float store_as(float* out, float v) {
   return v;
 }
 
-// out = conv3x3 over the channels-last (M, padded(cin)) src with the
-// (kPlanes<Out> * 9 * padded(cin), padded(cout)) matrix wk (+ bias), NCHW,
-// in Out (bf16: rounded); A's column k' is the im2col column k' mod (9 *
-// padded(cin)), so each of wk's planes meets the same rows of x. With
-// `part_s1` non-null also the moments partials (row tiles, cout) of the
-// stored out. With `inexact` non-null (the fp32 forward) the blocks return at
-// once if the flag is set, and block 0 counts the call in tally[0]. Block
-// b computes row tile b / tiles_n, column tile b % tiles_n.
-template <typename Out>
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+// Plane index q of term t in a code of two bits a term, first term lowest.
+__device__ __forceinline__ int plane_of(int code, int t) { return (code >> (2 * t)) & 3; }
+
+// dx's plane products (ops/spike_conv.py DX_TERMS). The mma's fp32
+// accumulation truncates rather than rounds, so a long chain of it drifts
+// further from the exact sum than rounded fp32 adds: the last term (G0 W0,
+// the size of dx) is summed in chains of kFoldStages stages, each folded
+// into dx with fp32 adds.
+constexpr int kDxTerms = 6;
+constexpr int kFoldStages = 16;
+
+// out[tile] (+)= acc, NCHW fp32, the tile at rows m0.., columns n0.. laid
+// out as conv_mma_kernel's epilogue lays it (`add` false: stored), and acc
+// zeroed: a finished chain of the contraction folded away.
+__device__ __forceinline__ void fold_into(float* __restrict__ out, float (&acc)[4][4][4],
+                                          bool add, int m0, int n0, int M, int cout, int HW) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + (warp >> 2) * 64 + i * 16 + (lane >> 2) + half * 8;
+      const int img = m / HW;
+      float* o = out + static_cast<long long>(img) * cout * HW + (m - img * HW);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = n0 + (warp & 3) * 32 + j * 8 + 2 * (lane & 3) + e;
+          float& a = acc[i][j][half * 2 + e];
+          if (m < M && co < cout) {
+            float* p = o + static_cast<long long>(co) * HW;
+            *p = add ? *p + a : a;
+          }
+          a = 0.0f;
+        }
+      }
+    }
+  }
+}
+
+// out = conv3x3 over the channels-last src with the (kTerms * 9 *
+// padded(cin), padded(cout)) matrix wk (+ bias), NCHW, in Out (bf16:
+// rounded). The contraction is kTerms blocks of 9 * padded(cin) columns.
+// The forward's blocks all read the im2col of the (M, padded(cin)) x;
+// dx's (kTerms == kDxTerms) block t reads that of g's plane
+// plane_of(a_planes, t), the planes one after the other in src, and its
+// last term is folded into out every kFoldStages stages. With `part_s1`
+// non-null also the moments partials (row tiles, cout) of the stored out.
+// With `flag` non-null (fp32) the blocks return at once if the flag is
+// set, and block 0 counts the call in tally[0]. Block b computes row tile
+// b / tiles_n, column tile b % tiles_n.
+template <typename Out, int kTerms>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
                 const float* __restrict__ bias, Out* __restrict__ out,
                 float* __restrict__ part_s1, float* __restrict__ part_s2,
-                const int* __restrict__ inexact, int* __restrict__ tally, int M, int cin,
-                int cout, int H, int W) {
+                const int* __restrict__ flag, int* __restrict__ tally, int M, int cin,
+                int cout, int H, int W, int a_planes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x;
-  if (inexact != nullptr) {
-    if (*inexact != 0) return;
+  if (flag != nullptr) {
+    if (*flag != 0) return;
     if (blockIdx.x == 0 && tid == 0) atomicAdd(&tally[0], 1);
   }
   const int HW = H * W;
@@ -536,7 +594,7 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
   const int b_c = (tid % kKChunks) * 8;
   const bool b_col_ok = n0 + b_c < np;
 
-  // the A columns' (plane * 9 + tap, ci) of column k' = s * kBK + a_c,
+  // the A columns' (term * 9 + tap, ci) of column k' = s * kBK + a_c,
   // stepped by kBK a stage
   int ptap = 0;
   int ci = a_c;
@@ -546,8 +604,11 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
   }
 
   auto load = [&](bf16* As, bf16* Bs, int s) {
-    const bool k_ok = ptap < 9 * kPlanes<Out>;
-    const int tap = kPlanes<Out> == 1 ? ptap : ptap % 9;
+    const bool k_ok = ptap < 9 * kTerms;
+    const int term = kTerms == 1 ? 0 : ptap / 9;
+    const int tap = ptap - term * 9;
+    const bf16* a_src =
+        kTerms == kDxTerms ? src + static_cast<long long>(plane_of(a_planes, term)) * M * cp : src;
     const int kh = tap >= 6 ? 2 : (tap >= 3 ? 1 : 0);
     const int dh = kh - 1;
     const int dw = tap - kh * 3 - 1;
@@ -557,7 +618,7 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
       const int ww = a_w[r] + dw;
       const bool ok = k_ok && a_ok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W;
       const bf16* from =
-          ok ? src + static_cast<long long>(a_pix[r] + hh * W + ww) * cp + ci : src;
+          ok ? a_src + static_cast<long long>(a_pix[r] + hh * W + ww) * cp + ci : src;
       cp_async16(As + (a_row + r * (kThreads / kRowChunks)) * kLdRow + a_c, from, ok);
     }
     ci += kBK;
@@ -569,17 +630,30 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
     for (int r = 0; r < kKPasses; ++r) {
       const int kr = tid / kKChunks + r * (kThreads / kKChunks);
       const int kb = s * kBK + kr;
-      const bool ok = b_col_ok && kb < kPlanes<Out> * K;
+      const bool ok = b_col_ok && kb < kTerms * K;
       const bf16* from = ok ? wk + static_cast<long long>(kb) * np + n0 + b_c : wk;
       cp_async16(Bs + kr * kLdK + b_c, from, ok);
     }
   };
+  // dx: fold after every kFoldStages stages of the last term (from its
+  // first whole stage), the first fold a store; state derived from s alone
+  const int steps = (kTerms * K + kBK - 1) / kBK;
+  auto fold = [&](int s, float (&a)[4][4][4]) {
+    if constexpr (kTerms == kDxTerms) {
+      const int done = s + 1 - (kTerms - 1) * K / kBK;  // stages of the last term
+      if (done > 0 && done % kFoldStages == 0) {
+        fold_into(out, a, done > kFoldStages, m0, n0, M, cout, HW);
+      }
+    }
+  };
   float acc[4][4][4];
-  mainloop<false>(smem, (kPlanes<Out> * K + kBK - 1) / kBK, load, acc);
+  mainloop<false>(smem, steps, load, acc, fold);
+  const bool folded = kTerms == kDxTerms && steps - (kTerms - 1) * K / kBK >= kFoldStages;
 
-  // Epilogue: bias, rounding to Out, NCHW store, moments of the stored out over
-  // the rows < M. Element e of acc[i][j] lies at row 16 i + lane / 4 + 8 (e / 2),
-  // column 8 j + 2 (lane % 4) + e % 2 of the warp's tile.
+  // Epilogue: bias (or the folded chains), rounding to Out, NCHW store,
+  // moments of the stored out over the rows < M. Element e of acc[i][j]
+  // lies at row 16 i + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e
+  // % 2 of the warp's tile.
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int wm = warp >> 2;
@@ -603,9 +677,10 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
         for (int e = 0; e < 2; ++e) {
           const int co = n0 + wn * 32 + j * 8 + 2 * (lane & 3) + e;
           if (co >= cout) continue;
-          const float v = acc[i][j][half * 2 + e];
-          const float f =
-              store_as(o + static_cast<long long>(co) * HW, bias != nullptr ? v + bias[co] : v);
+          const float v = bias != nullptr ? acc[i][j][half * 2 + e] + bias[co]
+                                          : acc[i][j][half * 2 + e];
+          Out* p = o + static_cast<long long>(co) * HW;
+          const float f = store_as(p, folded ? to_float(*p) + v : v);
           s1[j][e] = s1[j][e] + f;
           s2[j][e] = s2[j][e] + f * f;
         }
@@ -647,16 +722,29 @@ conv_mma_kernel(const bf16* __restrict__ src, const bf16* __restrict__ wk,
 }
 
 // dW partial of one row split: part[split, co, k] = sum over the split's rows
-// m of g[m, co] * A[m, k], g the channels-last (M, padded(cout)) cotangent, A
-// the forward's im2col of the channels-last (M, padded(cin)) x. Tile rows co
-// (A = g^T, stored [m][co]), columns k (B stored [m][k]), contraction m.
+// m of g[m, co] * A[m, k], g channels-last (M, padded(cout)) in kPlanes bf16
+// planes one after the other (fp32: G0, G1, G2), A the forward's im2col of
+// the channels-last (M, padded(cin)) x. Tile rows co (A = g^T, stored
+// [m][co]), columns k (B stored [m][k]), contraction m, once per plane,
+// the last plane (the smallest) first, so the rows of x are read kPlanes
+// times. With `route` non-null (fp32) the blocks return at once if
+// route[0] (x not exact in bf16) or route[1] (g not finite) is set, and
+// block 0 counts the call in tally[0].
+template <int kPlanes>
 __global__ void __launch_bounds__(kThreads, 2)
 wgrad_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
-                 float* __restrict__ part, int M, int cin, int cout, int H, int W,
+                 float* __restrict__ part, const int* __restrict__ route,
+                 int* __restrict__ tally, int M, int cin, int cout, int H, int W,
                  int rows_per_split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x;
+  if (route != nullptr) {
+    if ((route[0] | route[1]) != 0) return;
+    if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && tid == 0) {
+      atomicAdd(&tally[0], 1);
+    }
+  }
   const int HW = H * W;
   const int cp = padded(cin);
   const int gp = padded(cout);
@@ -665,6 +753,8 @@ wgrad_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   const int co0 = blockIdx.y * kBM;
   const int r0 = blockIdx.z * rows_per_split;
   const int r1 = r0 + rows_per_split < M ? r0 + rows_per_split : M;
+  const int per_plane = r1 > r0 ? (r1 - r0 + kBK - 1) / kBK : 0;
+  const long long plane = static_cast<long long>(M) * gp;
 
   // both operands: rows (m) tid / kKChunks + r * (kThreads / kKChunks) of
   // the stage, 8 columns at (tid % kKChunks) * 8: channels co of g, columns
@@ -678,28 +768,40 @@ wgrad_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
   const int dh = tap / 3 - 1;
   const int dw = tap % 3 - 1;
 
-  // the thread's rows m (and their img, h, w), stepped by kBK a stage
+  // the thread's rows m (and their img, h, w), from the split's first,
+  // stepped by kBK a stage
   const int step_img = kBK / HW;
   const int step_h = (kBK - step_img * HW) / W;
   const int step_w = kBK - step_img * HW - step_h * W;
   int b_m[kKPasses], b_img[kKPasses], b_h[kKPasses], b_w[kKPasses];
+  auto first_rows = [&]() {
 #pragma unroll
-  for (int r = 0; r < kKPasses; ++r) {
-    b_m[r] = r0 + tid / kKChunks + r * (kThreads / kKChunks);
-    b_img[r] = b_m[r] / HW;
-    const int p = b_m[r] - b_img[r] * HW;
-    b_h[r] = p / W;
-    b_w[r] = p - b_h[r] * W;
-  }
+    for (int r = 0; r < kKPasses; ++r) {
+      b_m[r] = r0 + tid / kKChunks + r * (kThreads / kKChunks);
+      b_img[r] = b_m[r] / HW;
+      const int p = b_m[r] - b_img[r] * HW;
+      b_h[r] = p / W;
+      b_w[r] = p - b_h[r] * W;
+    }
+  };
+  first_rows();
+  const bf16* gq = g + (kPlanes - 1) * plane;  // the plane being contracted
+  int left = per_plane;                        // its stages still to load
 
   auto load = [&](bf16* As, bf16* Bs, int) {
+    if (kPlanes > 1 && left == 0) {  // the next plane, from the split's first row
+      left = per_plane;
+      gq -= plane;
+      first_rows();
+    }
+    --left;
 #pragma unroll
     for (int r = 0; r < kKPasses; ++r) {
       const int row = tid / kKChunks + r * (kThreads / kKChunks);
       const bool m_ok = b_m[r] < r1;
       const bool g_ok = m_ok && co_ok;
       cp_async16(As + row * kLdK + c8,
-                 g_ok ? g + static_cast<long long>(b_m[r]) * gp + co0 + c8 : g, g_ok);
+                 g_ok ? gq + static_cast<long long>(b_m[r]) * gp + co0 + c8 : g, g_ok);
       const int hh = b_h[r] + dh;
       const int ww = b_w[r] + dw;
       const bool x_ok = m_ok && k_ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
@@ -722,7 +824,7 @@ wgrad_mma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ x,
     }
   };
   float acc[4][4][4];
-  mainloop<true>(smem, r1 > r0 ? (r1 - r0 + kBK - 1) / kBK : 0, load, acc);
+  mainloop<true>(smem, kPlanes * per_plane, load, acc);
 
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -860,16 +962,27 @@ inline int pack_cl(const void* x, void* out, int* inexact, int M, int C, int HW,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 planes of g: an fp32 g is three (the fp32 backward)
+template <typename T>
+constexpr int kGradPlanes = 1;
+template <>
+constexpr int kGradPlanes<float> = 3;
+
 // g = gy (+ gs1 + 2 gs2 y) in fp32 for 8 channels c0.. of 256 rows, stored
-// rounded to bf16 as one 16-byte piece of each row of the channels-last (M,
-// padded(C)) g (the padding channels 0); per-block db partials (row blocks,
-// C) of the unrounded g, in grad_out_kernel's tree and layout. Block b
-// takes row block b / groups, channel group b % groups.
+// as one 16-byte piece of each row of the channels-last (M, padded(C)) g
+// (the padding channels 0): bf16 rounded to bf16; fp32 as its three bf16
+// planes G0 = bf16(g), G1 = bf16(g - G0), G2 = bf16(g - G0 - G1), (M,
+// padded(C)) each, one after the other, with *nonfinite set (atomicOr) if
+// any G0 is not finite (g is NaN or +-inf, or rounds to inf in bf16: its
+// planes would not sum to it). Per-block db partials (row blocks, C) of the
+// unrounded g, in a fixed tree. Block b takes row block b / groups, channel
+// group b % groups.
+template <typename T>
 __global__ void __launch_bounds__(kRedThreads)
-grad_out_cl_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
+grad_out_cl_kernel(const T* __restrict__ gy, const T* __restrict__ y,
                    const float* __restrict__ gs1, const float* __restrict__ gs2,
-                   bf16* __restrict__ g, float* __restrict__ part_db, int M, int C, int HW,
-                   int with_moments) {
+                   bf16* __restrict__ g, float* __restrict__ part_db, int* __restrict__ nonfinite,
+                   int M, int C, int HW, int with_moments) {
   __shared__ float red[kAlign][kRedThreads];
   const int groups = padded(C) / kAlign;
   const int rb = blockIdx.x / groups;
@@ -885,12 +998,33 @@ grad_out_cl_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
     float gf = 0.0f;
     if (ok && c < C) {
       const long long i = base + static_cast<long long>(c) * HW;
-      gf = __bfloat162float(gy[i]);
-      if (with_moments) gf = gf + (gs1[c] + 2.0f * gs2[c] * __bfloat162float(y[i]));
+      gf = to_float(gy[i]);
+      if (with_moments) gf = gf + (gs1[c] + 2.0f * gs2[c] * to_float(y[i]));
     }
     v[j] = gf;
   }
-  if (ok) store8(g + static_cast<long long>(e) * padded(C) + c0, v);
+  bool bad = false;
+  if (ok) {
+    bf16* row = g + static_cast<long long>(e) * padded(C) + c0;
+    store8(row, v);
+    if (kGradPlanes<T> == 3) {
+      const long long plane = static_cast<long long>(M) * padded(C);
+      float rest[kAlign];
+#pragma unroll
+      for (int j = 0; j < kAlign; ++j) {
+        const float g0 = __bfloat162float(__float2bfloat16(v[j]));
+        bad = bad || !isfinite(g0);
+        rest[j] = v[j] - g0;
+      }
+      store8(row + plane, rest);
+#pragma unroll
+      for (int j = 0; j < kAlign; ++j) {
+        rest[j] = rest[j] - __bfloat162float(__float2bfloat16(rest[j]));
+      }
+      store8(row + 2 * plane, rest);
+    }
+  }
+  if (kGradPlanes<T> == 3 && __syncthreads_or(bad) && threadIdx.x == 0) atomicOr(nonfinite, 1);
   chsum::block_tree_sum<kAlign>(red, v);
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -900,19 +1034,54 @@ grad_out_cl_kernel(const bf16* __restrict__ gy, const bf16* __restrict__ y,
   }
 }
 
-// conv_mma_kernel<Out> over the whole of out; the moments' partials (row
-// tiles of kBM, cout), when asked for, are the caller's to sum.
-template <typename Out>
+template <typename T>
+inline int grad_out_cl(const void* gy, const void* y, const float* gs1, const float* gs2,
+                       void* g, float* part_db, int* nonfinite, int M, int C, int HW,
+                       int with_moments, cudaStream_t st) {
+  grad_out_cl_kernel<T><<<cdiv(M, kRedThreads) * (padded(C) / kAlign), kRedThreads, 0, st>>>(
+      static_cast<const T*>(gy), static_cast<const T*>(y), gs1, gs2, static_cast<bf16*>(g),
+      part_db, nonfinite, M, C, HW, with_moments);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// conv_mma_kernel<Out, kTerms> over the whole of out; the moments' partials
+// (row tiles of kBM, cout), when asked for, are the caller's to sum.
+template <typename Out, int kTerms>
 inline int launch_mma(const void* src, const void* wk, const float* bias, void* out,
-                      float* part_s1, float* part_s2, const int* inexact, int* tally, int M,
-                      int cin, int cout, int H, int W, cudaStream_t st) {
+                      float* part_s1, float* part_s2, const int* flag, int* tally, int M,
+                      int cin, int cout, int H, int W, int a_planes, cudaStream_t st) {
   const int bytes = smem_bytes(false);
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      conv_mma_kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      conv_mma_kernel<Out, kTerms>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
-  conv_mma_kernel<Out><<<cdiv(M, kBM) * cdiv(cout, kBN), kThreads, bytes, st>>>(
+  conv_mma_kernel<Out, kTerms><<<cdiv(M, kBM) * cdiv(cout, kBN), kThreads, bytes, st>>>(
       static_cast<const bf16*>(src), static_cast<const bf16*>(wk), bias, static_cast<Out*>(out),
-      part_s1, part_s2, inexact, tally, M, cin, cout, H, W);
+      part_s1, part_s2, flag, tally, M, cin, cout, H, W, a_planes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wgrad_mma_kernel<kPlanes> over every split; the partials are the
+// caller's to sum.
+template <int kPlanes>
+inline int launch_wgrad_mma(const void* g, const void* xcl, float* part_dw, const int* route,
+                            int* tally, int M, int cin, int cout, int H, int W, int splits,
+                            int rows_per_split, cudaStream_t st) {
+  const int bytes = smem_bytes(true);
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      wgrad_mma_kernel<kPlanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (rc != 0) return rc;
+  const dim3 grid(cdiv(9 * padded(cin), kBN), cdiv(cout, kBM), splits);
+  wgrad_mma_kernel<kPlanes><<<grid, kThreads, bytes, st>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(xcl), part_dw, route, tally, M, cin,
+      cout, H, W, rows_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sum_splits_kernel into the (cout, 9 * padded(cin)) dw.
+inline int sum_splits(const float* part_dw, float* dw, const int* route, int cin, int cout,
+                      int splits_tc, int splits_cc, cudaStream_t st) {
+  sum_splits_kernel<<<cdiv(9LL * padded(cin) * cout, kRedThreads), kRedThreads, 0, st>>>(
+      part_dw, dw, route, cin, cout, splits_tc, splits_cc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -921,18 +1090,32 @@ inline int launch_fwd(const void* x, void* xcl, const void* wk, const float* bia
                       int cout, int H, int W, cudaStream_t st) {
   int rc = pack_cl<bf16>(x, xcl, nullptr, M, cin, H * W, st);
   if (rc != 0) return rc;
-  rc = launch_mma<bf16>(xcl, wk, bias, y, part_s1, part_s2, nullptr, nullptr, M, cin, cout,
-                        H, W, st);
+  rc = launch_mma<bf16, 1>(xcl, wk, bias, y, part_s1, part_s2, nullptr, nullptr, M, cin, cout,
+                           H, W, 0, st);
   if (rc != 0 || part_s1 == nullptr) return rc;
   return sum_partials(part_s1, part_s2, s1, s2, cdiv(M, kBM), cout, st);
 }
 
+// The three bf16 planes of an fp32 v (both differences are exact in fp32).
+struct Planes {
+  bf16 p[3];
+  __device__ __forceinline__ explicit Planes(float v) {
+    p[0] = __float2bfloat16(v);
+    const float rest = v - __bfloat162float(p[0]);
+    p[1] = __float2bfloat16(rest);
+    p[2] = __float2bfloat16(rest - __bfloat162float(p[1]));
+  }
+  __device__ __forceinline__ bf16 operator[](int q) const {
+    return q == 0 ? p[0] : (q == 1 ? p[1] : p[2]);
+  }
+};
+
 // The fp32 forward's two weight matrices from the OIHW fp32 weight w, one
 // thread per element of a plane: wk the three bf16 planes W2, W1, W0 (W0 =
-// bf16(w), W1 = bf16(w - W0), W2 = bf16(w - W0 - W1); both differences are
-// exact in fp32) stacked as (3 * 9 * Cp_in, Cp_out), row p * 9 * Cp_in + tap
-// * Cp_in + ci, zero in the padding; wk_cc the CUDA cores' (cin * 9, cout)
-// fp32 matrix, row ci * 9 + tap. Also clears the route flag for the pack.
+// bf16(w), W1 = bf16(w - W0), W2 = bf16(w - W0 - W1)) stacked as (3 * 9 *
+// Cp_in, Cp_out), row p * 9 * Cp_in + tap * Cp_in + ci, zero in the
+// padding; wk_cc the CUDA cores' (cin * 9, cout) fp32 matrix, row ci * 9 +
+// tap. Also clears the route flag for the pack.
 __global__ void __launch_bounds__(kRedThreads)
 split_weight_kernel(const float* __restrict__ w, bf16* __restrict__ wk,
                     float* __restrict__ wk_cc, int* __restrict__ inexact, int cin, int cout) {
@@ -947,14 +1130,42 @@ split_weight_kernel(const float* __restrict__ w, bf16* __restrict__ wk,
   const int ci = row - tap * cp;
   const bool ok = ci < cin && co < cout;
   const float v = ok ? w[(static_cast<long long>(co) * cin + ci) * 9 + tap] : 0.0f;
-  const bf16 w0 = __float2bfloat16(v);
-  const float rest = v - __bfloat162float(w0);
-  const bf16 w1 = __float2bfloat16(rest);
+  const Planes q(v);
   const long long plane = 9LL * cp * np;
-  wk[e] = __float2bfloat16(rest - __bfloat162float(w1));
-  wk[plane + e] = w1;
-  wk[2 * plane + e] = w0;
+  wk[e] = q[2];
+  wk[plane + e] = q[1];
+  wk[2 * plane + e] = q[0];
   if (ok) wk_cc[(static_cast<long long>(ci) * 9 + tap) * cout + co] = v;
+}
+
+// The fp32 dx pass's two weight matrices from the OIHW fp32 weight w, one
+// thread per element of a plane of the flipped, transposed weight W[co, ci,
+// 8 - tap]: w2 the (6 * 9 * Cp_out, Cp_in) bf16 matrix whose block t (rows
+// t * 9 * Cp_out + tap * Cp_out + co) is its plane plane_of(w_planes, t)
+// (planes as split_weight_kernel's), zero in the padding; w2_cc the CUDA
+// cores' (cout * 9, cin) fp32 matrix, row co * 9 + tap. Both null: no dx,
+// nothing written. Also sets both backward route flags to `force` (1: a
+// call too large for the tensor cores), for the g pass and the pack.
+__global__ void __launch_bounds__(kRedThreads)
+split_dx_weight_kernel(const float* __restrict__ w, bf16* __restrict__ w2,
+                       float* __restrict__ w2_cc, int* __restrict__ flags, int cin, int cout,
+                       int w_planes, int force) {
+  const int cp = padded(cout);
+  const int np = padded(cin);
+  const int e = blockIdx.x * kRedThreads + threadIdx.x;
+  if (e == 0) flags[0] = flags[1] = force;
+  if (w2 == nullptr || e >= 9 * cp * np) return;
+  const int ci = e % np;
+  const int row = e / np;  // tap * cp + co
+  const int tap = row / cp;
+  const int co = row - tap * cp;
+  const bool ok = ci < cin && co < cout;
+  const float v = ok ? w[(static_cast<long long>(co) * cin + ci) * 9 + 8 - tap] : 0.0f;
+  const Planes q(v);
+  const long long block = 9LL * cp * np;
+#pragma unroll
+  for (int t = 0; t < 6; ++t) w2[t * block + e] = q[plane_of(w_planes, t)];
+  if (ok) w2_cc[(static_cast<long long>(co) * 9 + tap) * cin + ci] = v;
 }
 
 // The fp32 forward: the pack sets *inexact if x is not exact in bf16; the
@@ -975,12 +1186,13 @@ inline int launch_fwd_f32(const void* x, void* xcl, const void* wk, const void* 
   } else {
     rc = pack_cl<float>(x, xcl, inexact, static_cast<int>(M), cin, H * W, st);
     if (rc != 0) return rc;
-    rc = launch_mma<float>(xcl, wk, bias, y, part_s1, part_s2, inexact, tally,
-                           static_cast<int>(M), cin, cout, H, W, st);
+    rc = launch_mma<float, 3>(xcl, wk, bias, y, part_s1, part_s2, inexact, tally,
+                              static_cast<int>(M), cin, cout, H, W, 0, st);
     if (rc != 0) return rc;
   }
-  rc = launch_conv<float>(x, wk_cc, bias, y, part_s1, part_s2, inexact, tally, n_img, cin,
-                          cout, H, W, st);
+  rc = launch_conv(Plain{static_cast<const float*>(x)}, static_cast<const float*>(wk_cc), bias,
+                   static_cast<float*>(y), part_s1, part_s2, inexact, tally, n_img, cin, cout,
+                   H, W, st);
   if (rc != 0 || part_s1 == nullptr) return rc;
   return sum_partials(part_s1, part_s2, s1, s2, cdiv(M, kBM), cout, st);
 }
@@ -990,34 +1202,79 @@ inline int launch_bwd(const void* x, void* xcl, const void* w2, const void* y,
                       float* part_db, float* db, void* dx, float* part_dw, float* dw, int M,
                       int cin, int cout, int H, int W, int splits, int rows_per_split,
                       int with_moments, cudaStream_t st) {
-  const unsigned row_blocks = cdiv(M, kRedThreads);
-  grad_out_cl_kernel<<<row_blocks * (padded(cout) / kAlign), kRedThreads, 0, st>>>(
-      static_cast<const bf16*>(gy), static_cast<const bf16*>(y), gs1, gs2,
-      static_cast<bf16*>(g), part_db, M, cout, H * W, with_moments);
-  int rc = static_cast<int>(cudaGetLastError());
+  int rc = grad_out_cl<bf16>(gy, y, gs1, gs2, g, part_db, nullptr, M, cout, H * W,
+                             with_moments, st);
   if (rc != 0) return rc;
-  rc = sum_partials(part_db, nullptr, db, nullptr, row_blocks, cout, st);
+  rc = sum_partials(part_db, nullptr, db, nullptr, cdiv(M, kRedThreads), cout, st);
   if (rc != 0) return rc;
   rc = pack_cl<bf16>(x, xcl, nullptr, M, cin, H * W, st);
   if (rc != 0) return rc;
-  const int K = 9 * padded(cin);
-  const int bytes = smem_bytes(true);
-  rc = static_cast<int>(cudaFuncSetAttribute(
-      wgrad_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  rc = launch_wgrad_mma<1>(g, xcl, part_dw, nullptr, nullptr, M, cin, cout, H, W, splits,
+                           rows_per_split, st);
   if (rc != 0) return rc;
-  const dim3 wgrid(cdiv(K, kBN), cdiv(cout, kBM), splits);
-  wgrad_mma_kernel<<<wgrid, kThreads, bytes, st>>>(static_cast<const bf16*>(g),
-                                                   static_cast<const bf16*>(xcl), part_dw,
-                                                   M, cin, cout, H, W, rows_per_split);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const long long n = static_cast<long long>(cout) * K;
-  sum_splits_kernel<<<cdiv(n, kRedThreads), kRedThreads, 0, st>>>(part_dw, dw, n, splits);
-  rc = static_cast<int>(cudaGetLastError());
+  rc = sum_splits(part_dw, dw, nullptr, cin, cout, splits, 0, st);
   if (rc != 0 || dx == nullptr) return rc;
   // dx: the forward's GEMM on g, Cout channels in, Cin out, no bias or moments
-  return launch_mma<bf16>(g, w2, nullptr, dx, nullptr, nullptr, nullptr, nullptr, M, cout,
-                          cin, H, W, st);
+  return launch_mma<bf16, 1>(g, w2, nullptr, dx, nullptr, nullptr, nullptr, nullptr, M, cout,
+                             cin, H, W, 0, st);
+}
+
+// The fp32 backward after split_dx_weight_kernel (which set flags[0] =
+// flags[1] = 0, or 1 beyond 2^31 rows). Up to 2^31 rows: the g pass writes
+// g's planes and db's partials and sets flags[1] if g is not finite, the
+// pack copies x and sets flags[0] if x is not exact in bf16; then each
+// pass launches both routes, and the one not chosen returns at once: dW on
+// the tensor cores over g's planes if neither flag is set, else on the
+// CUDA cores; dx on the tensor cores over the six plane products if
+// flags[1] is clear, else on the CUDA cores. From 2^31 rows on, the CUDA
+// cores alone (db's partials from the NCHW gy and y, no pack). tally:
+// (dW tensor cores, dW CUDA cores, dx tensor cores, dx CUDA cores).
+inline int launch_bwd_f32(const void* x, void* xcl, const void* w2, const float* w2_cc,
+                          const void* y, const void* gy, const float* gs1, const float* gs2,
+                          void* g, float* part_db, float* db, void* dx, float* part_dw,
+                          float* dw, int* flags, int* tally, long long n_img, int cin, int cout,
+                          int H, int W, int splits, int rows_per_split, int splits_cc,
+                          long long rows_per_split_cc, int with_moments, int g_planes,
+                          cudaStream_t st) {
+  const long long M = n_img * H * W;
+  const int HW = H * W;
+  const bool tc = M <= 0x7fffffffLL;
+  const Grad grad{static_cast<const float*>(gy), static_cast<const float*>(y), gs1, gs2,
+                  with_moments};
+  int rc = 0;
+  if (tc) {
+    rc = grad_out_cl<float>(gy, y, gs1, gs2, g, part_db, flags + 1, static_cast<int>(M), cout,
+                            HW, with_moments, st);
+  } else {
+    grad_out_kernel<<<dim3(cdiv(M, kRedThreads), cout), kRedThreads, 0, st>>>(grad, part_db,
+                                                                               n_img, cout, HW);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  if (rc != 0) return rc;
+  rc = sum_partials(part_db, nullptr, db, nullptr, cdiv(M, kRedThreads), cout, st);
+  if (rc != 0) return rc;
+  if (tc) {
+    rc = pack_cl<float>(x, xcl, flags, static_cast<int>(M), cin, HW, st);
+    if (rc != 0) return rc;
+    rc = launch_wgrad_mma<3>(g, xcl, part_dw, flags, tally, static_cast<int>(M), cin, cout, H,
+                             W, splits, rows_per_split, st);
+    if (rc != 0) return rc;
+  }
+  wgrad_kernel<<<dim3(cdiv(9 * cin, ::kBN), cdiv(cout, ::kBM), splits_cc), ::kThreads, 0, st>>>(
+      grad, static_cast<const float*>(x), part_dw, flags, tally, n_img, cin, cout, H, W,
+      rows_per_split_cc);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  rc = sum_splits(part_dw, dw, flags, cin, cout, splits, splits_cc, st);
+  if (rc != 0 || dx == nullptr) return rc;
+  // dx: the forward's GEMM on g, Cout channels in, Cin out, no bias or moments
+  if (tc) {
+    rc = launch_mma<float, 6>(g, w2, nullptr, dx, nullptr, nullptr, flags + 1, tally + 2,
+                              static_cast<int>(M), cout, cin, H, W, g_planes, st);
+    if (rc != 0) return rc;
+  }
+  return launch_conv(grad, w2_cc, nullptr, static_cast<float*>(dx), nullptr, nullptr,
+                     flags + 1, tally + 2, n_img, cout, cin, H, W, st);
 }
 
 }  // namespace tc
@@ -1026,10 +1283,10 @@ inline int launch_bwd(const void* x, void* xcl, const void* w2, const void* y,
 
 // Each entry point launches on `stream` (a cudaStream_t), allocates nothing
 // and does not synchronise; `bf16` selects the storage type of x, the weight matrices,
-// y, gy, g and dx: 0 fp32, 1 bf16. Cp = C rounded up to a multiple of 8.
-// xcl is the (n_img * H * W, Cp_in) bf16 scratch for x's channels-last copy
-// (the fp32 backward: unused, may be null). Each returns the first CUDA
-// error of its launches, 0 if none.
+// y, gy, dx: 0 fp32, 1 bf16. Cp = C rounded up to a multiple of 8. xcl is
+// the (n_img * H * W, Cp_in) bf16 scratch for x's channels-last copy
+// (fp32 from 2^31 rows on: unused, may be null). Each returns the first
+// CUDA error of its launches, 0 if none.
 //
 // spike_conv_weight_f32: the fp32 forward's wk and wk_cc (below) from the
 // contiguous OIHW fp32 weight w (cout, cin, 3, 3), and inexact set to 0.
@@ -1039,6 +1296,21 @@ extern "C" int spike_conv_weight_f32(const float* w, void* wk, float* wk_cc, int
   tc::split_weight_kernel<<<cdiv(n, kRedThreads), kRedThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       w, static_cast<tc::bf16*>(wk), wk_cc, inexact, cin, cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// spike_conv_dx_weight_f32: the fp32 backward's w2 and w2_cc (below) from
+// the contiguous OIHW fp32 weight w (cout, cin, 3, 3), both null for a
+// backward without dx; w_planes the weight plane of each of the six dx
+// terms, two bits a term, first term lowest. Sets flags[0] = flags[1] =
+// force_cc, 1 for a call of 2^31 rows or more, else 0.
+extern "C" int spike_conv_dx_weight_f32(const float* w, void* w2, float* w2_cc, int* flags,
+                                        int cin, int cout, int w_planes, int force_cc,
+                                        void* stream) {
+  const long long n = w2 != nullptr ? 9LL * tc::padded(cin) * tc::padded(cout) : 1;
+  tc::split_dx_weight_kernel<<<cdiv(n, kRedThreads), kRedThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<tc::bf16*>(w2), w2_cc, flags, cin, cout, w_planes, force_cc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1071,32 +1343,40 @@ extern "C" int spike_conv_fwd(const void* x, void* xcl, const void* wk, const vo
 }
 
 // spike_conv_bwd: x (n_img, cin, H, W), bf16 n_img * H * W below 2^31; w2
-// (cout * 9, cin), row co * 9 +
-// t, bf16 (9 * Cp_out, Cp_in), row t * Cp_out + co, the flipped and
-// transposed weight, read only with dx; y, gy
+// the tensor-core dx matrix, row tap * Cp_out + co of a block holding the
+// flipped, transposed weight W[co, :, 8 - tap]: bf16 (9 * Cp_out, Cp_in),
+// fp32 six blocks of bf16 planes, (6 * 9 * Cp_out, Cp_in) (from
+// spike_conv_dx_weight_f32); w2_cc (fp32 only) the CUDA cores' (cout * 9,
+// cin) fp32 dx matrix, row co * 9 + tap; both read only with dx; y, gy
 // (n_img, cout, H, W); gs1, gs2 (cout,) fp32, read only with
-// `with_moments`; g scratch in the storage type, (n_img, cout, H, W), bf16
-// (n_img * H * W, Cp_out); part_db (ceil(n_img * H * W / 256), cout) fp32
-// scratch; db (cout,) fp32; dx (n_img, cin, H, W) or null (not computed);
-// part_dw (splits, cout, Kw) fp32 scratch, split s covering rows
-// [s * rows_per_split, (s + 1) * rows_per_split); dw (cout, Kw) fp32, with
-// Kw = cin * 9, column ci * 9 + tap (OIHW), bf16 Kw = 9 * Cp_in, column tap *
-// Cp_in + ci.
-extern "C" int spike_conv_bwd(const void* x, void* xcl, const void* w2, const void* y,
-                              const void* gy, const float* gs1, const float* gs2,
-                              void* g, float* part_db, float* db, void* dx,
-                              float* part_dw, float* dw, long long n_img, int cin,
-                              int cout, int H, int W, int splits,
-                              long long rows_per_split, int with_moments, int bf16,
-                              void* stream) {
+// `with_moments`; g bf16 scratch, (n_img * H * W, Cp_out), fp32 three of
+// them one after the other (from 2^31 rows on: unused); part_db
+// (ceil(n_img * H * W / 256), cout) fp32 scratch; db (cout,) fp32; dx
+// (n_img, cin, H, W) or null (not computed); part_dw fp32 scratch of
+// (splits, cout, 9 * Cp_in) (the tensor cores; split s covers rows [s *
+// rows_per_split, (s + 1) * rows_per_split)) and, fp32, of (splits_cc,
+// cout, cin * 9) (the CUDA cores, rows_per_split_cc); dw (cout, 9 * Cp_in)
+// fp32, column tap * Cp_in + ci, 0 in the padding. fp32 only: flags two
+// ints as spike_conv_dx_weight_f32 left them, set by the call (x not exact
+// in bf16, g not finite), tally four ints to which the call adds one for
+// each pass's route (dW tensor cores, dW CUDA cores, dx tensor cores, dx
+// CUDA cores), and g_planes the g plane of each of the six dx terms, two
+// bits a term, first term lowest.
+extern "C" int spike_conv_bwd(const void* x, void* xcl, const void* w2, const float* w2_cc,
+                              const void* y, const void* gy, const float* gs1,
+                              const float* gs2, void* g, float* part_db, float* db, void* dx,
+                              float* part_dw, float* dw, int* flags, int* tally,
+                              long long n_img, int cin, int cout, int H, int W, int splits,
+                              int rows_per_split, int splits_cc, long long rows_per_split_cc,
+                              int with_moments, int g_planes, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
     if (n_img * H * W > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     return tc::launch_bwd(x, xcl, w2, y, gy, gs1, gs2, g, part_db, db, dx, part_dw, dw,
                           static_cast<int>(n_img * H * W), cin, cout, H, W, splits,
-                          static_cast<int>(rows_per_split), with_moments, st);
+                          rows_per_split, with_moments, st);
   }
-  return launch_bwd<float>(x, w2, y, gy, gs1, gs2, g, part_db, db, dx, part_dw,
-                           dw, n_img, cin, cout, H, W, splits, rows_per_split,
-                           with_moments, st);
+  return tc::launch_bwd_f32(x, xcl, w2, w2_cc, y, gy, gs1, gs2, g, part_db, db, dx, part_dw,
+                            dw, flags, tally, n_img, cin, cout, H, W, splits, rows_per_split,
+                            splits_cc, rows_per_split_cc, with_moments, g_planes, st);
 }

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models.diffusion import DenoiseFn
 from spiking_diffusion_tpu_torch.ops import _build
-from spiking_diffusion_tpu_torch.ops.spike_conv import padded_channels, weight_planes
+from spiking_diffusion_tpu_torch.ops.spike_conv import bf16_planes, padded_channels
 from spiking_diffusion_tpu_torch.snn.functional import fuse_conv_bn
 from spiking_diffusion_tpu_torch.snn.neuron import lif_step
 
@@ -281,7 +281,7 @@ def kernel_matrix(w: torch.Tensor, segments: Tuple[int, ...]) -> torch.Tensor:
     plane * 3 * Cp_in + dx * Cp_in + c within it, where Cp_in lays the
     input channels out as ``segments``, each part padded to a multiple of
     8 (:func:`padded_channels`, zero), as the spike operand holds them. fp32
-    weights are three bf16 planes (:func:`weight_planes`, exact), smallest
+    weights are three bf16 planes (:func:`bf16_planes`, exact), smallest
     first; bf16 weights one plane; int8 weights one plane of their
     integers, exact in bf16 (their scales stay in the bias pack).
     """
@@ -290,7 +290,7 @@ def kernel_matrix(w: torch.Tensor, segments: Tuple[int, ...]) -> torch.Tensor:
         raise ValueError(f"segments {segments} do not add up to {cin} channels")
     w4 = w.reshape(3, 3, cin, cout)
     if w.dtype == torch.float32:
-        planes = list(reversed(weight_planes(w4)))
+        planes = list(reversed(bf16_planes(w4)))
     else:
         planes = [w4.to(torch.bfloat16)]
     stacked = torch.stack(planes, 1)  # (dy, plane, dx, Cin, Cout)

@@ -34,14 +34,14 @@ up to ``CHANNEL_ALIGN``, the padding zero (plain version:
 :func:`channels_last`), the wrapper lays the weight out as (9 * Cp_in,
 Cp_out) and (9 * Cp_out, Cp_in) matrices with row tap * Cp + channel
 (:func:`kernel_weight_cl`, :func:`dx_weight_cl`) and unpacks dW from
-(Cout, 9 * Cp_in) (:func:`dw_from_cl`); y, dx and the interface stay
-NCHW. The fp32 backward runs on the CUDA cores over NCHW operands.
+(Cout, 9 * Cp_in) (:func:`dw_from_cl`, for every route and dtype); y, dx
+and the interface stay NCHW.
 
 The fp32 forward takes one of two routes, chosen on the card per call
 with no host synchronisation. The kernel copies x to bf16 channels-last
 and flags whether any element changed or is not finite (plain version:
 :func:`bf16_exact`). An x that bf16 holds exactly meets the weight's three
-bf16 planes, whose fp32 sum is the weight (:func:`weight_planes`, stacked
+bf16 planes, whose fp32 sum is the weight (:func:`bf16_planes`, stacked
 by :func:`kernel_weight_planes`), on the tensor cores: every product is
 exact and is summed in fp32. Every x of the model's path is such an x
 (spikes, token ids up to ``mask_id``, timesteps) while ``mask_id`` and the
@@ -49,6 +49,21 @@ number of timesteps are at most 256. Any other x, and any call of more
 than ``MAX_ROWS`` rows, takes the CUDA cores over the NCHW x and the fp32
 weight. :func:`fp32_route_counts` reads how many fp32 calls took each
 route since :func:`reset_fp32_route_counts`.
+
+The fp32 backward splits g = gy + (gs1 + 2 * gs2 * y) into its three
+bf16 planes too (:func:`bf16_planes`, written channels-last by the g
+pass: :func:`grad_planes_cl`), and each pass picks its route on the card
+in the same way. dW = g^T . im2col(x) over the three g planes (exact
+products, fp32 sums) takes the tensor cores when x is exact in bf16 and
+every g is finite (:func:`bf16_planes_finite`). dx = the sum over taps of
+g . W flipped takes them when every g is finite, over the six plane
+products Gi . Wj with i + j <= 2, in the order of ``DX_TERMS`` (the
+flipped weight's planes: :func:`dx_weight_planes`, stacked per term by
+:func:`dx_weight_terms`); the three dropped terms add up to at most one
+fp32 rounding of each product. Other operands, and calls of more than
+``MAX_ROWS`` rows, take the CUDA cores over NCHW operands. db stays the
+fp32 sum of the unrounded g. :func:`fp32_bwd_route_counts` reads the
+routes of both passes.
 
 The kernel and the plain version sum in different orders: y agrees
 within about 1e-5 in fp32 on either route (a bf16 rounding step in bf16), s1 and s2
@@ -79,8 +94,15 @@ WGRAD_BLOCKS = 4 * 132  # dW's row split aims at this many blocks (132 SMs)
 WGRAD_MIN_ROWS = 64  # rows a split covers at least
 WGRAD_PARTIAL_BYTES = 256 * 2**20  # at most this much fp32 dW partials
 
+# dx's six plane products (g plane, weight plane), smallest first: the
+# three of size about 2^-16 |g W|, then the two of 2^-8, then G0 W0. The
+# dx kernel and its weight matrix follow this order.
+DX_TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
 _FNS = {}
-_ROUTE_TALLY = {}  # device -> int32 (2,): fp32 forwards on the tensor cores, on the CUDA cores
+# fp32 passes by route since the last reset, each (tensor cores, CUDA cores):
+# the forward, dW, dx
+_ROUTE_TALLY = {}  # device -> int32 (6,)
 
 
 def _kernel(name: str):
@@ -91,10 +113,12 @@ def _kernel(name: str):
                            *(ctypes.c_int,) * 6, ctypes.c_void_p]
         elif name == "spike_conv_weight_f32":
             fn.argtypes = [*(ctypes.c_void_p,) * 4, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        elif name == "spike_conv_dx_weight_f32":
+            fn.argtypes = [*(ctypes.c_void_p,) * 4, *(ctypes.c_int,) * 4, ctypes.c_void_p]
         else:
-            fn.argtypes = [*(ctypes.c_void_p,) * 13, ctypes.c_longlong,
-                           *(ctypes.c_int,) * 5, ctypes.c_longlong,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = [*(ctypes.c_void_p,) * 16, ctypes.c_longlong,
+                           *(ctypes.c_int,) * 7, ctypes.c_longlong,
+                           *(ctypes.c_int,) * 3, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
@@ -262,23 +286,59 @@ def dx_weight_cl(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w.reshape(9 * cpo, cpi).contiguous()
 
 
-def weight_planes(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(W0, W1, W2): three bf16 tensors whose fp32 sum is the fp32 weight,
-    W0 = bf16(W), W1 = bf16(W - W0), W2 = bf16(W - W0 - W1), each taking 8
-    of fp32's 24 significant bits. Exact for every |W| >= 2^-110 (and 0);
-    below, within 2^-134, half bf16's least subnormal."""
-    w0 = weight.to(torch.bfloat16)
-    rest = weight - w0.float()
-    w1 = rest.to(torch.bfloat16)
-    return w0, w1, (rest - w1.float()).to(torch.bfloat16)
+def bf16_planes(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(T0, T1, T2): three bf16 tensors whose fp32 sum is the fp32 t, T0 =
+    bf16(t), T1 = bf16(t - T0), T2 = bf16(t - T0 - T1), each taking 8 of
+    fp32's 24 significant bits. Exact for every finite |t| >= 2^-110 (and
+    0) that bf16 does not round to inf (:func:`bf16_planes_finite`); below
+    2^-110, within 2^-134, half bf16's least subnormal."""
+    t0 = t.to(torch.bfloat16)
+    rest = t - t0.float()
+    t1 = rest.to(torch.bfloat16)
+    return t0, t1, (rest - t1.float()).to(torch.bfloat16)
+
+
+def bf16_planes_finite(t: torch.Tensor) -> bool:
+    """True if every first plane bf16(t) is finite, so that the planes sum
+    to t: the plain version of the flag by which the fp32 backward's g
+    picks the tensor cores (a plane of +-inf holds inf - inf = NaN)."""
+    return bool(torch.isfinite(t.to(torch.bfloat16)).all())
+
+
+def plane_code(planes) -> int:
+    """Plane indices (0..2), two bits each, the first lowest: how the
+    kernels take the columns of ``DX_TERMS``."""
+    return sum(p << (2 * i) for i, p in enumerate(planes))
 
 
 def kernel_weight_planes(weight: torch.Tensor) -> torch.Tensor:
     """OIHW fp32 -> the fp32 forward's tensor-core matrix: the planes of
-    :func:`weight_planes` laid out as :func:`kernel_weight_cl` and stacked
+    :func:`bf16_planes` laid out as :func:`kernel_weight_cl` and stacked
     smallest first (W2, W1, W0), (3 * 9 * Cp_in, Cp_out) bf16."""
-    planes = reversed(weight_planes(weight))
+    planes = reversed(bf16_planes(weight))
     return torch.cat([kernel_weight_cl(p, torch.bfloat16) for p in planes])
+
+
+def dx_weight_planes(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW fp32 -> the three bf16 planes of the flipped, transposed weight
+    (:func:`bf16_planes`), each laid out as :func:`dx_weight_cl`, stacked
+    W0, W1, W2: (3 * 9 * Cp_out, Cp_in) bf16."""
+    return torch.cat([dx_weight_cl(p, torch.bfloat16) for p in bf16_planes(weight)])
+
+
+def dx_weight_terms(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW fp32 -> the fp32 dx pass's tensor-core matrix: for each term of
+    ``DX_TERMS`` in turn, its weight plane of :func:`dx_weight_planes`,
+    (6 * 9 * Cp_out, Cp_in) bf16."""
+    planes = dx_weight_planes(weight).chunk(3)
+    return torch.cat([planes[j] for _, j in DX_TERMS])
+
+
+def grad_planes_cl(g: torch.Tensor, cp: int) -> torch.Tensor:
+    """(N, C, H, W) fp32 g -> its three bf16 planes (:func:`bf16_planes`)
+    as the fp32 g pass writes them: (3, N * H * W, cp), G0, G1, G2, each
+    as :func:`channels_last`, channels C.. cp zero."""
+    return torch.stack([channels_last(p, cp) for p in bf16_planes(g)])
 
 
 def bf16_exact(x: torch.Tensor) -> bool:
@@ -297,17 +357,22 @@ def dw_from_cl(dwm: torch.Tensor, cin: int) -> torch.Tensor:
 def wgrad_splits(rows: int, cin: int, cout: int, fill: bool = False) -> Tuple[int, int]:
     """(splits, rows per split) of dW's contraction over ``rows``: about
     ``WGRAD_BLOCKS`` blocks of 128 x 128 dW tiles, at least that many, or
-    with ``fill`` at most that many (the bf16 route, two blocks per SM: two
-    whole waves, no ragged last one); each split at least
+    with ``fill`` at most that many (the tensor-core route, two blocks per
+    SM: two whole waves, no ragged last one); each split at least
     ``WGRAD_MIN_ROWS`` rows, their fp32 partials at most
     ``WGRAD_PARTIAL_BYTES``. Depends on the shapes only, so dW's sum order
-    is the same from run to run. The bf16 route passes its padded Cin."""
+    is the same from run to run. The tensor-core route passes its padded
+    Cin and ``fill``, the fp32 CUDA-core route Cin."""
     tiles = math.ceil(cout / 128) * math.ceil(9 * cin / 128)
     aim = WGRAD_BLOCKS // tiles if fill else math.ceil(WGRAD_BLOCKS / tiles)
     splits = max(1, min(aim, rows // WGRAD_MIN_ROWS,
                         WGRAD_PARTIAL_BYTES // (4 * cout * 9 * cin)))
     per_split = math.ceil(rows / splits)
     return math.ceil(rows / per_split), per_split
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _check_cuda(*tensors, max_rows: bool = True):
@@ -324,7 +389,7 @@ def _check_cuda(*tensors, max_rows: bool = True):
 
 def _route_tally(device: torch.device) -> torch.Tensor:
     if device not in _ROUTE_TALLY:
-        _ROUTE_TALLY[device] = torch.zeros(2, dtype=torch.int32, device=device)
+        _ROUTE_TALLY[device] = torch.zeros(6, dtype=torch.int32, device=device)
     return _ROUTE_TALLY[device]
 
 
@@ -346,12 +411,47 @@ def fp32_weights(weight: torch.Tensor, stream: int) -> Tuple[torch.Tensor, ...]:
     return wk, wk_cc, inexact
 
 
+def fp32_dx_weights(weight: torch.Tensor, need_dx: bool, force_cc: bool,
+                    stream: int) -> Tuple[Optional[torch.Tensor], ...]:
+    """The fp32 backward's operands from a contiguous OIHW fp32 weight on
+    the card, by one kernel on ``stream``: (the six terms' matrix, as
+    :func:`dx_weight_terms`; the CUDA cores' matrix, as :func:`dx_weight`;
+    both None without ``need_dx``; the two route flags, int32, both
+    ``force_cc``)."""
+    cout, cin = weight.shape[:2]
+    dev = weight.device
+    w2 = w2_cc = None
+    if need_dx:
+        w2 = torch.empty((len(DX_TERMS) * 9 * padded_channels(cout), padded_channels(cin)),
+                         dtype=torch.bfloat16, device=dev)
+        w2_cc = torch.empty((cout * 9, cin), dtype=torch.float32, device=dev)
+    flags = torch.empty(2, dtype=torch.int32, device=dev)
+    rc = _kernel("spike_conv_dx_weight_f32")(
+        weight.data_ptr(), _ptr(w2), _ptr(w2_cc), flags.data_ptr(), cin, cout,
+        plane_code(j for _, j in DX_TERMS), int(force_cc), stream)
+    if rc != 0:
+        raise RuntimeError(f"spike_conv_dx_weight_f32 launch failed: CUDA error {rc}")
+    return w2, w2_cc, flags
+
+
+def _route_counts(lo: int, hi: int) -> Tuple[int, ...]:
+    counts = [t.tolist() for t in _ROUTE_TALLY.values()]
+    return tuple(sum(c[i] for c in counts) for i in range(lo, hi))
+
+
 def fp32_route_counts() -> Tuple[int, int]:
     """(tensor cores, CUDA cores): the fp32 forwards that took each route
     since the last :func:`reset_fp32_route_counts`, over every device.
     Synchronises with the card."""
-    counts = [t.tolist() for t in _ROUTE_TALLY.values()]
-    return sum(c[0] for c in counts), sum(c[1] for c in counts)
+    return _route_counts(0, 2)
+
+
+def fp32_bwd_route_counts() -> Tuple[int, int, int, int]:
+    """(dW on the tensor cores, dW on the CUDA cores, dx on the tensor
+    cores, dx on the CUDA cores): the fp32 backward passes by route since
+    the last :func:`reset_fp32_route_counts`, over every device.
+    Synchronises with the card."""
+    return _route_counts(2, 6)
 
 
 def reset_fp32_route_counts() -> None:
@@ -383,7 +483,6 @@ def spike_conv3x3_fwd(
     sums = torch.zeros((2, cout), dtype=torch.float32, device=dev)
     parts = (torch.empty((2, math.ceil(n * h * w / TILE_ROWS), cout), dtype=torch.float32,
                          device=dev) if with_moments else None)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if fp32:  # both routes' weights; the route flag, 0 until the copy sets it
@@ -391,10 +490,10 @@ def spike_conv3x3_fwd(
         else:
             wk, wk_cc, inexact, tally = kernel_weight_cl(weight, x.dtype), None, None, None
         rc = _kernel("spike_conv_fwd")(
-            x.data_ptr(), ptr(xcl), wk.data_ptr(), ptr(wk_cc), bias.data_ptr(),
+            x.data_ptr(), _ptr(xcl), wk.data_ptr(), _ptr(wk_cc), bias.data_ptr(),
             y.data_ptr(),
             *((parts[0].data_ptr(), parts[1].data_ptr()) if with_moments else (None, None)),
-            sums[0].data_ptr(), sums[1].data_ptr(), ptr(inexact), ptr(tally), n, cin, cout,
+            sums[0].data_ptr(), sums[1].data_ptr(), _ptr(inexact), _ptr(tally), n, cin, cout,
             h, w, int(with_moments), DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"spike_conv_fwd launch failed: CUDA error {rc}")
@@ -424,36 +523,40 @@ def spike_conv3x3_bwd(
     _check_cuda(x, weight, y, gy, gs1, gs2, max_rows=x.dtype == torch.bfloat16)
     dev = x.device
     rows = n * h * w
-    if x.dtype == torch.bfloat16:  # channels-last operands, (tap, channel) order
-        cpi = padded_channels(cin)
-        xcl = torch.empty((rows, cpi), dtype=x.dtype, device=dev)
-        w2 = dx_weight_cl(weight, x.dtype) if need_dx else None
-        g = torch.empty((rows, padded_channels(cout)), dtype=x.dtype, device=dev)
-    else:
-        cpi, xcl = cin, None
-        w2 = dx_weight(weight, x.dtype) if need_dx else None
-        g = torch.empty_like(y)
-    splits, per_split = wgrad_splits(rows, cpi, cout, fill=x.dtype == torch.bfloat16)
+    fp32 = x.dtype == torch.float32
+    tc = rows <= MAX_ROWS  # else (fp32 only) the CUDA cores over NCHW operands
+    cpi, cpo = padded_channels(cin), padded_channels(cout)
+    # channels-last scratch: x's bf16 copy and g (fp32: its three planes)
+    xcl = torch.empty((rows, cpi), dtype=torch.bfloat16, device=dev) if tc else None
+    g = (torch.empty((3 if fp32 else 1, rows, cpo), dtype=torch.bfloat16, device=dev)
+         if tc else None)
+    splits, per_split = wgrad_splits(rows, cpi, cout, fill=True) if tc else (0, 0)
+    splits_cc, per_split_cc = wgrad_splits(rows, cin, cout) if fp32 else (0, 0)
     part_db = torch.empty((math.ceil(rows / RED_THREADS), cout), dtype=torch.float32,
                           device=dev)
     db = torch.empty(cout, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x) if need_dx else None
-    part_dw = torch.empty((splits, cout, 9 * cpi), dtype=torch.float32, device=dev)
+    part_dw = torch.empty(max(splits * cout * 9 * cpi, splits_cc * cout * 9 * cin),
+                          dtype=torch.float32, device=dev)
     dwm = torch.empty((cout, 9 * cpi), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
+        if fp32:  # both routes' dx weights; the route flags, cleared (forced beyond MAX_ROWS)
+            w2, w2_cc, flags = fp32_dx_weights(weight, need_dx, not tc, stream)
+            tally = _route_tally(dev)[2:]
+        else:
+            w2, w2_cc, flags, tally = (dx_weight_cl(weight, x.dtype) if need_dx else None,
+                                       None, None, None)
         rc = _kernel("spike_conv_bwd")(
-            x.data_ptr(), None if xcl is None else xcl.data_ptr(),
-            None if w2 is None else w2.data_ptr(), y.data_ptr(),
-            gy.data_ptr(), gs1.data_ptr(), gs2.data_ptr(), g.data_ptr(),
-            part_db.data_ptr(), db.data_ptr(), None if dx is None else dx.data_ptr(),
-            part_dw.data_ptr(), dwm.data_ptr(), n, cin, cout, h, w, splits, per_split,
-            int(with_moments), DTYPES[x.dtype], stream)
+            x.data_ptr(), _ptr(xcl), _ptr(w2), _ptr(w2_cc), y.data_ptr(), gy.data_ptr(),
+            gs1.data_ptr(), gs2.data_ptr(), _ptr(g), part_db.data_ptr(), db.data_ptr(),
+            _ptr(dx), part_dw.data_ptr(), dwm.data_ptr(), _ptr(flags), _ptr(tally), n, cin,
+            cout, h, w, splits, per_split, splits_cc, per_split_cc, int(with_moments),
+            plane_code(i for i, _ in DX_TERMS), DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"spike_conv_bwd launch failed: CUDA error {rc}")
     LAUNCHES_BWD += 1
-    dw = dw_from_cl(dwm, cin) if x.dtype == torch.bfloat16 else dwm.view(cout, cin, 3, 3)
-    return dx, dw, db
+    return dx, dw_from_cl(dwm, cin), db
 
 
 class _SpikeConv(torch.autograd.Function):

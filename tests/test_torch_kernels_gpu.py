@@ -19,7 +19,11 @@ rtol 1e-4, atol 1e-3, dx, dW, db within 1e-4 (bf16 dx 2e-2), and s1, s2,
 dW, db equal from launch to launch; its fp32 forward takes the tensor
 cores for an x exact in bf16 and the CUDA cores for any other (an inf
 included, and from 2^31 rows on), at the same tolerances, and its weight
-split is bitwise its plain version. K2 (the fused denoiser) must agree
+split is bitwise its plain version; its fp32 backward takes the tensor
+cores for dW when x is exact in bf16 and g finite, for dx when g is
+finite, and the CUDA cores otherwise, at the same tolerances (with inf and
+NaN where the plain version has them), equal from launch to launch, and
+its dx weight split is bitwise its plain version. K2 (the fused denoiser) must agree
 bitwise in int8, where every partial sum is an exact integer; in fp32 and bf16 its sums run in another
 order than cuBLAS's, so a membrane one rounding from threshold may flip a
 spike: at least 99 % of the logits lie within 1e-4 and the median
@@ -471,6 +475,9 @@ def test_spike_conv_kernels_match_reference(cuda_device, case, dtype, moments):
     assert (port_spike_conv.LAUNCHES_FWD - before[0],
             port_spike_conv.LAUNCHES_BWD - before[1]) == (2, 3)
     assert port_spike_conv.fp32_route_counts() == ((2, 0) if dtype == "fp32" else (0, 0))
+    # three backward calls, two with dx: all on the tensor cores
+    assert port_spike_conv.fp32_bwd_route_counts() == (
+        (3, 0, 2, 0) if dtype == "fp32" else (0, 0, 0, 0))
     assert y.dtype == dt and float(y_ref.float().std()) > 0.1
     torch.testing.assert_close(y.float(), y_ref.float(), **K4_Y_TOL[dtype])
     if moments:
@@ -533,6 +540,64 @@ def test_spike_conv_fp32_forward_routes(cuda_device, kind, cin, route):
     for got, second, want in ((s1, s1b, s1_ref), (s2, s2b, s2_ref)):
         torch.testing.assert_close(got, second, rtol=0, atol=0, equal_nan=True)
         torch.testing.assert_close(got, want, **K4_MOMENT_TOL, equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,routes", [("spikes", (1, 0, 1, 0)), ("normal", (0, 1, 1, 0)),
+                                         ("g_inf", (0, 1, 0, 1))])
+def test_spike_conv_fp32_backward_routes(cuda_device, kind, routes):
+    """The fp32 backward's routes, by the tally (dW tensor cores, dW CUDA
+    cores, dx tensor cores, dx CUDA cores) of each of two launches: spikes
+    and a finite g take the tensor cores for both; an x off bf16's grid
+    sends dW to the CUDA cores; a g with one inf sends both (the planes of
+    inf hold NaN). dx, dW and db are within 1e-4 of the plain version, with
+    inf and NaN where it has them, and equal from launch to launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(19)
+    n, cin, cout = 40, 64, 128
+    x = _k4_x("normal" if kind == "normal" else "spikes", n, cin, 7, gen, cuda_device)
+    w = torch.randn((cout, cin, 3, 3), generator=gen, device=cuda_device) * 0.2 / cin ** 0.5
+    b = torch.randn((cout,), generator=gen, device=cuda_device) * 0.1
+    gy = torch.randn((n, cout, 7, 7), generator=gen, device=cuda_device)
+    if kind == "g_inf":
+        gy[3, 7, 2, 5] = float("inf")
+    gs1 = torch.randn((cout,), generator=gen, device=cuda_device) * 1e-2
+    gs2 = torch.randn((cout,), generator=gen, device=cuda_device) * 1e-3
+    y = port_spike_conv.spike_conv3x3_fwd_reference(x, w, b)[0]
+    args = (x, w, y, gy, gs1, gs2)
+    g = port_spike_conv.grad_out(y, gy, gs1, gs2, True)
+    assert port_spike_conv.bf16_exact(x) == (kind != "normal")
+    assert port_spike_conv.bf16_planes_finite(g) == (kind != "g_inf")
+    port_spike_conv.reset_fp32_route_counts()
+    got = port_spike_conv.spike_conv3x3_bwd(*args)
+    again = port_spike_conv.spike_conv3x3_bwd(*args)
+    assert port_spike_conv.fp32_bwd_route_counts() == tuple(2 * r for r in routes)
+    assert port_spike_conv.fp32_route_counts() == (0, 0)
+    want = port_spike_conv.spike_conv3x3_bwd_reference(*args)
+    for name, a, a2, a_ref in zip(("dx", "dW", "db"), got, again, want):
+        torch.testing.assert_close(a, a2, rtol=0, atol=0, equal_nan=True, msg=name)
+        torch.testing.assert_close(a, a_ref, **K4_GRAD_TOL, equal_nan=True, msg=name)
+        # the inf reaches every output; finite g, finite outputs
+        assert bool(a_ref.isfinite().all()) == (kind != "g_inf"), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout", [(2, 64), (6, 10), (256, 512), (64, 128)])
+@pytest.mark.parametrize("force", [False, True], ids=["cleared", "forced"])
+def test_spike_conv_fp32_dx_weights_match_plain(cuda_device, cin, cout, force):
+    """The fp32 backward's weight kernel gives the six terms' matrix and
+    the CUDA cores' dx matrix bitwise as their plain versions do, and sets
+    both route flags to the forced value; without dx it writes only the
+    flags."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20)
+    w = torch.randn((cout, cin, 3, 3), generator=gen, device=cuda_device) * 0.2
+    stream = torch.cuda.current_stream().cuda_stream
+    w2, w2_cc, flags = port_spike_conv.fp32_dx_weights(w, True, force, stream)
+    none_w2, none_cc, flags_no_dx = port_spike_conv.fp32_dx_weights(w, False, force, stream)
+    torch.cuda.synchronize()
+    assert torch.equal(w2, port_spike_conv.dx_weight_terms(w))
+    assert torch.equal(w2_cc, port_spike_conv.dx_weight(w, torch.float32))
+    assert none_w2 is None and none_cc is None
+    assert flags.tolist() == flags_no_dx.tolist() == [int(force)] * 2
 
 
 @pytest.mark.gpu

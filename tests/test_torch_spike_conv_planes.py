@@ -3,7 +3,7 @@
 The fp32 forward in ``csrc/spike_conv.cu`` takes the tensor cores when
 every element of x is finite and exact in bf16 (``bf16_exact``): x is
 copied to bf16 channels-last, and the fp32 weight becomes three bf16
-planes whose fp32 sum is the weight (``weight_planes``), stacked smallest
+planes whose fp32 sum is the weight (``bf16_planes``), stacked smallest
 first as one (3 * 9 * Cp_in, Cp_out) matrix (``kernel_weight_planes``)
 against which the im2col rows of x are contracted three times. Here those
 helpers are checked for exactness, and composed with an fp32 im2col
@@ -65,7 +65,7 @@ def test_weight_planes_sum_to_the_weight(kind):
     """W0 + W1 + W2 in fp32 is W bitwise, in either order of summation;
     W0 is bf16(W), and each plane is at most 2^-8 of the one before."""
     w = _weights(kind)
-    w0, w1, w2 = sc.weight_planes(w)
+    w0, w1, w2 = sc.bf16_planes(w)
     assert w0.dtype == w1.dtype == w2.dtype == torch.bfloat16
     assert torch.equal(w0, w.to(torch.bfloat16))
     assert torch.equal((w2.float() + w1.float()) + w0.float(), w)
@@ -79,7 +79,7 @@ def test_weight_planes_below_exact_range_lose_at_most_half_a_subnormal():
     within 2^-134, half bf16's least subnormal."""
     rs = np.random.RandomState(6)
     w = torch.from_numpy((rs.normal(size=20000) * 2.0**-118).astype(np.float32))
-    w0, w1, w2 = sc.weight_planes(w)
+    w0, w1, w2 = sc.bf16_planes(w)
     err = ((w2.float() + w1.float()) + w0.float() - w).abs()
     assert float(err.max()) <= 2.0**-134
 
@@ -123,7 +123,7 @@ def test_kernel_weight_planes_layout(cin, cout):
     m = sc.kernel_weight_planes(w)
     k = 9 * sc.padded_channels(cin)
     assert m.dtype == torch.bfloat16 and m.shape == (3 * k, sc.padded_channels(cout))
-    for block, plane in zip(m.split(k), reversed(sc.weight_planes(w))):
+    for block, plane in zip(m.split(k), reversed(sc.bf16_planes(w))):
         assert torch.equal(block, sc.kernel_weight_cl(plane, torch.bfloat16))
     w2, w1, w0 = (b.float() for b in m.split(k))
     assert torch.equal((w2 + w1) + w0, sc.kernel_weight_cl(w, torch.float32))
