@@ -13,7 +13,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    so that the kernel and plain runs compute the same convolutions.
 1. build: compiles every CUDA source of the port (K1 forward, K1
    backward, K2, K3, K4) with ``nvcc`` (into ``build/``), all at once, and
-   prints the build times and ``-Xptxas -v`` lines; then the ``HMMA``
+   prints the build times and ``-Xptxas -v`` lines; K3's must show no
+   function that spills and its twelve kernels (forward and backward, fp32
+   and bf16, on three routes) at most 128 registers a thread (two blocks
+   of 256 per SM); then the ``HMMA``
    (tensor-core) instructions of each K2 and K4 kernel in the built
    libraries' SASS (``cuobjdump -sass``): K2's conv and readout kernels
    in each weight type, and K4's five (bf16 forward and dx, bf16 dW,
@@ -39,7 +42,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    1e-6 (``expf`` against PyTorch's exp); other neuron settings bitwise.
    K3 forward and backward at the five block shapes (block 0 with T_in =
    1): spikes bitwise in fp32 and bf16, dy bitwise, dscale and dshift
-   within rtol 1e-5 and equal from launch to launch. Median of 20. The
+   within rtol 1e-5 and equal from launch to launch (whether they are
+   bitwise is logged). Median of 20; the share of its byte bound that
+   each of the four per-step times (fwd, bwd; fp32, bf16) reaches is
+   logged. The
    bounds of K1 and K3 are the bytes the call needs (each input read
    once, each output written once) over 3.35 TB/s. K4 (the training
    conv) forward and backward at the six conv shapes of a 'bnlifconv'
@@ -197,6 +203,10 @@ K4_DX_PER_STEP = 5  # block 0's input is the token map: no dx
 K3_PER_STEP = 5
 SIGMOID_TOL = dict(rtol=1e-5, atol=1e-6)  # expf against PyTorch's exp
 K3_SUM_RTOL = 1e-5  # dscale, dshift: per-channel sums of 12,544 x 16 terms
+# forward and backward in fp32 and bf16 on each of three routes (the path's,
+# registers, scratch)
+K3_KERNELS = 12
+K3_MAX_REGISTERS = 128  # two blocks of 256 threads per SM
 TRAIN_BATCHES = (32, 256)  # the CLI's default batch (cli.py:91), the kernels'
 TRAIN_STEPS = 4
 TRAIN_BRANCHES = {"layerwise": ("auto", "torch"), "bnlif": ("bnlif", "bnlif_torch"),
@@ -274,6 +284,46 @@ def sass_hmma(path) -> dict:
         elif name is not None and "HMMA" in line:
             counts[name] += 1
     return counts
+
+
+def ptxas_usage(log: str) -> dict:
+    """{function: (registers, spill store bytes, spill load bytes)} from a
+    build's ``-Xptxas -v`` lines (registers 0 where ptxas gives none, as
+    for a device function)."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+            usage[name] = (0, 0, 0)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if found and name is not None:
+            usage[name] = (usage[name][0], int(found.group(1)), int(found.group(2)))
+            continue
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name is not None:
+            usage[name] = (int(found.group(1)), *usage[name][1:])
+    return usage
+
+
+def check_k3_registers(built) -> dict:
+    """K3's build from its ptxas lines: no function spills, and each of the
+    K3_KERNELS kernels takes at most K3_MAX_REGISTERS a thread (two blocks
+    of 256 threads per SM)."""
+    if not built.log:
+        log("  K3 built before this run: no ptxas lines to check")
+        return {}
+    usage = ptxas_usage(built.log)
+    for name, (regs, stores, loads) in usage.items():
+        log(f"  K3 ptxas: {regs:3d} registers, spills {stores}/{loads} bytes: {name}")
+        check(stores == 0 and loads == 0, f"K3 function {name} spills")
+    kernels = {n: u[0] for n, u in usage.items() if re.search(r"bn_lif_(fwd|bwd)_kernel", n)}
+    check(len(kernels) == K3_KERNELS, f"ptxas reports {len(kernels)} K3 kernels, "
+          f"not {K3_KERNELS}")
+    for name, regs in kernels.items():
+        check(regs <= K3_MAX_REGISTERS, f"K3 kernel {name} takes {regs} registers")
+    return kernels
 
 
 def lif_bound_ms(nbytes: float) -> float:
@@ -583,6 +633,7 @@ def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         rows = []
         err_fwd = err_bwd = 0.0
+        sums_bitwise = True
         itemsize = torch.tensor([], dtype=dtype).element_size()
         for name, t_in, c in k3_path_shapes():
             y = (torch.randn((t_in, BATCH, c, 7, 7), generator=gen, device="cuda") * 2.0).to(dtype)
@@ -605,6 +656,7 @@ def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
             for got, want in ((dsc, dsc_ref), (dsh, dsh_ref)):
                 torch.testing.assert_close(got, want, rtol=K3_SUM_RTOL, atol=0)
                 sum_err = max(sum_err, float((got - want).abs().max()))
+                sums_bitwise = sums_bitwise and torch.equal(got, want)
             err_fwd = max(err_fwd, float((s.float() - s_ref.float()).abs().max()))
             err_bwd = max(err_bwd, float((dy.float() - dy_ref.float()).abs().max()), sum_err)
             m = BATCH * 49 * c
@@ -626,9 +678,18 @@ def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 f"{bwd_bound / bwd_ms:.1%}); spikes and dy bitwise, max|d dscale, dshift| "
                 f"{sum_err:.3g}, rate {rate:.3f}")
         per_step = lambda key: sum(r[key] for r in rows)  # noqa: E731
-        out[dname] = {"rows": rows, "fwd_err": err_fwd, "bwd_err": err_bwd,
-                      **{k: per_step(k) for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
-                                                  "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}}
+        res = {"rows": rows, "fwd_err": err_fwd, "bwd_err": err_bwd,
+               "sums_bitwise": sums_bitwise,
+               **{k: per_step(k) for k in ("fwd_ms", "fwd_plain_ms", "fwd_bound_ms",
+                                           "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}}
+        for key in ("fwd", "bwd"):
+            res[f"{key}_share"] = res[f"{key}_bound_ms"] / res[f"{key}_ms"]
+        log(f"  K3 {dname} per training step: fwd {res['fwd_ms']:.4f} ms, "
+            f"{res['fwd_share']:.1%} of its bound {res['fwd_bound_ms']:.4f}; "
+            f"bwd {res['bwd_ms']:.4f} ms, {res['bwd_share']:.1%} of its bound "
+            f"{res['bwd_bound_ms']:.4f}; dscale, dshift "
+            f"{'bitwise' if sums_bitwise else 'not bitwise'} the plain version's")
+        out[dname] = res
     return out
 
 
@@ -1555,6 +1616,8 @@ def main() -> int:
                     k4_hmma = sass_hmma(built.path)
                 if built.name == fd.SOURCE:
                     k2_hmma = sass_hmma(built.path)
+                if built.name == bnl.SOURCE:
+                    k3_registers = check_k3_registers(built)
             for name, count in k2_hmma.items():
                 log(f"  K2 SASS: {count:3d} HMMA in {name}")
             for kname in ("conv_lif_kernel", "readout_kernel"):
@@ -1645,6 +1708,9 @@ def main() -> int:
             "bound_ms": k3["fp32"][f"{key}_bound_ms"], "bound_by": "bytes",
             "library_ms": None,
             "bf16": {k: k3["bf16"][f"{key}_{k}"] for k in ("ms", "plain_ms", "bound_ms")},
+            "share_of_bound": {d: k3[d][f"{key}_share"] for d in k3},
+            "sums_bitwise": {d: k3[d]["sums_bitwise"] for d in k3},
+            "ptxas_registers": {n: r for n, r in k3_registers.items() if f"_{key}_" in n},
         })
     for key, name, replaces, idx in (("fwd", "K4 spike_conv_fwd", K4_FWD_REPLACES, 5),
                                      ("bwd", "K4 spike_conv_bwd", K4_BWD_REPLACES, 6)):

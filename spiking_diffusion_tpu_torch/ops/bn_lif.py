@@ -35,7 +35,7 @@ from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
 SOURCE = "bn_lif"
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
-THREADS = 256  # elements of one channel per block: the first reduction's width
+THREADS = 256  # a block's elements: whole rows of at most this many, or one longer row
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _FNS = {}
@@ -104,21 +104,27 @@ def bn_lif_fwd_reference(
 
 
 def channel_sums(acc: torch.Tensor) -> torch.Tensor:
-    """(N, C, HW) per-element sums -> (C,), in the kernel's order: per
-    channel, blocks of ``THREADS`` consecutive (n, hw) halved in a tree,
-    then the blocks' partials added in block order."""
+    """(N, C, HW) per-element sums -> (C,), in the kernel's order: one
+    partial per (n, c) row, then the N partials of a channel added in n
+    order. A row of at most ``THREADS`` values is padded with zeros to the
+    next power of two and halved in a tree (a[j] + a[j + half]); for a
+    longer row each of ``THREADS`` threads first sums its values hw = k,
+    k + ``THREADS``, .. in order and the thread sums are halved so."""
     n, c, hw = acc.shape
-    a = acc.permute(1, 0, 2).reshape(c, n * hw)
-    blocks = -(-(n * hw) // THREADS)
-    a = torch.nn.functional.pad(a, (0, blocks * THREADS - n * hw))
-    a = a.reshape(c, blocks, THREADS)
-    half = THREADS // 2
-    while half > 0:
-        a = a[..., :half] + a[..., half:2 * half]
-        half //= 2
+    if hw <= THREADS:
+        a = torch.nn.functional.pad(acc, (0, (1 << (hw - 1).bit_length()) - hw))
+    else:
+        a = torch.zeros((n, c, THREADS), dtype=torch.float32, device=acc.device)
+        for start in range(0, hw, THREADS):
+            chunk = acc[:, :, start:start + THREADS]
+            width = chunk.shape[2]
+            a = torch.cat([a[..., :width] + chunk, a[..., width:]], dim=2)
+    while a.shape[2] > 1:
+        half = a.shape[2] // 2
+        a = a[..., :half] + a[..., half:]
     total = torch.zeros(c, dtype=torch.float32, device=acc.device)
-    for g in range(blocks):
-        total = total + a[:, g, 0]
+    for i in range(n):
+        total = total + a[i, :, 0]
     return total
 
 
@@ -229,9 +235,8 @@ def bn_lif_bwd(
     _check_cuda(y, scale, shift, grad_spikes)
     args = neuron_args(params)
     dev = y.device
-    blocks = -(-(n * hw) // THREADS)
     dy = torch.empty_like(y)
-    parts = torch.empty((2, blocks, c), dtype=torch.float32, device=dev)
+    parts = torch.empty((2, n, c), dtype=torch.float32, device=dev)  # one partial per row
     sums = torch.empty((2, c), dtype=torch.float32, device=dev)
     hs = (torch.empty((t_out, n * c * hw), dtype=torch.float32, device=dev)
           if t_out > register_steps(SOURCE) else None)

@@ -3,10 +3,11 @@
 K1 (LIF forward) must agree bitwise. K1's backward must agree bitwise with
 the atan surrogate; with sigmoid the kernel's ``expf`` and PyTorch's exp
 may differ by an ulp, so dX and dV0 agree within rtol 1e-5, atol 1e-6.
-K3 (fused BN-apply + LIF): spikes and dy bitwise in fp32 and bf16, dscale
-and dshift within rtol 1e-5 of the plain version (their sum order is the
-kernel's, so equal is expected but not required) and equal from launch
-to launch. A small training step through the kernels gives exactly the
+K3 (fused BN-apply + LIF): spikes, dy, dscale and dshift bitwise in fp32
+and bf16 (the sums run in the plain version's order) and equal from
+launch to launch, on the denoiser's route (its neuron, T = 16), on the
+routes of any other neuron or T, and where a divisor of the surrogate
+leaves the range of the path's fast division. A small training step through the kernels gives exactly the
 loss, gradients and BN statistics of the same step through the plain
 versions on the layerwise and 'bnlif' branches; on 'bnlifconv' (K4, whose
 sums run in another order than its plain version's) within the CPU
@@ -174,6 +175,15 @@ K3_CASES = {  # (T_in, t_out, N, C, HW)
     "broadcast_T1_to_16": (1, 16, 8, 64, 49),
     "ragged_N13_C24": (16, 16, 13, 24, 49),
     "T20_scratch": (20, 20, 3, 8, 25),
+    # stage 1's 14x14 and 28x28 layers: rows of more than 256 elements take
+    # a block each, shorter ones floor(256 / HW) a block
+    "stage1_14x14_C16": (16, 16, 4, 16, 196),
+    "stage1_14x14_C32": (16, 16, 4, 32, 196),
+    "stage1_28x28_C16": (16, 16, 2, 16, 784),
+    "stage1_28x28_C32_T1": (1, 16, 2, 32, 784),
+    "T20_scratch_28x28": (20, 20, 1, 3, 784),
+    # 21 rows of 25: the last block of 10 rows holds one
+    "rows_not_multiple_of_R": (16, 16, 3, 7, 25),
 }
 K3_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
@@ -204,7 +214,77 @@ def test_bn_lif_kernels_match_reference(cuda_device, case, dtype):
     assert out[0].dtype == dt and torch.equal(out[0], ref[0])
     for got, second, want in zip(out[1:], again[1:], ref[1:]):
         assert torch.equal(got, second)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        assert torch.equal(got, want)
+
+
+def _k3_inputs(t_in, t_out, n, c, hw, dt, gen, device):
+    y = (torch.randn((t_in, n, c, hw), generator=gen, device=device) * 2.0).to(dt)
+    scale = torch.rand((c,), generator=gen, device=device) + 0.5
+    shift = torch.rand((c,), generator=gen, device=device) * 0.6 - 0.3
+    gs = torch.randn((t_out, n, c, hw), generator=gen, device=device).to(dt)
+    return y, scale, shift, gs
+
+
+def _k3_check(y, scale, shift, gs, params, t_out):
+    """Spikes, dy, dscale and dshift bitwise the plain version's."""
+    s = port_bn_lif.bn_lif_fwd(y, scale, shift, params, t_out)
+    out = port_bn_lif.bn_lif_bwd(y, scale, shift, gs, params, t_out)
+    ref_s = port_bn_lif.bn_lif_fwd_reference(y, scale, shift, params, t_out)
+    ref = port_bn_lif.bn_lif_bwd_reference(y, scale, shift, gs, params, t_out)
+    torch.cuda.synchronize()
+    assert torch.equal(s, ref_s)
+    for got, want in zip(out, ref):
+        assert torch.equal(got, want)
+
+
+# neurons and step counts off the denoiser's route (its neuron at T = 16)
+K3_ROUTES = {
+    "T6": (NeuronParams(), 6),
+    "soft_reset_no_decay_input_detached": (
+        NeuronParams(hard_reset=False, decay_input=False, detach_reset=True), 16),
+    "vreset_neg": (NeuronParams(tau=4.0, v_threshold=0.7, v_reset=-0.2), 16),
+    "sigmoid": (NeuronParams(surrogate=surrogate.sigmoid), 16),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(K3_DTYPES))
+@pytest.mark.parametrize("hw", [49, 784])
+@pytest.mark.parametrize("t_in", ["T", "1"])
+@pytest.mark.parametrize("route", sorted(K3_ROUTES))
+def test_bn_lif_kernels_other_routes(cuda_device, route, t_in, hw, dtype):
+    params, t_out = K3_ROUTES[route]
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    inputs = _k3_inputs(t_out if t_in == "T" else 1, t_out, 3, 6, hw, K3_DTYPES[dtype], gen,
+                        cuda_device)
+    if params.surrogate.name == "sigmoid":
+        # the kernel's expf against PyTorch's exp may differ by an fp32 ulp,
+        # and then dy's bf16 rounding by one bf16 ulp (2^-8)
+        y, scale, shift, gs = inputs
+        assert torch.equal(port_bn_lif.bn_lif_fwd(y, scale, shift, params, t_out),
+                           port_bn_lif.bn_lif_fwd_reference(y, scale, shift, params, t_out))
+        out = port_bn_lif.bn_lif_bwd(y, scale, shift, gs, params, t_out)
+        ref = port_bn_lif.bn_lif_bwd_reference(y, scale, shift, gs, params, t_out)
+        dy_tol = dict(rtol=2**-8, atol=1e-6) if dtype == "bf16" else dict(rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(out[0].float(), ref[0].float(), **dy_tol)
+        for got, want in zip(out[1:], ref[1:]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        return
+    _k3_check(*inputs, params, t_out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", sorted(K3_DTYPES))
+@pytest.mark.parametrize("hw", [49, 784])
+@pytest.mark.parametrize("t_in", [16, 1])
+def test_bn_lif_backward_outside_fast_division(cuda_device, t_in, hw, dtype):
+    """Inputs of 1e12 put the surrogate's divisor past the range of the
+    path's fast division: those elements are redone with the full one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    y, scale, shift, gs = _k3_inputs(t_in, 16, 2, 5, hw, K3_DTYPES[dtype], gen, cuda_device)
+    y.view(-1)[::7] = 1e12
+    y.view(-1)[3::11] = -1e12
+    _k3_check(y, scale, shift, gs, NeuronParams(), 16)
 
 
 # --- a training step through the kernels ------------------------------------
