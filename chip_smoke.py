@@ -67,7 +67,12 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    ``aten.convolution_backward``); the backward also without dx, which
    splits it into its dW + db and dx parts (fp32 on both routes); and by
    kernel (``torch.profiler``) the fp32 forward's and backward's and the
-   bf16 step's device time.
+   bf16 step's device time. K1 forward and backward (fp32) and K3 forward
+   and backward (fp32 and bf16) at the M of stage 1's six LIF layers at
+   batch 256 (the encoder's 14×14 and 7×7 blocks, the re-spike, the
+   decoder's 14×14 and 28×28 blocks; T_in = 1 for the encoder's first
+   block and the re-spike): bitwise, as above, timed beside their byte
+   bounds (plain versions median of 5).
 4. generation: the layerwise sampler, three requests at batch 16 and one
    at batch 256, each twice on the same noise, through K1 and through the
    plain LIF: codes and images identical, codes valid, images finite in
@@ -86,8 +91,30 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    tensor-core route; valid codes and images. The
    share of codes equal to the layerwise fp32 request on the same noise
    is reported, not bounded.
-7. train_stage2: the full-width denoiser (seeded random weights) trains
-   on the 256 code grids that the generation phase sampled, on each
+7. train_stage1: the full-width VQ-VAE (seeded random weights, BN
+   statistics set from one batch) trains on ``synthetic_dataset("MNIST")``
+   images on each branch (layerwise on K1, 'bnlif' on K3), 4 fp32 steps
+   at batch 32 and 4 at 256 and 4 bf16 steps at 256, with the launch
+   counts reset just before: exactly 6 + 6 K1 launches per layerwise step
+   and 6 + 6 K3 per 'bnlif' step, no other kernel; finite losses, convs in
+   the step's dtype, the bf16 first loss within 5 % of fp32's. The first
+   batch-32 step equals the same step through the plain versions on the
+   card and agrees with the CPU (see below). One epoch of
+   ``train_vqvae`` at batch 32 over 512 images, then
+   ``extract_code_indices`` of the trained model over 1,000 images (a
+   remainder batch of 232 included): 3 K1 (or K3) forward launches per
+   batch of 256, codes equal to the plain versions' on the card, the share
+   that agrees with the CPU's logged; ``encode_indices`` images/s at 256.
+   Reports ms per step (CUDA events), the peak device memory, and one more
+   step of each run by kernel (``torch.profiler``) with the share of the
+   step the card was busy. Against the CPU the first step is held at the
+   loss 1e-4 and gradients rtol 2e-3, atol 1e-3 (BN statistics at the CPU
+   tests' tolerance), with at most 1e-4 of its spikes differing from the
+   CPU's: cuDNN and the CPU sum a conv in another order, which flips a
+   spike at threshold (STAGE1_CPU_*).
+8. train_stage2: the full-width denoiser (seeded random weights) trains
+   on the first 256 code grids that stage 1's ``extract_code_indices``
+   made (layerwise branch), on each
    branch (layerwise on K1, 'bnlif' on K3, 'bnlifconv' on K4 and K3) at
    batch 32 and 256, a few AdamW steps each with the launch counts reset
    just before: exactly 5 + 5 K1 launches per layerwise step, 5 + 5 K3
@@ -131,9 +158,11 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.data import data_variance, synthetic_dataset
 from spiking_diffusion_tpu_torch.generate import sample_codes
 from spiking_diffusion_tpu_torch.models import diffusion, weights
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
@@ -146,7 +175,7 @@ from spiking_diffusion_tpu_torch.ops import lif as lif_op
 from spiking_diffusion_tpu_torch.ops import spike_conv as sc
 from spiking_diffusion_tpu_torch.snn import surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
-from spiking_diffusion_tpu_torch.train import stage2
+from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
 
 BUDGET_S = 900  # the whole run, the build included
@@ -232,6 +261,29 @@ STATS_TOL = dict(rtol=1e-5, atol=1e-6)
 # K4's tolerances (check_k4_in_step)
 CONV_LOSS_ATOL = 5e-4
 CONV_STATS_TOL = dict(rtol=1e-5, atol=1e-4)
+# stage 1 (the VQ-VAE): launches per training step (3 encoder blocks, the
+# re-spike, 2 decoder blocks) and per encode_indices batch (the encoder), as
+# STEP_LAUNCHES counts them
+STAGE1_BRANCHES = {"layerwise": ("auto", "torch"), "bnlif": ("bnlif", "bnlif_torch")}
+STAGE1_STEP_LAUNCHES = {"layerwise": (6, 6, 0, 0, 0, 0, 0), "bnlif": (0, 0, 6, 6, 0, 0, 0)}
+STAGE1_ENCODE_LAUNCHES = {"layerwise": (3, 0, 0, 0, 0, 0, 0), "bnlif": (0, 0, 3, 0, 0, 0, 0)}
+STAGE1_IMAGES = 1000  # extract_code_indices over 1000: 3 batches of 256 and one of 232
+STAGE1_EPOCH_IMAGES = 512  # one train_vqvae epoch at batch 32: 16 steps
+STAGE1_PLAIN_REPS = 5  # the plain LIF loops at stage 1's largest M take ~0.1 s a call
+# The first stage-1 step on the card against the CPU. cuDNN and the CPU sum
+# the encoder's second conv in another order, which puts one of the 1.6 M
+# spikes of its LIF layer on the other side of the threshold at batch 32;
+# the flip spreads to 7 of the 0.4 M spikes of the next block, which move
+# the readout and the commitment losses (loss |d| 3.22e-5, gradients up to
+# 4.1e-4, 30 of 50,658 elements beyond atol 2e-4; BN statistics within the
+# CPU tests' tolerance; chip runs, NVIDIA H100 80GB HBM3, 700 W). The kernels are held bitwise against their plain
+# versions on the card (the same step is equal there); against the CPU the
+# loss is held within 1e-4, the gradients at rtol 2e-3, atol 1e-3, the BN
+# statistics at the CPU tests' tolerance, and at most STAGE1_FLIP_SHARE of
+# the step's spikes may differ from the CPU's
+STAGE1_CPU_LOSS_ATOL = 1e-4
+STAGE1_CPU_GRAD_TOL = dict(rtol=2e-3, atol=1e-3)
+STAGE1_FLIP_SHARE = 1e-4
 LOGIT_ATOL = 5e-5  # card vs CPU: fp32 convolutions summed in another order
 IMAGE_ATOL = 1e-5
 
@@ -620,14 +672,17 @@ def phase_k1_bwd(gen: torch.Generator, flush: torch.Tensor) -> dict:
 
 
 def k3_path_shapes():
-    """(name, T_in, C) of the five K3 launches of a 'bnlif' training step."""
-    return [(f"block{i}_C{c}", 1 if i == 0 else T, c)
+    """(name, T_in, C, (H, W)) of the five K3 launches of a 'bnlif' training
+    step."""
+    return [(f"block{i}_C{c}", 1 if i == 0 else T, c, (7, 7))
             for i, c in enumerate(DiffusionConfig().denoiser_channels)]
 
 
-def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
+def phase_k3(gen: torch.Generator, flush: torch.Tensor, shapes=None,
+             plain_reps: int = TIMING_REPS, what: str = "training step") -> dict:
     """K3 forward and backward against their plain versions at the path's
-    shapes, in fp32 and bf16; the fp32 times per training step."""
+    shapes (default: the denoiser's), in fp32 and bf16; the times summed
+    over the shapes, one launch each: per training step."""
     params = NeuronParams()
     out = {}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
@@ -635,11 +690,12 @@ def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
         err_fwd = err_bwd = 0.0
         sums_bitwise = True
         itemsize = torch.tensor([], dtype=dtype).element_size()
-        for name, t_in, c in k3_path_shapes():
-            y = (torch.randn((t_in, BATCH, c, 7, 7), generator=gen, device="cuda") * 2.0).to(dtype)
+        for name, t_in, c, hw in shapes or k3_path_shapes():
+            y = (torch.randn((t_in, BATCH, c, *hw), generator=gen, device="cuda")
+                 * 2.0).to(dtype)
             scale = torch.rand((c,), generator=gen, device="cuda") + 0.5
             shift = torch.rand((c,), generator=gen, device="cuda") * 0.6 - 0.3
-            gs = torch.randn((T, BATCH, c, 7, 7), generator=gen, device="cuda").to(dtype)
+            gs = torch.randn((T, BATCH, c, *hw), generator=gen, device="cuda").to(dtype)
             s = bnl.bn_lif_fwd(y, scale, shift, params, T)
             s_ref = bnl.bn_lif_fwd_reference(y, scale, shift, params, T)
             dy, dsc, dsh = bnl.bn_lif_bwd(y, scale, shift, gs, params, T)
@@ -659,13 +715,13 @@ def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
                 sums_bitwise = sums_bitwise and torch.equal(got, want)
             err_fwd = max(err_fwd, float((s.float() - s_ref.float()).abs().max()))
             err_bwd = max(err_bwd, float((dy.float() - dy_ref.float()).abs().max()), sum_err)
-            m = BATCH * 49 * c
+            m = BATCH * math.prod(hw) * c
             fwd_ms = cuda_ms(lambda: bnl.bn_lif_fwd(y, scale, shift, params, T), flush)
             bwd_ms = cuda_ms(lambda: bnl.bn_lif_bwd(y, scale, shift, gs, params, T), flush)
             fwd_plain = cuda_ms(lambda: bnl.bn_lif_fwd_reference(y, scale, shift, params, T),
-                                flush)
+                                flush, plain_reps)
             bwd_plain = cuda_ms(lambda: bnl.bn_lif_bwd_reference(
-                y, scale, shift, gs, params, T), flush)
+                y, scale, shift, gs, params, T), flush, plain_reps)
             fwd_bound = lif_bound_ms((t_in + T) * m * itemsize)  # y read, s written
             # y and gs read, dy written
             bwd_bound = lif_bound_ms((2 * t_in + T) * m * itemsize)
@@ -684,13 +740,72 @@ def phase_k3(gen: torch.Generator, flush: torch.Tensor) -> dict:
                                            "bwd_ms", "bwd_plain_ms", "bwd_bound_ms")}}
         for key in ("fwd", "bwd"):
             res[f"{key}_share"] = res[f"{key}_bound_ms"] / res[f"{key}_ms"]
-        log(f"  K3 {dname} per training step: fwd {res['fwd_ms']:.4f} ms, "
+        log(f"  K3 {dname} per {what}: fwd {res['fwd_ms']:.4f} ms, "
             f"{res['fwd_share']:.1%} of its bound {res['fwd_bound_ms']:.4f}; "
             f"bwd {res['bwd_ms']:.4f} ms, {res['bwd_share']:.1%} of its bound "
             f"{res['bwd_bound_ms']:.4f}; dscale, dshift "
             f"{'bitwise' if sums_bitwise else 'not bitwise'} the plain version's")
         out[dname] = res
     return out
+
+
+def stage1_lif_shapes():
+    """(name, T_in, C, (H, W)) of the six LIF layers of a stage-1 step at
+    batch 256: three encoder blocks (the first on the image, the same at
+    every step), the re-spike (T_in = 1) and two decoder blocks."""
+    v = VQVAEConfig()
+    (c1, c2), d, (d1, d2) = v.enc_channels, v.embedding_dim, v.dec_channels
+    return [(f"encoder0_C{c1}", 1, c1, (14, 14)), (f"encoder1_C{c2}", T, c2, (7, 7)),
+            (f"encoder2_D{d}", T, d, (7, 7)), (f"respike_D{d}", 1, d, (7, 7)),
+            (f"decoder0_C{d1}", T, d1, (14, 14)), (f"decoder1_C{d2}", T, d2, (28, 28))]
+
+
+def phase_k1_stage1(gen: torch.Generator, flush: torch.Tensor) -> dict:
+    """K1 forward and backward against their plain versions (bitwise) at
+    the M of stage 1's six LIF layers, as the layerwise path calls them (a
+    T_in = 1 layer's input repeated over T first; no v_init, no dV0),
+    timed beside their byte bounds; per training step at batch 256. The
+    kernels are fp32 only: on a bf16 input the forward's wrapper casts x
+    up and the spikes down around the kernel (timed as ``fwd_bf16``, its
+    bound the bf16 x and spikes and the fp32 v_T); the backward is the
+    fp32 one in either dtype."""
+    params = NeuronParams()
+    rows, max_fwd, max_bwd = [], 0.0, 0.0
+    for name, _, c, hw in stage1_lif_shapes():
+        m = BATCH * c * math.prod(hw)
+        x = lif_input(m, gen)
+        gs = torch.randn((T, m), generator=gen, device="cuda")
+        max_fwd = max(max_fwd, compare_lif(x, None, params))
+        max_bwd = max(max_bwd, compare_lif_bwd(x, None, gs, params, False))
+        x16 = x.bfloat16()
+        check(torch.equal(lif_op.lif_fwd(x16)[0], lif_op.lif_fwd_reference(x16)[0]),
+              "K1 bf16 spikes differ from the plain version")
+        row = {"shape": name, "T": T, "M": m,
+               "fwd_bf16_ms": cuda_ms(lambda: lif_op.lif_fwd(x16, None, params), flush),
+               "fwd_bf16_bound_ms": lif_bound_ms((2 * T * 2 + 4) * m),
+               "fwd_ms": cuda_ms(lambda: lif_op.lif_fwd(x, None, params), flush),
+               "fwd_plain_ms": cuda_ms(lambda: lif_op.lif_fwd_reference(x, None, params),
+                                       flush, STAGE1_PLAIN_REPS),
+               "fwd_bound_ms": lif_bound_ms((2 * T + 1) * m * 4),
+               "bwd_ms": cuda_ms(lambda: lif_op.lif_bwd(x, None, gs, params, False), flush),
+               "bwd_plain_ms": cuda_ms(lambda: lif_op.lif_bwd_reference(
+                   x, None, gs, params, False), flush, STAGE1_PLAIN_REPS),
+               "bwd_bound_ms": lif_bound_ms(3 * T * m * 4)}
+        rows.append(row)
+        log(f"  K1 stage-1 {name:15s} T={T} M={m:9d}: fwd {row['fwd_ms']:.4f} ms (plain "
+            f"{row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f}, "
+            f"{row['fwd_bound_ms'] / row['fwd_ms']:.1%}); bwd {row['bwd_ms']:.4f} ms (plain "
+            f"{row['bwd_plain_ms']:.4f}, bound {row['bwd_bound_ms']:.4f}, "
+            f"{row['bwd_bound_ms'] / row['bwd_ms']:.1%}); bf16 fwd {row['fwd_bf16_ms']:.4f} ms "
+            f"(bound {row['fwd_bf16_bound_ms']:.4f}); bitwise equal")
+    res = {"rows": rows, "fwd_err": max_fwd, "bwd_err": max_bwd,
+           **{k: sum(r[k] for r in rows) for k in rows[0] if k.endswith("_ms")}}
+    log(f"  K1 per stage-1 training step: fwd {res['fwd_ms']:.4f} ms, "
+        f"{res['fwd_bound_ms'] / res['fwd_ms']:.1%} of its bound {res['fwd_bound_ms']:.4f}; "
+        f"bwd {res['bwd_ms']:.4f} ms, {res['bwd_bound_ms'] / res['bwd_ms']:.1%} of its bound "
+        f"{res['bwd_bound_ms']:.4f}; bf16 fwd (wrapper) {res['fwd_bf16_ms']:.4f} ms, bound "
+        f"{res['fwd_bf16_bound_ms']:.4f}")
+    return res
 
 
 def k4_path_shapes():
@@ -1088,7 +1203,7 @@ def build_models(dcfg, vcfg):
     gen = torch.Generator().manual_seed(0)
     den = weights.load_denoiser(*weights.init_denoiser_variables(dcfg, gen),
                                 dcfg, device="cuda")
-    vq = weights.load_vqvae(*weights.init_vqvae_decode_variables(vcfg, gen),
+    vq = weights.load_vqvae(*weights.init_vqvae_variables(vcfg, gen),
                             vcfg, device="cuda")
     cal = torch.Generator(device="cuda").manual_seed(1)
     h = dcfg.latent_size
@@ -1323,7 +1438,7 @@ def phase_generation_bnlifconv(models, dcfg, layerwise, card: str) -> dict:
             "requests": requests}
 
 
-# --- phase 6: stage-2 training at full width ----------------------------------
+# --- phase 8: stage-2 training at full width ----------------------------------
 
 
 def launch_counts():
@@ -1357,11 +1472,12 @@ def step_record(state, loss):
 
 
 def compare_steps(what, got, want, exact: bool, loss_atol: float = LOSS_ATOL,
-                  stats_tol: dict = STATS_TOL) -> dict:
+                  stats_tol: dict = STATS_TOL, grad_tol: dict = GRAD_TOL) -> dict:
     """Hold step record ``got`` against ``want``: equal (``exact``: the same
     step through the plain versions of kernels that are bitwise theirs), or
-    the loss within ``loss_atol``, the gradients elementwise at the CPU
-    tests' tolerance and the BN statistics at ``stats_tol``."""
+    the loss within ``loss_atol``, the gradients elementwise at ``grad_tol``
+    (default the CPU tests' tolerance; the log counts the elements outside
+    that) and the BN statistics at ``stats_tol``."""
     def diff(g, w, tol):
         """max |d| over the tensors, the elements outside ``tol``, and the
         least atol that would hold them all at tol's rtol."""
@@ -1390,7 +1506,7 @@ def compare_steps(what, got, want, exact: bool, loss_atol: float = LOSS_ATOL,
         return row
     check(loss_d <= loss_atol, f"loss differs from {what}: {loss_d:.3g} > {loss_atol:g}")
     for n in got[1]:
-        torch.testing.assert_close(got[1][n], want[1][n].to(got[1][n].device), **GRAD_TOL,
+        torch.testing.assert_close(got[1][n], want[1][n].to(got[1][n].device), **grad_tol,
                                    msg=lambda m, n=n: f"{n} gradient vs {what}: {m}")
     for n in got[2]:
         torch.testing.assert_close(got[2][n], want[2][n].to(got[2][n].device), **stats_tol,
@@ -1459,17 +1575,19 @@ def train_batches(dcfg, codes, n):
     return batches, [diffusion.corrupt(x0, dcfg, gen) for x0 in batches]
 
 
-def run_steps(state, step_fn, batches, corruptions):
+def run_steps(state, step_fn, batches, corruptions=None):
     """TRAIN_STEPS steps from reset launch counts: (ms per step, losses,
-    first step's record, launch counts, peak device memory)."""
+    first step's record, launch counts, peak device memory). A stage-2
+    step gets its batch's corruption, a stage-1 step its images alone."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     reset_launch_counts()
-    for i, (x0, corruption) in enumerate(zip(batches, corruptions)):
+    for i, (x0, corruption) in enumerate(zip(batches, corruptions or [None] * len(batches))):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        loss = step_fn(state, x0, corruption=corruption)["loss"]
+        loss = (step_fn(state, x0) if corruption is None
+                else step_fn(state, x0, corruption=corruption))["loss"]
         ev[1].record()
         ev[1].synchronize()
         times.append(ev[0].elapsed_time(ev[1]))
@@ -1588,6 +1706,226 @@ def phase_train(dcfg, codes: torch.Tensor, card: str) -> dict:
     return results
 
 
+# --- phase 7: stage-1 training at full width ----------------------------------
+
+
+def stage1_setup(vcfg):
+    """(raw [0, 1] images of ``synthetic_dataset("MNIST")`` (the CLI's
+    offline fallback), their variance, the state dict of seeded random
+    full-width VQ-VAE weights with BN statistics set from one batch)."""
+    ds = synthetic_dataset("MNIST", n_train=STAGE1_IMAGES, n_test=1, seed=0)
+    vq = weights.load_vqvae(*weights.init_vqvae_variables(vcfg, torch.Generator().manual_seed(4)),
+                            vcfg, device="cuda")
+    batch = torch.from_numpy(ds.train_images[:BATCH]).cuda() - 0.5
+    weights.calibrate_batchnorm(vq, lambda: vq(batch, train=False))
+    return ds.train_images, data_variance(ds.train_images), vq.state_dict()
+
+
+def stage1_model(vcfg, state_dict, backend, device, dtype=None):
+    vq = SNNVQVAE(vcfg, backend, dtype)
+    vq.load_state_dict(state_dict)
+    return vq.to(device)
+
+
+def stage1_batches(images, n):
+    """The TRAIN_STEPS batches of size n on the card, shifted to [-0.5, 0.5]:
+    the same for every branch and dtype."""
+    data = torch.from_numpy(images).cuda()
+    return [data[(torch.arange(n, device="cuda") + i * n) % len(data)] - 0.5
+            for i in range(TRAIN_STEPS)]
+
+
+def conv_dtypes(model, run):
+    """(every dtype that an encoder or decoder conv took in or gave out, run())."""
+    seen = set()
+
+    def hook(module, args, out):
+        seen.update((args[0].dtype, out.dtype))
+
+    handles = [m.register_forward_hook(hook)
+               for m in (*model.encoder.convs, *model.decoder.deconvs)]
+    try:
+        return seen, run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def step_profile(what: str, step_ms: float, step) -> dict:
+    """One more step under ``torch.profiler``: its kernels' device time by
+    kernel (the eight longest logged), and their sum against the timed
+    step's median, the share of the step the card was busy."""
+    profile = kernel_profile(step)
+    busy = sum(v[0] for v in profile.values())
+    top = sorted(profile.items(), key=lambda kv: -kv[1][0])[:8]
+    log(f"  {what} step by kernel: {busy:.2f} ms of device time in "
+        f"{sum(v[1] for v in profile.values())} launches, {busy / step_ms:.1%} of the "
+        f"{step_ms:.2f} ms step; " + ", ".join(f"{k} {v[0]:.2f} ms x{v[1]}" for k, v in top))
+    return {"busy_ms": busy, "busy_share": busy / step_ms, "kernels": profile}
+
+
+def spike_trains(model, run):
+    """(the spikes of the VQ-VAE's six LIF layers during run(), as the
+    layers after them take them in: the encoder's second and third convs,
+    the quantizer, the decoder's three deconvs; run())."""
+    seen = []
+
+    def hook(module, args):
+        seen.append(args[0].detach())
+
+    mods = (*model.encoder.convs[1:], model.vq_layer, *model.decoder.deconvs)
+    handles = [m.register_forward_pre_hook(hook) for m in mods]
+    try:
+        return seen, run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def stage1_codes(vcfg, model, branch, images, card: str) -> tuple:
+    """``extract_code_indices`` over the images at batch 256 on the card
+    (exact launch counts), the same through the plain versions on the card
+    (equal codes, no launch) and on the CPU (the share that agrees is
+    logged); ``encode_indices`` images/s at 256 (CUDA events, median of
+    5). Returns (codes, row)."""
+    backend, plain = STAGE1_BRANCHES[branch]
+    sd = model.state_dict()
+    reset_launch_counts()
+    codes = stage1.extract_code_indices(model, images, batch_size=BATCH)
+    counts = launch_counts()
+    batches = -(-len(images) // BATCH)
+    want = tuple(k * batches for k in STAGE1_ENCODE_LAUNCHES[branch])
+    check(counts == want, f"extract_code_indices launches {counts}, expected {want}")
+    check(codes.shape == (len(images), 7, 7) and codes.dtype.name == "int32", "code shape")
+    check(0 <= int(codes.min()) and int(codes.max()) < vcfg.num_embeddings, "codes outside [0, K)")
+    codes_plain = stage1.extract_code_indices(stage1_model(vcfg, sd, plain, "cuda"), images,
+                                              batch_size=BATCH)
+    check(launch_counts() == counts, "the plain extract_code_indices launched a kernel")
+    check(bool((codes == codes_plain).all()), "codes differ from the plain versions' on the card")
+    codes_cpu = stage1.extract_code_indices(stage1_model(vcfg, sd, backend, "cpu"), images,
+                                            batch_size=BATCH, device="cpu")
+    agree = float((codes == codes_cpu).mean())
+    batch = torch.from_numpy(images[:BATCH]).cuda() - 0.5
+    times = []
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        model.encode_indices(batch)
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    ms = statistics.median(times[1:])
+    log(f"  extract_code_indices over {len(images)} images: launches {format_counts(counts)}, "
+        f"{len(np.unique(codes))} distinct codes, equal to the plain versions' on the card, "
+        f"{agree:.4f} of codes agree with the CPU's; encode_indices at batch {BATCH}: "
+        f"{ms:.3f} ms, {BATCH / ms * 1e3:.0f} images/s [{card}]")
+    return codes, {"launches": counts, "agree_with_cpu": agree, "encode_ms": ms,
+                   "encode_images_per_s": BATCH / ms * 1e3}
+
+
+def phase_train_stage1(vcfg, card: str) -> dict:
+    """Stage-1 training of the full-width VQ-VAE on each branch at each
+    batch in fp32, in bf16 at batch 256, one epoch of ``train_vqvae`` per
+    branch and ``extract_code_indices`` of the trained model:
+    {branch: {batch: ..., "bf16": ..., "loop": ..., "codes": ...}}."""
+    images, var, sd = stage1_setup(vcfg)
+    step_fn = stage1.make_train_step_vqvae(var)
+    results = {}
+    for branch, (backend, plain) in STAGE1_BRANCHES.items():
+        results[branch] = {}
+        want = tuple(k * TRAIN_STEPS for k in STAGE1_STEP_LAUNCHES[branch])
+        for dtype in (None, torch.bfloat16):
+            for n in TRAIN_BATCHES if dtype is None else TRAIN_BATCHES[-1:]:
+                state = create_train_state(stage1_model(vcfg, sd, backend, "cuda", dtype))
+                batches = stage1_batches(images, n)
+                dtypes, (times, losses, first, counts, peak) = conv_dtypes(
+                    state.model, lambda: run_steps(state, step_fn, batches))
+                dname = "fp32" if dtype is None else "bf16"
+                log(f"  {branch} {dname} batch {n}: launches {format_counts(counts)} in "
+                    f"{TRAIN_STEPS} steps; ms per step {', '.join(f'{t:.2f}' for t in times)} "
+                    f"(median after the first {statistics.median(times[1:]):.2f}); losses "
+                    f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory "
+                    f"{peak / 2**30:.2f} GiB [{card}]")
+                check(counts == want, f"{branch} {dname}: launches {counts}, expected {want}")
+                check(all(math.isfinite(v) for v in losses), f"{branch} {dname}: loss not finite")
+                check(dtypes == {dtype or torch.float32}, f"{branch} {dname}: convs in {dtypes}")
+                row = {"launches": counts, "ms": times, "ms_median": statistics.median(times[1:]),
+                       "losses": losses, "peak_bytes": peak}
+                row["profile"] = step_profile(f"{branch} {dname} batch {n}", row["ms_median"],
+                                              lambda: step_fn(state, batches[0]))
+                if dtype is not None:
+                    fp32_first = results[branch][n]["losses"][0]
+                    row["rel_to_fp32"] = abs(losses[0] - fp32_first) / abs(fp32_first)
+                    log(f"  {branch} bf16 first loss {row['rel_to_fp32']:.3%} from fp32's "
+                        f"{fp32_first:.4f}")
+                    check(row["rel_to_fp32"] <= BF16_LOSS_RTOL, f"{branch} bf16 first loss")
+                    results[branch]["bf16"] = row
+                    continue
+                if n == TRAIN_BATCHES[0]:
+                    before = launch_counts()
+                    plain_state = create_train_state(stage1_model(vcfg, sd, plain, "cuda"))
+                    spikes_card, loss_p = spike_trains(
+                        plain_state.model, lambda: step_fn(plain_state, batches[0])["loss"])
+                    plain_rec = step_record(plain_state, loss_p)
+                    check(launch_counts() == before, "the plain step launched a kernel")
+                    cpu_state = create_train_state(stage1_model(vcfg, sd, backend, "cpu"))
+                    spikes_cpu, loss_c = spike_trains(
+                        cpu_state.model, lambda: step_fn(cpu_state, batches[0].cpu())["loss"])
+                    row["vs_plain"] = compare_steps("the plain versions on the card", first,
+                                                    plain_rec, True)
+                    flips = [int((a.cpu() != b).sum()) for a, b in zip(spikes_card, spikes_cpu)]
+                    total = sum(a.numel() for a in spikes_cpu)
+                    log(f"  spikes of the six LIF layers that differ between the card and the "
+                        f"CPU: {', '.join(map(str, flips))} of {total}")
+                    check(sum(flips) <= STAGE1_FLIP_SHARE * total, "spikes differ from the CPU's")
+                    row["vs_cpu"] = compare_steps(
+                        "the CPU", first, step_record(cpu_state, loss_c), False,
+                        STAGE1_CPU_LOSS_ATOL, STATS_TOL, STAGE1_CPU_GRAD_TOL)
+                    row["vs_cpu"]["spikes_differing"] = flips
+                results[branch][n] = row
+        # the loop a user calls, then the codes it hands to stage 2
+        logged = []
+        model = stage1_model(vcfg, sd, backend, "cuda")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = stage1.train_vqvae(model, images[:STAGE1_EPOCH_IMAGES], var, epochs=1,
+                                   batch_size=TRAIN_BATCHES[0], seed=0, log_every=1,
+                                   log_fn=logged.append)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        losses = [float(line.split("loss ")[1].split()[0]) for line in logged if "loss " in line]
+        log(f"  {branch} train_vqvae: {state.step} steps at batch {TRAIN_BATCHES[0]} in "
+            f"{seconds:.2f} s (host clock), launches {format_counts(counts)}; losses "
+            f"{', '.join(f'{v:.3f}' for v in losses)}")
+        check(state.step == STAGE1_EPOCH_IMAGES // TRAIN_BATCHES[0], "train_vqvae step count")
+        check(counts == tuple(k * state.step for k in STAGE1_STEP_LAUNCHES[branch]),
+              f"{branch} train_vqvae launches {counts}")
+        check(len(losses) == state.step and all(math.isfinite(v) for v in losses),
+              f"{branch} train_vqvae losses {losses}")
+        results[branch]["loop"] = {"launches": counts, "seconds": seconds, "losses": losses}
+        codes, results[branch]["codes"] = stage1_codes(vcfg, state.model, branch, images, card)
+        results[branch]["codes_array"] = codes
+    return results
+
+
+def stage_launches(rows: dict, idx: int) -> int:
+    """A kernel's launches (index ``idx`` of ``launch_counts()``) summed over
+    a training phase's runs of one branch."""
+    return sum(r["launches"][idx] for r in rows.values())
+
+
+def stage1_times(res: dict, key: str) -> dict:
+    """A kernel's stage-1 times per training step (K1's forward also on a
+    bf16 input) and its rows by shape."""
+    return {"ms": res[f"{key}_ms"], "plain_ms": res[f"{key}_plain_ms"],
+            "bound_ms": res[f"{key}_bound_ms"],
+            **({"bf16": {"ms": res["fwd_bf16_ms"], "bound_ms": res["fwd_bf16_bound_ms"]}}
+               if f"{key}_bf16_ms" in res else {}),
+            "shapes": [{k: v for k, v in r.items() if not k.startswith(
+                "bwd" if key == "fwd" else "fwd")} for r in res["rows"]]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -1646,6 +1984,9 @@ def main() -> int:
             k2 = phase_k2(models[0], dcfg, gen, flush, smi)
             k3 = phase_k3(gen, flush)
             k4 = phase_k4(gen, flush, smi)
+            k1_s1 = phase_k1_stage1(gen, flush)
+            k3_s1 = phase_k3(gen, flush, stage1_lif_shapes(), STAGE1_PLAIN_REPS,
+                             "stage-1 training step")
             del flush
         with Phase("generation"):
             launches, layerwise = phase_generation(models, dcfg, smi)
@@ -1653,10 +1994,16 @@ def main() -> int:
             fused_launches = phase_generation_fused(models, dcfg, layerwise, smi)
         with Phase("generation_bnlifconv"):
             conv_gen = phase_generation_bnlifconv(models, dcfg, layerwise, smi)
-        with Phase("train_stage2"):
+        with Phase("train_stage1"):
             del models
             torch.cuda.empty_cache()
-            train = phase_train(dcfg, layerwise[3][0], smi)
+            train1 = phase_train_stage1(vcfg, smi)
+        with Phase("train_stage2"):
+            torch.cuda.empty_cache()
+            # stage 2 trains on the codes that stage 1's extract_code_indices made
+            codes = torch.from_numpy(train1["layerwise"].pop("codes_array")[:BATCH]).cuda()
+            train1["bnlif"].pop("codes_array")
+            train = phase_train(dcfg, codes, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -1667,25 +2014,30 @@ def main() -> int:
         "name": "K1 lif_fwd", "route": "cuda",
         "source": "spiking_diffusion_tpu_torch/csrc/lif_fwd.cu",
         "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": k1["max_abs_err"],
+        "max_abs_err": max(k1["max_abs_err"], k1_s1["fwd_err"]),
         # times of the 248 launches of one generated batch of 256
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         # K1 launches on the fused path (3 per generated batch, the decode)
         "launches_fused_path": {k: v[1] for k, v in fused_launches.items()},
-        # on the layerwise training path: 5 per step
-        "launches_train_stage2": sum(r["launches"][0]
-                                     for r in train["layerwise"].values()),
+        # on the layerwise training paths: 5 per stage-2 step, 6 per stage-1
+        # step and 3 per encode_indices batch
+        "launches_train_stage2": stage_launches(train["layerwise"], 0),
+        "launches_train_stage1": stage_launches(train1["layerwise"], 0),
         "shapes": k1["rows"],
+        # times of the 6 launches of one layerwise stage-1 step at batch 256
+        "stage1": stage1_times(k1_s1, "fwd"),
     }, {
         "name": "K1 lif_bwd", "route": "cuda",
         "source": "spiking_diffusion_tpu_torch/csrc/lif_bwd.cu",
         "replaces": K1_BWD_REPLACES,
-        "launches": sum(r["launches"][1] for r in train["layerwise"].values()),
-        "max_abs_err": k1_bwd["max_abs_err"],
+        "launches": stage_launches(train["layerwise"], 1),
+        "launches_train_stage1": stage_launches(train1["layerwise"], 1),
+        "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shapes": k1_bwd["rows"],
+        "stage1": stage1_times(k1_s1, "bwd"),
     }]
     for name, row in k2.items():
         kernels.append({
@@ -1701,8 +2053,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "spiking_diffusion_tpu_torch/csrc/bn_lif.cu",
             "replaces": replaces,
-            "launches": sum(r["launches"][idx] for r in train["bnlif"].values()),
-            "max_abs_err": k3["fp32"][f"{key}_err"],
+            "launches": stage_launches(train["bnlif"], idx),
+            "launches_train_stage1": stage_launches(train1["bnlif"], idx),
+            "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
             "ms": k3["fp32"][f"{key}_ms"], "plain_ms": k3["fp32"][f"{key}_plain_ms"],
             "bound_ms": k3["fp32"][f"{key}_bound_ms"], "bound_by": "bytes",
@@ -1711,6 +2064,8 @@ def main() -> int:
             "share_of_bound": {d: k3[d][f"{key}_share"] for d in k3},
             "sums_bitwise": {d: k3[d]["sums_bitwise"] for d in k3},
             "ptxas_registers": {n: r for n, r in k3_registers.items() if f"_{key}_" in n},
+            # times of the 6 launches of one 'bnlif' stage-1 step at batch 256
+            "stage1": {d: stage1_times(k3_s1[d], key) for d in k3_s1},
         })
     for key, name, replaces, idx in (("fwd", "K4 spike_conv_fwd", K4_FWD_REPLACES, 5),
                                      ("bwd", "K4 spike_conv_bwd", K4_BWD_REPLACES, 6)):

@@ -14,4 +14,9 @@ forward and backward (``csrc/bn_lif.cu``, ``ops/bn_lif.py``); the
 that hands BN its batch moments, forward and backward
 (``csrc/spike_conv.cu``, ``ops/spike_conv.py``), in training and in eval.
 Every branch runs in fp32 or bf16.
+
+Stage-1 training of the spiking VQ-VAE (``train/stage1.py``): the
+encoder, quantizer and decoder train with every LIF layer on K1 forward
+and backward, or every BN-apply + LIF on K3 ('bnlif'), in fp32 or bf16;
+``extract_code_indices`` makes the code grids that stage 2 trains on.
 """

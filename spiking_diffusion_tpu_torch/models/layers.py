@@ -72,21 +72,30 @@ class SeqConvTranspose(nn.Module):
     """ConvTranspose2d over a time-folded sequence; weight (Cin, Cout, kH, kW).
 
     Output size (H - 1) * stride - 2 * padding + kernel + output_padding.
+    With ``dtype`` the input, weight and bias are cast to it and the bias
+    is added to the rounded output, as flax's ``nn.ConvTranspose(dtype=)``
+    does.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0, output_padding: int = 0):
+                 stride: int = 1, padding: int = 0, output_padding: int = 0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = stride
         self.padding = padding
         self.output_padding = output_padding
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.zeros(in_ch, out_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                  self.padding, self.output_padding)
+        if self.dtype is None:
+            return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                      self.padding, self.output_padding)
+        y = F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype), None,
+                               self.stride, self.padding, self.output_padding)
+        return y + self.bias.to(self.dtype).reshape(1, -1, 1, 1)
 
 
 class SeqBatchNorm(nn.Module):

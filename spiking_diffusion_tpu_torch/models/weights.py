@@ -8,7 +8,7 @@ from ``train/checkpoint.py`` ``load_variables``). The layout rules:
   spatially flipped: flax's explicit-padding ``conv_transpose`` does not
   mirror the kernel, torch's transposed convolution does.
 * BatchNorm: ``scale``/``bias``/``mean``/``var`` as they are.
-* Codebook: (K, D) as it is.
+* Codebook: (K, D) as it is; the readout blend ``alpha`` a 0-d scalar.
 
 ``init_*_variables`` make seeded random trees in the flax layout with
 the JAX package's initialisers (``utils/init.py``: torch-default kaiming
@@ -74,14 +74,21 @@ def denoiser_state_dict(params: Tree, batch_stats: Tree,
     return sd
 
 
-def vqvae_decode_state_dict(params: Tree,
-                            batch_stats: Tree) -> Dict[str, np.ndarray]:
-    """flax ``SNNVQVAE`` variables -> the port's decode-half state dict.
-
-    The encoder's variables are not read."""
+def vqvae_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
+    """flax ``SNNVQVAE`` variables -> the port's state dict: the encoder,
+    the quantizer (codebook, readout blend ``alpha``, re-spike) and the
+    decoder."""
+    enc, enc_stats = params["encoder"], batch_stats["encoder"]
     vq, vq_stats = params["vq_layer"], batch_stats["vq_layer"]
     dec, dec_stats = params["decoder"], batch_stats["decoder"]
-    sd = {"vq_layer.embeddings": np.asarray(vq["embeddings"], np.float32)}
+    sd = {}
+    for i in range(3):
+        sd.update(_conv(f"encoder.convs.{i}", enc[f"SeqConv_{i}"]["Conv_0"]))
+        bn = f"SeqBatchNorm_{i}"
+        sd.update(_bn(f"encoder.bns.{i}", enc[bn]["BatchNorm_0"],
+                      enc_stats[bn]["BatchNorm_0"]))
+    sd["vq_layer.embeddings"] = np.asarray(vq["embeddings"], np.float32)
+    sd["vq_layer.alpha"] = np.asarray(vq["alpha"], np.float32).reshape(())
     sd.update(_conv("vq_layer.poisson_conv", vq["poisson_conv"]["Conv_0"]))
     sd.update(_bn("vq_layer.poisson_bn", vq["poisson_bn"]["BatchNorm_0"],
                   vq_stats["poisson_bn"]["BatchNorm_0"]))
@@ -118,10 +125,15 @@ def load_denoiser(params: Tree, batch_stats: Tree,
 
 def load_vqvae(params: Tree, batch_stats: Tree,
                cfg: VQVAEConfig = VQVAEConfig(), device="cuda",
-               lif_backend: str = "auto") -> SNNVQVAE:
-    """The port's VQ-VAE decode half, in eval mode on ``device``."""
-    return _load(SNNVQVAE(cfg, lif_backend),
-                 vqvae_decode_state_dict(params, batch_stats), device)
+               lif_backend: str = "auto", train: bool = False,
+               dtype: Optional[torch.dtype] = None) -> SNNVQVAE:
+    """The port's whole VQ-VAE on ``device`` from flax variables, in eval
+    mode or, with ``train``, in training mode. ``lif_backend`` picks the
+    branch (``SNNVQVAE``): layerwise 'auto' or fused 'bnlif'; ``dtype``
+    None or ``torch.bfloat16`` the encoder's and decoder's compute type.
+    The parameters stay fp32 and convert alike on every branch."""
+    return _load(SNNVQVAE(cfg, lif_backend, dtype),
+                 vqvae_state_dict(params, batch_stats), device, train)
 
 
 @torch.no_grad()
@@ -181,13 +193,14 @@ def init_denoiser_variables(cfg: DiffusionConfig,
     return params, stats
 
 
-def init_vqvae_decode_variables(cfg: VQVAEConfig,
-                                generator: torch.Generator) -> Tuple[Dict, Dict]:
-    """Random flax-layout variables of the ``SNNVQVAE`` decode half."""
+def init_vqvae_variables(cfg: VQVAEConfig,
+                         generator: torch.Generator) -> Tuple[Dict, Dict]:
+    """Random flax-layout (params, batch_stats) of a whole ``SNNVQVAE``:
+    the decode half's draws first, then the encoder's."""
     d = cfg.embedding_dim
     emb = torch.randn((cfg.num_embeddings, d), generator=generator).numpy()
     pbn, pbn_stats = _bn_vars(d)
-    vq = {"embeddings": emb,
+    vq = {"embeddings": emb, "alpha": np.asarray(0.5, np.float32),
           "poisson_conv": {"Conv_0": _conv_vars(generator, 1, d, d, d)},
           "poisson_bn": pbn}
     dec, dec_stats = {}, {}
@@ -198,5 +211,12 @@ def init_vqvae_decode_variables(cfg: VQVAEConfig,
             "ConvTranspose_0": _conv_vars(generator, 3, cin, cout, 9 * cout)}
         if j < 2:
             dec[f"SeqBatchNorm_{j}"], dec_stats[f"SeqBatchNorm_{j}"] = _bn_vars(cout)
-    return ({"vq_layer": vq, "decoder": dec},
-            {"vq_layer": {"poisson_bn": pbn_stats}, "decoder": dec_stats})
+    enc, enc_stats = {}, {}
+    chans = (cfg.in_channels,) + tuple(cfg.enc_channels) + (d,)
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        k = 1 if i == 2 else 3
+        enc[f"SeqConv_{i}"] = {"Conv_0": _conv_vars(generator, k, cin, cout, k * k * cin)}
+        enc[f"SeqBatchNorm_{i}"], enc_stats[f"SeqBatchNorm_{i}"] = _bn_vars(cout)
+    return ({"vq_layer": vq, "decoder": dec, "encoder": enc},
+            {"vq_layer": {"poisson_bn": pbn_stats}, "decoder": dec_stats,
+             "encoder": enc_stats})

@@ -1,12 +1,28 @@
-"""Membrane readout over the leading T axis.
+"""Temporal primitives over the leading T axis: PSP filter and membrane
+readout.
 
-``membrane_output`` is the leaky readout out = sum_t decay^(T-1-t) * x[t]
-(reference ``snn_model/snn_layers.py:28-41``).
+``psp`` is the first-order synaptic low-pass, syn[t] = syn[t-1] + (x[t] -
+syn[t-1]) / tau_s from syn = 0, returned for every t (reference
+``snn_model/snn_layers.py:6-26``); ``membrane_output`` is the leaky readout
+out = sum_t decay^(T-1-t) * x[t] (``snn_layers.py:28-41``). The JAX
+package's ``seq_apply`` has no counterpart: the port keeps T folded into
+the batch.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def psp(x_seq: torch.Tensor, tau_s: float = 2.0) -> torch.Tensor:
+    """PSP filter of a (T, ...) tensor: the (T, ...) filtered sequence,
+    in the JAX scan's operation order."""
+    syn = torch.zeros(x_seq.shape[1:], dtype=x_seq.dtype, device=x_seq.device)
+    out = []
+    for t in range(x_seq.shape[0]):
+        syn = syn + (x_seq[t] - syn) / tau_s
+        out.append(syn)
+    return torch.stack(out)
 
 
 def membrane_output_coef(

@@ -1,1 +1,2 @@
-"""Training of the port: train state, the stage-2 step and loop, checkpoints."""
+"""Training of the port: train state, the stage-1 (VQ-VAE) and stage-2
+(diffusion prior) steps and loops, checkpoints."""

@@ -64,7 +64,7 @@ def test_generation_matches_jax_pipeline():
     jdcfg, jvcfg = JaxDiffusionConfig(**DIFF), JaxVQVAEConfig(**VQ)
     gen, rng = torch.Generator().manual_seed(5), np.random.RandomState(6)
     dparams, dstats = weights.init_denoiser_variables(dcfg, gen)
-    vparams, vstats = weights.init_vqvae_decode_variables(vcfg, gen)
+    vparams, vstats = weights.init_vqvae_variables(vcfg, gen)
     _amplify_bn(dstats, rng)
     _amplify_bn(vstats, rng)
     n = 4
@@ -103,7 +103,7 @@ def test_generator_path_is_seeded_and_valid():
     gen = torch.Generator().manual_seed(8)
     den = weights.load_denoiser(*weights.init_denoiser_variables(dcfg, gen),
                                 dcfg, device="cpu")
-    vq = weights.load_vqvae(*weights.init_vqvae_decode_variables(vcfg, gen),
+    vq = weights.load_vqvae(*weights.init_vqvae_variables(vcfg, gen),
                             vcfg, device="cpu")
     runs = [generate.generate(den, vq, dcfg, 3, temperature=0.8, device="cpu",
                               generator=torch.Generator().manual_seed(9))

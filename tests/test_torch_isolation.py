@@ -4,8 +4,9 @@
   ``chip_smoke.py`` loads neither ``jax`` nor any module of the JAX
   package ``spiking_diffusion_tpu``.
 * The entry points' device defaults to ``"cuda"`` (the sampler's, the
-  fused sampler's and the stage-2 trainer's too): with no card they
-  raise instead of running on the CPU.
+  fused sampler's, the stage-1 and stage-2 trainers' and
+  ``extract_code_indices``'s too): with no card they raise instead of
+  running on the CPU.
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -15,13 +16,14 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from spiking_diffusion_tpu_torch import generate
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.models import diffusion, weights
-from spiking_diffusion_tpu_torch.train import stage2
+from spiking_diffusion_tpu_torch.train import stage1, stage2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -65,7 +67,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     vcfg = VQVAEConfig(dec_channels=(4, 4), num_steps=2)
     gen = torch.Generator().manual_seed(0)
     dvars = weights.init_denoiser_variables(dcfg, gen)
-    vvars = weights.init_vqvae_decode_variables(vcfg, gen)
+    vvars = weights.init_vqvae_variables(vcfg, gen)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         weights.load_denoiser(*dvars, dcfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -87,6 +89,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
     codes = torch.zeros((4, 7, 7), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage2.train_diffusion(den, dcfg, codes, batch_size=2, log_fn=None)
+    for backend in ("auto", "bnlif"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            weights.load_vqvae(*vvars, vcfg, lif_backend=backend, train=True)
+    images = np.zeros((4, 28, 28, 1), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage1.train_vqvae(vq, images, 0.1, batch_size=2, log_fn=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage1.extract_code_indices(vq, images)
 
 
 def test_chip_smoke_fails_without_card():

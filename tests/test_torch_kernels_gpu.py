@@ -13,7 +13,9 @@ versions on the layerwise and 'bnlif' branches; on 'bnlifconv' (K4, whose
 sums run in another order than its plain version's) within the CPU
 tests' tolerances; a bf16 step on each branch launches what the fp32 step
 does, runs its convs and spikes in bf16, and its loss is within 5 % of the
-fp32 loss. K4 (the training conv)
+fp32 loss. A full-width stage-1 (VQ-VAE) step through K1 or K3, in fp32
+and bf16, equals the plain versions' step with exactly six forward and
+six backward launches, and K1 is bitwise at stage 1's six LIF shapes. K4 (the training conv)
 agrees with its plain version at the JAX package's tolerances for its
 kernel against XLA's conv: y within 1e-5 (bf16 2e-2), s1 and s2 within
 rtol 1e-4, atol 1e-3, dx, dW, db within 1e-4 (bf16 dx 2e-2), and s1, s2,
@@ -46,7 +48,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from spiking_diffusion_tpu_torch.config import DiffusionConfig
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.models import diffusion, weights
 from spiking_diffusion_tpu_torch.models.layers import SeqConv
 from spiking_diffusion_tpu_torch.ops import _build
@@ -56,7 +58,7 @@ from spiking_diffusion_tpu_torch.ops import lif as port_lif
 from spiking_diffusion_tpu_torch.ops import spike_conv as port_spike_conv
 from spiking_diffusion_tpu_torch.snn import surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
-from spiking_diffusion_tpu_torch.train import stage2
+from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
 
 PARAMS = {
@@ -166,6 +168,32 @@ def test_lif_autograd_launches_both_kernels(cuda_device):
     with pytest.raises(ValueError, match="surrogate"):
         port_lif.lif_bwd(x.reshape(16, -1), None, g.reshape(16, -1),
                          NeuronParams(surrogate=surrogate.SurrogateFn("erf", 2.0)))
+
+
+# stage 1's six LIF layers at batch 256, T = 16: (name, M = N * C * H * W)
+STAGE1_LIF_SHAPES = {
+    "encoder0_C32_14x14": 256 * 32 * 196, "encoder1_C64_7x7": 256 * 64 * 49,
+    "encoder2_D16_7x7": 256 * 16 * 49, "respike_D16_7x7": 256 * 16 * 49,
+    "decoder0_C64_14x14": 256 * 64 * 196, "decoder1_C32_28x28": 256 * 32 * 784,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(STAGE1_LIF_SHAPES))
+def test_lif_kernels_at_stage1_shapes(cuda_device, shape):
+    """K1 forward and backward bitwise their plain versions at the M of each
+    stage-1 LIF layer, as the training path calls them (no v_init, no dV0)."""
+    m = STAGE1_LIF_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    x = torch.rand((16, m), generator=gen, device=cuda_device) * 4.0 - 1.0
+    gs = torch.randn((16, m), generator=gen, device=cuda_device)
+    s, v = port_lif.lif_fwd(x)
+    s_ref, v_ref = port_lif.lif_fwd_reference(x)
+    dx, _ = port_lif.lif_bwd(x, None, gs, NeuronParams(), False)
+    dx_ref, _ = port_lif.lif_bwd_reference(x, None, gs, NeuronParams(), False)
+    torch.cuda.synchronize()
+    assert 0.05 < float(s_ref.mean()) < 0.95
+    assert torch.equal(s, s_ref) and torch.equal(v, v_ref) and torch.equal(dx, dx_ref)
 
 
 # --- K3 ----------------------------------------------------------------------
@@ -386,6 +414,58 @@ def test_train_step_bf16(cuda_device, backend):
     assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
                for g in grads.values())
     assert abs(loss16 - loss32) <= 0.05 * abs(loss32), (loss16, loss32)
+
+
+# --- a stage-1 training step through the kernels ----------------------------
+
+# launches per stage-1 step: K1 fwd, K1 bwd, K3 fwd, K3 bwd, K4 fwd, K4 bwd
+# (3 encoder blocks, the re-spike, 2 decoder blocks)
+STAGE1_LAUNCHES = {"auto": (6, 6, 0, 0, 0, 0), "bnlif": (0, 0, 6, 6, 0, 0)}
+STAGE1_ENCODE_LAUNCHES = {"auto": (3, 0, 0, 0, 0, 0), "bnlif": (0, 0, 3, 0, 0, 0)}
+
+
+def _stage1_step(variables, backend, images, device, dtype):
+    """(metrics, gradients, BN statistics, launches) of one stage-1 step of
+    the flagship VQ-VAE."""
+    state = create_train_state(weights.load_vqvae(
+        *variables, VQVAEConfig(), device=device, lif_backend=backend, train=True,
+        dtype=dtype))
+    before = _counts()
+    metrics = stage1.make_train_step_vqvae(0.05)(state, images)
+    launched = tuple(now - then for now, then in zip(_counts(), before))
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad for n, p in state.model.named_parameters()},
+            {k: v for k, v in state.model.state_dict().items()
+             if k.endswith((".mean", ".var"))}, launched, state.model)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("backend,plain", [("auto", "torch"), ("bnlif", "bnlif_torch")])
+def test_stage1_train_step_kernels_match_plain(cuda_device, deterministic_cudnn, backend,
+                                               plain, dtype):
+    """A full-width stage-1 step (batch 8) through K1 or K3 equals the same
+    step through their plain versions, the kernels being bitwise theirs;
+    exactly six forward and six backward launches a step, and three
+    forward launches for ``encode_indices``, whose codes are the plain
+    versions'."""
+    dt = {"fp32": None, "bf16": torch.bfloat16}[dtype]
+    variables = weights.init_vqvae_variables(VQVAEConfig(), torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(18)
+    images = torch.rand((8, 28, 28, 1), generator=gen, device=cuda_device) - 0.5
+    (m_k, grads_k, stats_k, launched_k, model_k), (m_p, grads_p, stats_p, launched_p, model_p) = (
+        _stage1_step(variables, b, images, cuda_device, dt) for b in (backend, plain))
+    assert launched_k == STAGE1_LAUNCHES[backend] and launched_p == (0,) * 6
+    assert m_k == m_p and all(v == v for v in m_k.values())  # equal and not NaN
+    for name in grads_k:
+        assert torch.equal(grads_k[name], grads_p[name]), name
+    for name in stats_k:
+        assert torch.equal(stats_k[name], stats_p[name]), name
+    before = _counts()
+    codes = model_k.encode_indices(images)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == STAGE1_ENCODE_LAUNCHES[backend]
+    assert torch.equal(codes, model_p.encode_indices(images))
+    assert codes.shape == (8, 7, 7) and codes.dtype == torch.int32
 
 
 # --- K2 ----------------------------------------------------------------------

@@ -99,3 +99,47 @@ def test_lif_layer_folds_time():
     s_jax, _ = jax_lif_scan(jnp.asarray(x))
     s = _from_port(tl.LIF(NeuronParams(), 16)(_to_port(x)), 16)
     np.testing.assert_array_equal(s, np.asarray(s_jax))
+
+
+@pytest.mark.parametrize("kind,stride", [("conv", 2), ("conv", 1), ("deconv", 2),
+                                         ("deconv", 1)])
+def test_bf16_bias_added_to_the_rounded_output(kind, stride):
+    """bf16 convs and deconvs (the VQ-VAE's stride-2 ones too) add the bias
+    to the rounded bf16 output, as flax's ``dtype=`` modules do: spike
+    inputs and weights on a 1/64 grid make every sum exact in fp32, so the two
+    frameworks round the same values and must agree bitwise. JAX is
+    compiled without XLA's excess precision, which on the CPU may skip
+    the rounding ahead of the bias add."""
+    cin, cout = 6, 5
+    rng = np.random.RandomState(stride + len(kind))
+    x = (rng.rand(2, 3, 7, 7, cin) < 0.5).astype(np.float32)
+    kernel = rng.randint(-64, 65, (3, 3, cin, cout)).astype(np.float32) / 64.0
+    bias = np.asarray(jnp.asarray(rng.uniform(-1, 1, cout), jnp.bfloat16), np.float32)
+    pad, out_pad = 1, stride - 1
+    if kind == "conv":
+        mod = jl.SeqConv(cout, kernel_size=3, strides=stride, padding=pad, dtype=jnp.bfloat16)
+        port, fp32 = (tl.SeqConv(cin, cout, 3, stride, pad, dtype=d)
+                      for d in (torch.bfloat16, None))
+        node, to_port = "Conv_0", weights.conv_weight
+    else:
+        mod = jl.SeqConvTranspose(cout, kernel_size=3, strides=stride, padding=pad,
+                                  output_padding=out_pad, dtype=jnp.bfloat16)
+        port, fp32 = (tl.SeqConvTranspose(cin, cout, 3, stride, pad, out_pad, dtype=d)
+                      for d in (torch.bfloat16, None))
+        node, to_port = "ConvTranspose_0", weights.deconv_weight
+    variables = {"params": {node: {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}}}
+    xj = jnp.asarray(x, jnp.bfloat16)
+    compiled = jax.jit(mod.apply).lower(variables, xj).compile(
+        {"xla_allow_excess_precision": False})
+    y_jax = np.asarray(compiled(variables, xj).astype(jnp.float32))
+    state = {"weight": torch.from_numpy(to_port(kernel)), "bias": torch.from_numpy(bias)}
+    port.load_state_dict(state)
+    fp32.load_state_dict(state)
+    y = port(_to_port(x).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    y = _from_port(y.float(), 2)
+    np.testing.assert_array_equal(y, y_jax)
+    # the order shows: adding the bias before the rounding gives other values
+    exact = _from_port(fp32(_to_port(x)), 2)
+    before = torch.from_numpy(exact).to(torch.bfloat16).float().numpy()
+    assert not np.array_equal(before, y_jax)
