@@ -140,6 +140,36 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    corruption. Reports ms per step (CUDA events) and the peak device
    memory.
 
+9. trained_weights: the committed trained weights
+   (``result_torch/MNIST/snn-vq-vae``, exported from the JAX package's
+   60 + 120 epoch flagship run) load with ``weights_only=True`` into the
+   full-width modules, strictly. The CLI's ``_eval_recon`` over 1,024
+   synthetic test images in fp32 on the card (exactly 6 K1 launches per
+   batch of 256) and on the CPU: MSE and 1 - SSIM within 1e-4 (stage 1's
+   card-against-CPU loss tolerance); the share of ``encode_indices`` codes
+   that agree between the card and the CPU is logged. At batch 256 on one
+   set of per-step noise the layerwise fp32 sampler and the fused one in
+   fp32, bf16 and int8 (49 K2 launches each) give valid codes and images,
+   the share of codes equal to the layerwise ones logged; K2 on the
+   trained weights against its plain version at the kernels phase's bounds
+   on the first reverse step (all masked, t = 49) and on a half-masked
+   grid at t = 25, with the share of fused fp32 logits within 1e-5 of the
+   layerwise ones logged.
+10. cli: ``cli.main(..., device="cuda")`` twice in a temporary
+   directory, the launch counts reset just before each and held exactly to
+   what the flags give (``cli_launches``): a training run (1 + 2 epochs
+   over 512 images at batch 32, 'bnlif' stage 2, a 256-image sweep at 0.8
+   on fp32 K2) whose artifact tree and metrics.json keys are the JAX
+   CLI's; then the eval of the trained weights with the JAX record's flags
+   (``--bf16 --batch_size 256``, 60,000 + 10,240 synthetic images, 8,192
+   reference images, temperatures 0.8 and 1.0 of 1,280 images each on bf16
+   K2): K1 and K2 only, the frozen stats verified, the space's sha
+   ``fa7286439409571c``, the null FID within 0.01 of the record's 12.676,
+   10 modes covered at both temperatures, FID at 0.8 under twice the
+   record's 46.5738; every number logged beside the record's. Then more
+   draws at 0.8 on the same models and sampler, the first conv's kernel in
+   bf16 (the bf16 sampler's) and in fp32, their FIDs logged.
+
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 Any failure prints its traceback and exits non-zero without that line.
@@ -147,13 +177,16 @@ Any failure prints its traceback and exits non-zero without that line.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import os
 import re
 import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -161,6 +194,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from spiking_diffusion_tpu_torch import cli
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import data_variance, synthetic_dataset
 from spiking_diffusion_tpu_torch.generate import sample_codes
@@ -286,6 +320,38 @@ STAGE1_CPU_GRAD_TOL = dict(rtol=2e-3, atol=1e-3)
 STAGE1_FLIP_SHARE = 1e-4
 LOGIT_ATOL = 5e-5  # card vs CPU: fp32 convolutions summed in another order
 IMAGE_ATOL = 1e-5
+# the committed trained weights (scripts/export_torch_weights.py from the
+# JAX package's 60 + 120 epoch MNIST flagship run)
+TRAINED = Path(__file__).resolve().parent / "result_torch" / "MNIST" / "snn-vq-vae"
+TRAINED_IMAGES = 1024  # recon and codes, card against CPU
+TRAINED_STEP_NOISE_SEED = 7
+K2_AGREE_ATOL = 1e-5  # logged: the fused logits' share within this of the layerwise ones
+# the CLI on the card: a short training run, then the eval of the trained
+# weights with the flags of the JAX record (--bf16 --batch_size 256, the
+# canonical 60,000 + 10,240 synthetic set, 8,192 reference images)
+CLI_TRAIN_FLAGS = ["--epochs", "1", "--batch_size", "32", "--synthetic_train", "512",
+                   "--synthetic_test", "2560", "--ref_size", "1280", "--temperatures", "0.8",
+                   "--sample_batches", "16", "--grid_batches", "1", "--frozen_metrics", "on"]
+CLI_EVAL_FLAGS = ["--checkpoint", str(TRAINED), "--bf16", "--batch_size", "256",
+                  "--synthetic_train", "60000", "--synthetic_test", "10240", "--ref_size",
+                  "8192", "--frozen_metrics", "on", "--temperatures", "0.8,1.0"]
+# the JAX package's record of the same eval on a TPU
+# (sample_r5_e60/MNIST/snn-vq-vae/metrics.json; quality, not speed)
+JAX_RECORD = {"0.8": {"IS": 9.653, "FID": 46.5738, "KID_x1e3": 3.6892, "mode_KL": 0.0177,
+                      "covered_modes": 10},
+              "1.0": {"IS": 9.4662, "FID": 82.7092, "KID_x1e3": 11.1061, "mode_KL": 0.0356,
+                      "covered_modes": 10},
+              "null_FID": 12.676, "sha256": "fa7286439409571c"}
+NULL_FID_ATOL = 0.01
+# a band that catches a broken sampler or decode (FIDs in the hundreds, as
+# the record's own near-zero temperatures give), not a parity check: the
+# record's spread is wide (its int8 run 36.05 at 0.8, 59.4-82.7 at 1.0-1.2)
+FID_08_BOUND = 2 * JAX_RECORD["0.8"]["FID"]
+# more draws of the eval's 1,280 images at 0.8 (--seed, the sampler's
+# generator seeded with seed + 1), with the first conv's kernel in bf16
+# (the bf16 sampler's) and in fp32: the spread of one draw, and what the
+# first conv's arithmetic moves
+FID_DRAW_SEEDS = {"bf16": (41, 43, 44), "fp32": (41, 42, 43, 44)}
 
 
 def log(msg: str) -> None:
@@ -1926,6 +1992,245 @@ def stage1_times(res: dict, key: str) -> dict:
                 "bwd" if key == "fwd" else "fwd")} for r in res["rows"]]}
 
 
+# --- phase 9: the committed trained weights ---------------------------------
+
+
+def load_trained(name: str, module: torch.nn.Module, device) -> torch.nn.Module:
+    """An exported state dict (``weights_only``) into a full-width module,
+    strictly, in eval mode on ``device``."""
+    sub = TRAINED / ("diff_result" if name == "diff_model" else "")
+    ckpt = torch.load(sub / f"{name}.pt", map_location=device, weights_only=True)
+    module.load_state_dict(ckpt["model"], strict=True)
+    return module.to(device).eval()
+
+
+def phase_trained_weights(card: str) -> dict:
+    """The trained weights on the card: recon card against CPU, the
+    encoder's codes card against CPU, and the samplers on one set of
+    per-step noise, K2 against its plain version on their logits."""
+    dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
+    vq = load_trained("model", SNNVQVAE(vcfg), "cuda")
+    vq_cpu = load_trained("model", SNNVQVAE(vcfg), "cpu")
+    den = load_trained("diff_model", SpikingDenoiser(dcfg), "cuda")
+    ds = synthetic_dataset("MNIST", n_train=0, n_test=TRAINED_IMAGES)
+    args = argparse.Namespace(batch_size=BATCH)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card_recon = cli._eval_recon(args, vq, ds, torch.device("cuda"))
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    cpu_recon = cli._eval_recon(args, vq_cpu, ds, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    d_recon = [abs(a - b) for a, b in zip(card_recon, cpu_recon)]
+    log(f"  recon of {TRAINED_IMAGES} images, fp32: card MSE {card_recon[0]:.8f}, 1 - SSIM "
+        f"{card_recon[1]:.8f} in {card_s:.2f} s [{card}]; CPU MSE {cpu_recon[0]:.8f}, 1 - SSIM "
+        f"{cpu_recon[1]:.8f} in {cpu_s:.2f} s; |d| {d_recon[0]:.3g}, {d_recon[1]:.3g} "
+        f"(tol {STAGE1_CPU_LOSS_ATOL:g}); launches {format_counts(counts)}")
+    want = (6 * TRAINED_IMAGES // BATCH, 0, 0, 0, 0, 0, 0)
+    check(counts == want, f"recon launches {counts}, expected {want}")
+    check(max(d_recon) <= STAGE1_CPU_LOSS_ATOL, "trained recon: card against CPU")
+    x = torch.from_numpy(ds.test_images - 0.5)
+    codes_card = vq.encode_indices(x.cuda()).cpu()
+    codes_agree = float((codes_card == vq_cpu.encode_indices(x)).float().mean())
+    log(f"  encode_indices of {TRAINED_IMAGES} images: codes agreeing card against CPU "
+        f"{codes_agree:.6f}, {len(torch.unique(codes_card))} distinct codes")
+
+    steps = len(diffusion.schedule(dcfg)[0])
+    gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
+    noise = list(diffusion.draw_noise(dcfg, BATCH, steps, gen, "cuda"))
+    codes = {"layerwise fp32": sample_codes(den, dcfg, BATCH, noise=noise, device="cuda")}
+    for name, dtype in K2_DTYPES.items():
+        fd.LAUNCHES = 0
+        codes[f"fused {name}"] = sample_codes(den, dcfg, BATCH, noise=noise, device="cuda",
+                                              fused=True, dtype=dtype)
+        check(fd.LAUNCHES == K2_STEP_LAUNCHES, f"fused {name}: {fd.LAUNCHES} K2 launches")
+    agree = {k: float((v == codes["layerwise fp32"]).float().mean()) for k, v in codes.items()}
+    for key, value in codes.items():
+        images = vq.decode_indices(value)
+        check_outputs(value, images, BATCH, dcfg)
+    log("  codes at batch 256 on one set of per-step noise, share agreeing with layerwise "
+        "fp32: " + ", ".join(f"{k} {v:.4f}" for k, v in agree.items()))
+
+    # K2 on the trained weights: the first reverse step (all masked, t = T)
+    # and a half-masked grid of the layerwise codes at t = 25
+    h = dcfg.latent_size
+    first = (torch.full((BATCH, h, h), dcfg.mask_id, dtype=torch.int32, device="cuda"),
+             torch.full((BATCH,), dcfg.num_timesteps, dtype=torch.int32, device="cuda"))
+    half = torch.rand((BATCH, h, h), generator=gen, device="cuda") < 0.5
+    mid = (torch.where(half, torch.full_like(codes["layerwise fp32"], dcfg.mask_id),
+                       codes["layerwise fp32"]),
+           torch.full((BATCH,), 25, dtype=torch.int32, device="cuda"))
+    k2_err, logit_share = {}, {}
+    for label, (tokens, t) in (("first step", first), ("t=25", mid)):
+        for name, dtype in K2_DTYPES.items():
+            folded = fd.fold_denoiser_weights(den, dtype)
+            a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
+            err = compare_k2(f"{name} trained, {label}", folded, a1, dcfg)
+            k2_err[name] = max(k2_err.get(name, 0.0), err)
+        fused = fd.make_fused_denoise_fn(den, dcfg, torch.float32)(tokens, t)
+        layerwise = den(tokens, t)
+        logit_share[label] = float(((fused - layerwise).abs() <= K2_AGREE_ATOL).float().mean())
+        log(f"  fused fp32 logits within {K2_AGREE_ATOL:g} of the layerwise ones, {label}: "
+            f"{logit_share[label]:.6f}")
+    return {"recon_card": card_recon, "recon_cpu": cpu_recon, "recon_seconds": [card_s, cpu_s],
+            "codes_card_vs_cpu": codes_agree, "sampler_agree": agree, "k2_max_abs_err": k2_err,
+            "fused_logits_within_1e-5": logit_share}
+
+
+# --- phase 10: the command-line interface -------------------------------------
+
+
+def temperatures(args) -> list:
+    return [float(t) for t in args.temperatures.split(",")]
+
+
+def cli_launches(args) -> tuple:
+    """Launches of a ``cli.main`` run on the card, as ``launch_counts()``
+    orders them, from its parsed flags.
+
+    Stage 1 (unless ``--checkpoint``): 6 + 6 K1 a step, and each epoch's
+    recon grid 6 K1. Codes: 3 K1 per batch of 256. Stage 2 (unless
+    ``--checkpoint``) on 'bnlif': 5 + 5 K3 a step over twice the epochs,
+    every 10th epoch 32 layerwise samples (5 K3 per reverse step) and their
+    decode (3 K1). Recon: 6 K1 per batch. Each temperature: 49 K2 and a
+    decode (3 K1) per chunk of up to 512 images."""
+    steps = 49
+    n_train, batch = args.synthetic_train, args.batch_size
+    k1_fwd = 3 * -(-n_train // 256) + 6 * (args.synthetic_test // batch)
+    k1_bwd = k3_fwd = k3_bwd = 0
+    if not args.checkpoint:
+        epochs, steps1 = args.epochs, n_train // batch
+        samples = len(range(0, 2 * epochs, 10))
+        k1_fwd += 6 * (steps1 + 1) * epochs + K1_DECODE_LAUNCHES * samples
+        k1_bwd = 6 * steps1 * epochs
+        k3_fwd = K3_PER_STEP * (2 * epochs * steps1 + steps * samples)
+        k3_bwd = K3_PER_STEP * 2 * epochs * steps1
+    n_total = args.sample_batches * 16
+    chunks = len(temperatures(args)) * -(-n_total // min(512, n_total))
+    return (k1_fwd + K1_DECODE_LAUNCHES * chunks, k1_bwd, k3_fwd, k3_bwd,
+            K2_STEP_LAUNCHES * chunks, 0, 0)
+
+
+def cli_run(flags, root: str, card: str) -> tuple:
+    """``cli.main(flags)`` on the card with the counts reset just before,
+    held to ``cli_launches``: (its return, its sample dir, its result dir,
+    launches)."""
+    dirs = ["--result_dir", os.path.join(root, "result"),
+            "--sample_dir", os.path.join(root, "sample")]
+    want = cli_launches(cli.parse_args(flags))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli.main(flags + dirs, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"  cli.main {' '.join(flags)}: {seconds:.1f} s (host clock); stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out["seconds"].items())
+        + f"; recon MSE {out['recon_mse']:.6f}, 1 - SSIM {out['recon_ssim_loss']:.6f}; "
+        f"launches {format_counts(counts)} [{card}]")
+    check(counts == want, f"cli launches {counts}, expected {want}")
+    model_dir = os.path.join("MNIST", "snn-vq-vae")
+    return out, os.path.join(root, "sample", model_dir), os.path.join(root, "result", model_dir), \
+        counts
+
+
+def check_metrics(path: str, flags) -> dict:
+    """metrics.json with the JAX CLI's keys and finite values."""
+    with open(os.path.join(path, "metrics.json")) as f:
+        metrics = json.load(f)
+    temps = temperatures(cli.parse_args(flags))
+    keys = {str(t) for t in temps} | {"null_FID", "feature_space"}
+    check(set(metrics) == keys, f"metrics.json keys {sorted(metrics)}")
+    for t in temps:
+        entry = metrics[str(t)]
+        check(set(entry) == {"images_per_sec", "IS", "FID", "KID_x1e3", "mode_KL",
+                             "covered_modes"}, f"metrics.json {t}: keys {sorted(entry)}")
+        check(all(math.isfinite(v) for v in entry.values()), f"metrics.json {t}: {entry}")
+    check(set(metrics["feature_space"]) == {"frozen", "name", "sha256", "stats_verified",
+                                            "ref_size"}, "metrics.json feature_space keys")
+    check(math.isfinite(metrics["null_FID"]), "null FID not finite")
+    return metrics
+
+
+def phase_cli(card: str) -> dict:
+    """``cli.main`` twice on the card: a short two-stage training run, then
+    the eval of the committed trained weights with the JAX record's flags."""
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, result, train_counts = cli_run(CLI_TRAIN_FLAGS, root, card)
+        for name in ("epoch=0_test.png", "model.pt", "diff_result/epoch=0_test.png",
+                     "diff_result/diff_model.pt"):
+            check(os.path.isfile(os.path.join(result, name)), f"no {name}")
+        for name in ("0.8/image_0.8_0.png", "paper_image.png"):
+            check(os.path.isfile(os.path.join(sample, name)), f"no {name}")
+        check(len(os.listdir(os.path.join(sample, "classes"))) > 0, "no classes/ grids")
+        check_metrics(sample, CLI_TRAIN_FLAGS)
+        train = {"launches": train_counts, "seconds": out["seconds"],
+                 "recon": [out["recon_mse"], out["recon_ssim_loss"]]}
+
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, _, eval_counts = cli_run(CLI_EVAL_FLAGS, root, card)
+        metrics = check_metrics(sample, CLI_EVAL_FLAGS)
+    temps = temperatures(cli.parse_args(CLI_EVAL_FLAGS))
+    space = metrics["feature_space"]
+    log(f"  eval: feature space {space}; null FID {metrics['null_FID']} (JAX record "
+        f"{JAX_RECORD['null_FID']})")
+    for t in temps:
+        entry, rec = metrics[str(t)], JAX_RECORD[str(t)]
+        log(f"  eval temperature {t}: " + ", ".join(
+            f"{k} {entry[k]} (JAX record {rec[k]})" for k in rec)
+            + f"; {entry['images_per_sec']} images/s [{card}]")
+    check(space["stats_verified"] and space["frozen"], "frozen stats not verified")
+    check(space["sha256"] == JAX_RECORD["sha256"], f"feature space {space['sha256']}")
+    check(abs(metrics["null_FID"] - JAX_RECORD["null_FID"]) <= NULL_FID_ATOL,
+          f"null FID {metrics['null_FID']}")
+    check(all(metrics[str(t)]["covered_modes"] == 10 for t in temps),
+          "a mode not covered")
+    check(metrics["0.8"]["FID"] < FID_08_BOUND,
+          f"FID at 0.8 {metrics['0.8']['FID']} not under {FID_08_BOUND}")
+    return {"train": train, "eval": {"launches": eval_counts, "seconds": out["seconds"],
+                                     "recon": [out["recon_mse"], out["recon_ssim_loss"]],
+                                     "metrics": metrics}}
+
+
+
+def fid_draws(card: str) -> dict:
+    """FID at 0.8 of more draws on the CLI eval's models and sampler
+    (``cli._eval_generation`` with its flags, one temperature), the first
+    conv's kernel in bf16 as the bf16 sampler takes it and in fp32:
+    {first-conv dtype: [FID per seed of FID_DRAW_SEEDS]}."""
+    dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
+    args = cli.parse_args(CLI_EVAL_FLAGS)
+    ds = synthetic_dataset("MNIST", n_train=args.synthetic_train, n_test=args.synthetic_test)
+    vq = load_trained("model", SNNVQVAE(vcfg, dtype=torch.bfloat16), "cuda")
+    den = load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend="bnlif",
+                                                     dtype=torch.bfloat16), "cuda")
+    exact_k1 = fd.fold_denoiser_weights(den, torch.float32).k1
+    first = fd.first_preactivation
+    fids = {}
+    try:
+        for k1_dtype, seeds in FID_DRAW_SEEDS.items():
+            if k1_dtype == "fp32":
+                fd.first_preactivation = lambda tokens, t, k1, b1: first(tokens, t, exact_k1, b1)
+            fids[k1_dtype] = []
+            for seed in seeds:
+                with tempfile.TemporaryDirectory() as root:
+                    out = cli._eval_generation(argparse.Namespace(**{**vars(args), "seed": seed}),
+                                               [0.8], vq, dcfg, den, ds, root, torch.device("cuda"))
+                fids[k1_dtype].append(out[0.8]["FID"])
+    finally:
+        fd.first_preactivation = first
+    for k1_dtype, values in fids.items():
+        log(f"  FID at 0.8, first conv's kernel in {k1_dtype}, seeds {FID_DRAW_SEEDS[k1_dtype]}: "
+            f"{values}, median {statistics.median(values)} [{card}]")
+    return fids
+
+
+def cli_launch_counts(runs: dict, idx: int) -> dict:
+    """A kernel's launches (index ``idx`` of ``launch_counts()``) in each
+    CLI run."""
+    return {run: runs[run]["launches"][idx] for run in ("train", "eval")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -2004,6 +2309,12 @@ def main() -> int:
             codes = torch.from_numpy(train1["layerwise"].pop("codes_array")[:BATCH]).cuda()
             train1["bnlif"].pop("codes_array")
             train = phase_train(dcfg, codes, smi)
+        with Phase("trained_weights"):
+            torch.cuda.empty_cache()
+            trained = phase_trained_weights(smi)
+        with Phase("cli"):
+            cli_runs = phase_cli(smi)
+            cli_runs["fid_draws"] = fid_draws(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -2024,6 +2335,7 @@ def main() -> int:
         # step and 3 per encode_indices batch
         "launches_train_stage2": stage_launches(train["layerwise"], 0),
         "launches_train_stage1": stage_launches(train1["layerwise"], 0),
+        "launches_cli": cli_launch_counts(cli_runs, 0),
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -2033,6 +2345,7 @@ def main() -> int:
         "replaces": K1_BWD_REPLACES,
         "launches": stage_launches(train["layerwise"], 1),
         "launches_train_stage1": stage_launches(train1["layerwise"], 1),
+        "launches_cli": cli_launch_counts(cli_runs, 1),
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
@@ -2044,6 +2357,11 @@ def main() -> int:
             "name": f"K2 fused_denoiser {name}", "route": "cuda",
             "source": "spiking_diffusion_tpu_torch/csrc/fused_denoiser.cu",
             "replaces": K2_REPLACES, "launches": fused_launches[name][0],
+            # the CLI's sweeps: fp32 in the training run, bf16 in the eval
+            "launches_cli": {run: cli_runs[run]["launches"][4] if name == dname else 0
+                             for run, dname in (("train", "fp32"), ("eval", "bf16"))},
+            # on the trained weights: the first reverse step and t = 25
+            "max_abs_err_trained": trained["k2_max_abs_err"][name],
             # one call at batch 256; no single PyTorch call is the denoiser
             "library_ms": None, **row, "sass_hmma": k2_hmma,
         })
@@ -2055,6 +2373,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": stage_launches(train["bnlif"], idx),
             "launches_train_stage1": stage_launches(train1["bnlif"], idx),
+            "launches_cli": cli_launch_counts(cli_runs, idx),
             "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
             "ms": k3["fp32"][f"{key}_ms"], "plain_ms": k3["fp32"][f"{key}_plain_ms"],
@@ -2086,6 +2405,7 @@ def main() -> int:
             "bound_by": k4["fp32"][f"{key}_bound_by"],
             "library_ms": k4["fp32"][f"{key}_library_ms"],
             "launches_per_train_step": K4_PER_STEP,
+            "launches_cli": cli_launch_counts(cli_runs, idx),
             "launches_generation": conv_gen["launches"][idx],
             **({"generation_requests": conv_gen["requests"]} if key == "fwd" else {}),
             # fwd: the fp32 route (tensor cores for an x exact in bf16, bound

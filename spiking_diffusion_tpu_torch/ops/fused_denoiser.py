@@ -78,7 +78,9 @@ def _kernel():
 class FoldedDenoiser:
     """BN-folded weights of a ``SpikingDenoiser`` for the fused sampler.
 
-    ``k1`` (C1, 2, 3, 3) and ``b1`` (C1,): the first conv, fp32. Then one
+    ``k1`` (C1, 2, 3, 3) and ``b1`` (C1,): the first conv, fp32; for bf16
+    and int8 weights ``k1`` holds bf16 values (:func:`fold_denoiser_weights`).
+    Then one
     entry per conv of the kernel, blocks 2..L and the readout last:
     ``weights[i]`` (3, 3 * Cin, Cout) in ``dtype``, rows grouped by kernel
     row dy and then (dx, cin); ``biases[i]`` (1, Cout) fp32, or for int8
@@ -130,7 +132,9 @@ def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
 
     Counterpart of the JAX ``_extract_folded_weights`` with
     ``folded_conv_params``. The readout conv has no BN and is not folded;
-    it is cast or quantized like the others.
+    it is cast or quantized like the others. The first conv stays outside
+    the kernel; for bf16 and int8 its weight is rounded to bf16, the
+    arithmetic of the JAX package's first conv on a TPU.
     """
     if dtype not in DTYPES:
         raise TypeError(f"fused sampler dtype must be one of {list(DTYPES)}, got {dtype}")
@@ -140,6 +144,12 @@ def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
     folded.append((denoiser.readout.weight.detach().float(),
                    denoiser.readout.bias.detach().float()))
     k1, b1 = folded[0]
+    if dtype != torch.float32:
+        # the first conv on bf16 operands, as the denoiser's bf16 branch runs
+        # it and as the JAX package's default precision computes it on a TPU
+        # (the token map is exact in bf16): the trained model's samples
+        # depend on it (PERF.md, the CLI's FID at temperature 0.8)
+        k1 = k1.to(torch.bfloat16).float()
     weights, biases = [], []
     for w, b in folded[1:]:
         w = _kernel_rows(w)

@@ -62,6 +62,8 @@ def train_diffusion(
     seed: int = 42,
     log_every: int = 20,
     log_fn: Optional[Callable[[str], None]] = print,
+    epoch_callback: Optional[Callable[[int, TrainState], None]] = None,
+    data_parallel: int = 1,
     device="cuda",
 ) -> TrainState:
     """Full stage-2 loop over (N, h, w) code grids with an initialised
@@ -71,8 +73,11 @@ def train_diffusion(
     stay on the device and each batch is gathered there; the epoch's
     order is ``np.random.RandomState(seed * 7919 + epoch)``'s shuffle, as
     in the JAX loop, and the corruption comes from a ``torch.Generator``
-    seeded with ``seed``.
+    seeded with ``seed``. ``epoch_callback(epoch, state)`` runs after each
+    epoch. One card only: ``data_parallel > 1`` raises.
     """
+    if data_parallel > 1:
+        raise NotImplementedError("stage-2 data parallel is not ported; train on one card")
     dev = resolve_device(device)
     state = create_train_state(denoiser.to(dev), learning_rate, weight_decay)
     step_fn = make_train_step_diffusion(cfg)
@@ -92,4 +97,6 @@ def train_diffusion(
                        f"loss {float(metrics['loss']):.3f}")
         if log_fn:
             log_fn(f"diff epoch {epoch} done in {time.time() - t_start:.1f}s")
+        if epoch_callback:
+            epoch_callback(epoch, state)
     return state

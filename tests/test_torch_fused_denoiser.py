@@ -9,6 +9,11 @@ atol 1e-5 / rtol 1e-5, the JAX package's own kernel-vs-mirror tolerance
 (tests/test_fused_denoiser.py, tests/test_fused_denoiser_int8.py): fp32
 sums taken in another order. Folded weights agree to 1e-7 and int8
 weights are identical.
+
+The bf16 and int8 samplers run the first conv on bf16 operands, as the
+JAX package's default precision computes it on a TPU; on the CPU the JAX
+side computes it in fp32, so for those dtypes its ``_first_preactivation``
+gets the folded kernel rounded to bf16 (``_tpu_first_conv``).
 """
 
 import os
@@ -86,6 +91,15 @@ def _inputs(cfg, n, seed):
     return tokens, t
 
 
+def _tpu_first_conv(monkeypatch, jdt):
+    """The JAX first conv on a bf16-rounded kernel for bf16 and int8."""
+    if jdt == jnp.float32:
+        return
+    first = jfd._first_preactivation
+    monkeypatch.setattr(jfd, "_first_preactivation", lambda x, t, k1, b1, hw: first(
+        x, t, jnp.asarray(k1).astype(jnp.bfloat16).astype(jnp.float32), b1, hw))
+
+
 def _port_logits(den, cfg, tokens, t, dtype):
     fn = fd.make_fused_denoise_fn(den, cfg, dtype)
     return fn(torch.from_numpy(tokens), torch.from_numpy(t)).numpy()
@@ -100,7 +114,10 @@ def test_folded_weights_match_jax(which, dtype):
     k1, b1, ws, bs, kf, bf = jfd._extract_folded_weights(
         variables, n_l, jdt, conv_mode="taps")
     folded = fd.fold_denoiser_weights(den, tdt)
-    # k1: torch (C1, 2, 3, 3) against flax (3, 3, 2, C1)
+    # k1: torch (C1, 2, 3, 3) against flax (3, 3, 2, C1), rounded to bf16
+    # for the bf16 and int8 samplers
+    if dtype != "fp32":
+        k1 = np.asarray(jnp.asarray(k1).astype(jnp.bfloat16).astype(jnp.float32))
     np.testing.assert_allclose(folded.k1.permute(2, 3, 1, 0).numpy(),
                                np.asarray(k1), atol=FOLD_ATOL, rtol=0)
     np.testing.assert_allclose(folded.b1.numpy(), np.asarray(b1),
@@ -135,8 +152,9 @@ def test_first_preactivation_matches_jax():
 
 @pytest.mark.parametrize("n", [6, 8])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_plain_matches_jax_mirror_and_kernel(dtype, n):
+def test_plain_matches_jax_mirror_and_kernel(dtype, n, monkeypatch):
     tdt, jdt = DTYPES[dtype]
+    _tpu_first_conv(monkeypatch, jdt)
     jcfg, cfg, variables, den = _models("tiny", seed=3)
     tokens, t = _inputs(cfg, n, seed=4 + n)
     mirror = np.asarray(jax.jit(jfd.mirror_denoise_fn(variables, jcfg, jdt))(
@@ -151,8 +169,9 @@ def test_plain_matches_jax_mirror_and_kernel(dtype, n):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "int8"])
-def test_plain_matches_jax_mirror_flagship(dtype):
+def test_plain_matches_jax_mirror_flagship(dtype, monkeypatch):
     tdt, jdt = DTYPES[dtype]
+    _tpu_first_conv(monkeypatch, jdt)
     jcfg, cfg, variables, den = _models("flagship")
     tokens, t = _inputs(cfg, 2, seed=5)
     # op by op: at full width this is ~3x faster than compiling the jit
@@ -175,8 +194,9 @@ def _jax_noise(key, cfg, n, steps):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "int8"])
-def test_fused_sampler_matches_jax(dtype):
+def test_fused_sampler_matches_jax(dtype, monkeypatch):
     tdt, jdt = DTYPES[dtype]
+    _tpu_first_conv(monkeypatch, jdt)
     jcfg, cfg, variables, den = _models("tiny", seed=6)
     n, key = 5, jax.random.PRNGKey(12)
     fused = jfd.make_fused_denoise_fn(variables, jcfg, dtype=jdt, block_n=4)

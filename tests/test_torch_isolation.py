@@ -4,9 +4,9 @@
   ``chip_smoke.py`` loads neither ``jax`` nor any module of the JAX
   package ``spiking_diffusion_tpu``.
 * The entry points' device defaults to ``"cuda"`` (the sampler's, the
-  fused sampler's, the stage-1 and stage-2 trainers' and
-  ``extract_code_indices``'s too): with no card they raise instead of
-  running on the CPU.
+  fused sampler's, the stage-1 and stage-2 trainers',
+  ``extract_code_indices``'s, the CLI's ``main`` and the LeNet feature
+  space's too): with no card they raise instead of running on the CPU.
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -20,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from spiking_diffusion_tpu_torch import generate
+from spiking_diffusion_tpu_torch import cli, generate
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.metrics import features, frozen
 from spiking_diffusion_tpu_torch.models import diffusion, weights
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 
@@ -34,6 +35,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage",
+             "metrics.scores", "metrics.ssim", "utils.grids"):
+    assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
              or k.startswith("spiking_diffusion_tpu."))
@@ -58,7 +62,7 @@ def test_port_imports_no_jax():
     out = _run(["-c", IMPORT_ALL], REPO)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaked: []" in out.stdout
-    assert int(out.stdout.split()[0]) >= 15  # every module was imported
+    assert int(out.stdout.split()[0]) >= 25  # every module was imported
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -97,6 +101,23 @@ def test_entry_points_default_to_cuda(monkeypatch):
         stage1.train_vqvae(vq, images, 0.1, batch_size=2, log_fn=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage1.extract_code_indices(vq, images)
+
+
+def test_cli_and_metrics_default_to_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dirs = ["--result_dir", str(tmp_path / "r"), "--sample_dir", str(tmp_path / "s")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(dirs)
+    model, _, _ = frozen.load_frozen_lenet("MNIST")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.lenet_feature_fn(model)
+    images = np.zeros((4, 28, 28, 1), np.float32)
+    labels = np.zeros((4,), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.train_lenet(images, labels, 10, epochs=1)
+    for mode in ("auto", "off"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            frozen.get_feature_space("MNIST", images, labels, 10, mode=mode, log_fn=None)
 
 
 def test_chip_smoke_fails_without_card():
