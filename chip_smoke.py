@@ -153,9 +153,12 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    the share of codes equal to the layerwise ones logged; K2 on the
    trained weights against its plain version at the kernels phase's bounds
    on the first reverse step (all masked, t = 49) and on a half-masked
-   grid at t = 25, with the share of fused fp32 logits within 1e-5 of the
-   layerwise ones logged.
-10. cli: ``cli.main(..., device="cuda")`` twice in a temporary
+   grid at t = 25, at batch 256 and at the CLI's chunk of 512, with the
+   share of fused fp32 logits within 1e-5 of the layerwise ones logged;
+   every K1 launch of the CLI eval's bf16 decode of a 512-grid chunk, of a
+   recon batch of 256 and of the codes' remainder batch held bitwise
+   against the plain version.
+10. cli: ``cli.main(..., device="cuda")`` three times in a temporary
    directory, the launch counts reset just before each and held exactly to
    what the flags give (``cli_launches``): a training run (1 + 2 epochs
    over 512 images at batch 32, 'bnlif' stage 2, a 256-image sweep at 0.8
@@ -166,9 +169,9 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    K2): K1 and K2 only, the frozen stats verified, the space's sha
    ``fa7286439409571c``, the null FID within 0.01 of the record's 12.676,
    10 modes covered at both temperatures, FID at 0.8 under twice the
-   record's 46.5738; every number logged beside the record's. Then more
-   draws at 0.8 on the same models and sampler, the first conv's kernel in
-   bf16 (the bf16 sampler's) and in fp32, their FIDs logged.
+   record's 46.5738; every number logged beside the record's. Then the
+   gate: the same eval at 0.8 over 8,192 generated images, exact launches,
+   10 modes and FID under ``FID_GATE_BOUND``.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -347,11 +350,15 @@ NULL_FID_ATOL = 0.01
 # the record's own near-zero temperatures give), not a parity check: the
 # record's spread is wide (its int8 run 36.05 at 0.8, 59.4-82.7 at 1.0-1.2)
 FID_08_BOUND = 2 * JAX_RECORD["0.8"]["FID"]
-# more draws of the eval's 1,280 images at 0.8 (--seed, the sampler's
-# generator seeded with seed + 1), with the first conv's kernel in bf16
-# (the bf16 sampler's) and in fp32: the spread of one draw, and what the
-# first conv's arithmetic moves
-FID_DRAW_SEEDS = {"bf16": (41, 43, 44), "fp32": (41, 42, 43, 44)}
+# the gate on the eval's quality: FID at 0.8 over 8,192 generated images
+# (--sample_batches 512) of the trained weights on the eval's path. One
+# draw of 1,280 images spreads too widely to tell a sound sampler from an
+# unsound one (8 seeds: 55.2-125.7); over 8,192 images the eval's bf16
+# sampler read 60.9, 69.4 and 65.3 (seeds 42-44), int8 57.5 and 59.8, the
+# layerwise bf16 denoiser 65.9, and exact fp32 arithmetic, fused or
+# layerwise, 93.9-103.0 (PERF.md section 6): the bound sits between the two
+CLI_GATE_FLAGS = CLI_EVAL_FLAGS[:-2] + ["--temperatures", "0.8", "--sample_batches", "512"]
+FID_GATE_BOUND = 80.0
 
 
 def log(msg: str) -> None:
@@ -492,12 +499,16 @@ def lif_input(m: int, gen: torch.Generator) -> torch.Tensor:
     return torch.rand((T, m), generator=gen, device="cuda") * 4.0 - 1.0
 
 
-def compare_lif(x, v_init, params) -> float:
+def compare_lif(x, v_init, params, rate_range=(0.05, 0.95)) -> float:
+    """K1's forward against its plain version, bitwise; with ``rate_range``
+    the firing rate must lie inside it (a random input that spikes)."""
     s, v = lif_op.lif_fwd(x, v_init, params)
     s_ref, v_ref = lif_op.lif_fwd_reference(x, v_init, params)
     torch.cuda.synchronize()
     rate = float(s_ref.mean())
-    check(0.05 < rate < 0.95, f"firing rate {rate} outside (0.05, 0.95)")
+    if rate_range:
+        check(rate_range[0] < rate < rate_range[1],
+              f"firing rate {rate} outside {rate_range}")
     check(torch.equal(s, s_ref), "K1 spikes differ from the plain version")
     check(torch.equal(v, v_ref), "K1 v_T differs from the plain version")
     return max(float((s - s_ref).abs().max()), float((v - v_ref).abs().max()))
@@ -2004,6 +2015,36 @@ def load_trained(name: str, module: torch.nn.Module, device) -> torch.nn.Module:
     return module.to(device).eval()
 
 
+def cli_chunk(flags) -> int:
+    """The sampling chunk of a CLI run: min(512, 16 * --sample_batches)."""
+    return min(512, 16 * cli.parse_args(flags).sample_batches)
+
+
+def k2_trained_sizes() -> list:
+    """Batch 256 and the chunk sizes of the CLI runs of phase cli."""
+    return sorted({BATCH} | {cli_chunk(f) for f in (CLI_TRAIN_FLAGS, CLI_EVAL_FLAGS,
+                                                   CLI_GATE_FLAGS)})
+
+
+def k1_launches_of(run) -> list:
+    """(x, v_init, params) of every K1 forward launch that ``run()`` makes,
+    copied as the kernel gets them."""
+    seen = []
+    fwd = lif_op.lif_fwd
+
+    def record(x, v_init=None, params=NeuronParams()):
+        seen.append((x.clone(), None if v_init is None else v_init.clone(), params))
+        return fwd(x, v_init, params)
+
+    lif_op.lif_fwd = record
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        lif_op.lif_fwd = fwd
+    return seen
+
+
 def phase_trained_weights(card: str) -> dict:
     """The trained weights on the card: recon card against CPU, the
     encoder's codes card against CPU, and the samplers on one set of
@@ -2053,29 +2094,62 @@ def phase_trained_weights(card: str) -> dict:
         "fp32: " + ", ".join(f"{k} {v:.4f}" for k, v in agree.items()))
 
     # K2 on the trained weights: the first reverse step (all masked, t = T)
-    # and a half-masked grid of the layerwise codes at t = 25
+    # and a half-masked grid of the layerwise codes at t = 25, at batch 256
+    # and at the chunk sizes of the CLI's sweeps (fp32 in its training run,
+    # bf16 in its eval), on the eval's own denoiser ('bnlif', bf16)
     h = dcfg.latent_size
-    first = (torch.full((BATCH, h, h), dcfg.mask_id, dtype=torch.int32, device="cuda"),
-             torch.full((BATCH,), dcfg.num_timesteps, dtype=torch.int32, device="cuda"))
-    half = torch.rand((BATCH, h, h), generator=gen, device="cuda") < 0.5
-    mid = (torch.where(half, torch.full_like(codes["layerwise fp32"], dcfg.mask_id),
-                       codes["layerwise fp32"]),
-           torch.full((BATCH,), 25, dtype=torch.int32, device="cuda"))
+    den_eval = load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend="bnlif",
+                                                          dtype=torch.bfloat16), "cuda")
     k2_err, logit_share = {}, {}
-    for label, (tokens, t) in (("first step", first), ("t=25", mid)):
-        for name, dtype in K2_DTYPES.items():
-            folded = fd.fold_denoiser_weights(den, dtype)
-            a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
-            err = compare_k2(f"{name} trained, {label}", folded, a1, dcfg)
-            k2_err[name] = max(k2_err.get(name, 0.0), err)
-        fused = fd.make_fused_denoise_fn(den, dcfg, torch.float32)(tokens, t)
-        layerwise = den(tokens, t)
-        logit_share[label] = float(((fused - layerwise).abs() <= K2_AGREE_ATOL).float().mean())
-        log(f"  fused fp32 logits within {K2_AGREE_ATOL:g} of the layerwise ones, {label}: "
-            f"{logit_share[label]:.6f}")
+    for n in k2_trained_sizes():
+        layerwise = codes["layerwise fp32"].repeat(-(-n // BATCH), 1, 1)[:n]
+        first = (torch.full((n, h, h), dcfg.mask_id, dtype=torch.int32, device="cuda"),
+                 torch.full((n,), dcfg.num_timesteps, dtype=torch.int32, device="cuda"))
+        half = torch.rand((n, h, h), generator=gen, device="cuda") < 0.5
+        mid = (torch.where(half, torch.full_like(layerwise, dcfg.mask_id), layerwise),
+               torch.full((n,), 25, dtype=torch.int32, device="cuda"))
+        for label, (tokens, t) in (("first step", first), ("t=25", mid)):
+            for name, dtype in K2_DTYPES.items():
+                folded = fd.fold_denoiser_weights(den_eval, dtype)
+                a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
+                err = compare_k2(f"{name} trained, {label}", folded, a1, dcfg)
+                k2_err[name] = max(k2_err.get(name, 0.0), err)
+            if n != BATCH:
+                continue
+            fused = fd.make_fused_denoise_fn(den, dcfg, torch.float32)(tokens, t)
+            logit_share[label] = float(((fused - den(tokens, t)).abs() <= K2_AGREE_ATOL)
+                                       .float().mean())
+            log(f"  fused fp32 logits within {K2_AGREE_ATOL:g} of the layerwise ones, "
+                f"{label}: {logit_share[label]:.6f}")
+
+    # K1 at the CLI eval's shapes (bf16 models, the eval's batch): every
+    # launch of a decode of one sampling chunk, of a recon batch and of the
+    # remainder batch of extract_code_indices, held against the plain version
+    vq_eval = load_trained("model", SNNVQVAE(vcfg, dtype=torch.bfloat16), "cuda")
+    args = cli.parse_args(CLI_EVAL_FLAGS)
+    chunk = cli_chunk(CLI_EVAL_FLAGS)
+    grids = codes["layerwise fp32"].repeat(-(-chunk // BATCH), 1, 1)[:chunk]
+    images = torch.from_numpy(ds.test_images - 0.5).cuda()
+    images = images.repeat(-(-args.batch_size // len(images)), 1, 1, 1)
+    remainder = args.synthetic_train % 256 or 256
+    k1_err = 0.0
+    for what, run in ((f"decode of {chunk} grids", lambda: vq_eval.decode_indices(grids)),
+                      (f"recon of {args.batch_size} images",
+                       lambda: vq_eval(images[:args.batch_size], train=False)),
+                      (f"encode_indices of {remainder} images",
+                       lambda: vq_eval.encode_indices(images[:remainder]))):
+        launches = k1_launches_of(run)
+        rates = []
+        for x, v_init, params in launches:
+            k1_err = max(k1_err, compare_lif(x, v_init, params, rate_range=None))
+            rates.append(float(lif_op.lif_fwd_reference(x, v_init, params)[0].mean()))
+        log(f"  K1 at the CLI eval's {what}, bf16: {len(launches)} launches, M "
+            f"{[x.shape[1] for x, _, _ in launches]}, firing rates "
+            f"{[round(r, 4) for r in rates]}, bitwise equal")
+        check(len(launches) > 0 and max(rates) > 0, f"K1 at the {what}: no spikes")
     return {"recon_card": card_recon, "recon_cpu": cpu_recon, "recon_seconds": [card_s, cpu_s],
             "codes_card_vs_cpu": codes_agree, "sampler_agree": agree, "k2_max_abs_err": k2_err,
-            "fused_logits_within_1e-5": logit_share}
+            "fused_logits_within_1e-5": logit_share, "k1_cli_max_abs_err": k1_err}
 
 
 # --- phase 10: the command-line interface -------------------------------------
@@ -2153,8 +2227,9 @@ def check_metrics(path: str, flags) -> dict:
 
 
 def phase_cli(card: str) -> dict:
-    """``cli.main`` twice on the card: a short two-stage training run, then
-    the eval of the committed trained weights with the JAX record's flags."""
+    """``cli.main`` three times on the card: a short two-stage training run,
+    the eval of the committed trained weights with the JAX record's flags,
+    and that eval at 0.8 over 8,192 images, the gate on its FID."""
     with tempfile.TemporaryDirectory() as root:
         out, sample, result, train_counts = cli_run(CLI_TRAIN_FLAGS, root, card)
         for name in ("epoch=0_test.png", "model.pt", "diff_result/epoch=0_test.png",
@@ -2187,48 +2262,31 @@ def phase_cli(card: str) -> dict:
           "a mode not covered")
     check(metrics["0.8"]["FID"] < FID_08_BOUND,
           f"FID at 0.8 {metrics['0.8']['FID']} not under {FID_08_BOUND}")
-    return {"train": train, "eval": {"launches": eval_counts, "seconds": out["seconds"],
-                                     "recon": [out["recon_mse"], out["recon_ssim_loss"]],
-                                     "metrics": metrics}}
+    evaluation = {"launches": eval_counts, "seconds": out["seconds"],
+                  "recon": [out["recon_mse"], out["recon_ssim_loss"]], "metrics": metrics}
+
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, _, gate_counts = cli_run(CLI_GATE_FLAGS, root, card)
+        gate = check_metrics(sample, CLI_GATE_FLAGS)
+    n_gate = cli.parse_args(CLI_GATE_FLAGS).sample_batches * 16
+    log(f"  gate: FID at 0.8 over {n_gate} images {gate['0.8']['FID']} (bound "
+        f"{FID_GATE_BOUND:.4f}), IS {gate['0.8']['IS']}, KID_x1e3 {gate['0.8']['KID_x1e3']}, "
+        f"mode_KL {gate['0.8']['mode_KL']}, {gate['0.8']['covered_modes']} modes; "
+        f"{gate['0.8']['images_per_sec']} images/s [{card}]")
+    check(gate["0.8"]["covered_modes"] == 10, "gate: a mode not covered")
+    check(gate["0.8"]["FID"] < FID_GATE_BOUND,
+          f"FID at 0.8 over {n_gate} images {gate['0.8']['FID']} not under {FID_GATE_BOUND}")
+    return {"train": train, "eval": evaluation,
+            "gate": {"launches": gate_counts, "seconds": out["seconds"], "metrics": gate}}
 
 
-
-def fid_draws(card: str) -> dict:
-    """FID at 0.8 of more draws on the CLI eval's models and sampler
-    (``cli._eval_generation`` with its flags, one temperature), the first
-    conv's kernel in bf16 as the bf16 sampler takes it and in fp32:
-    {first-conv dtype: [FID per seed of FID_DRAW_SEEDS]}."""
-    dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
-    args = cli.parse_args(CLI_EVAL_FLAGS)
-    ds = synthetic_dataset("MNIST", n_train=args.synthetic_train, n_test=args.synthetic_test)
-    vq = load_trained("model", SNNVQVAE(vcfg, dtype=torch.bfloat16), "cuda")
-    den = load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend="bnlif",
-                                                     dtype=torch.bfloat16), "cuda")
-    exact_k1 = fd.fold_denoiser_weights(den, torch.float32).k1
-    first = fd.first_preactivation
-    fids = {}
-    try:
-        for k1_dtype, seeds in FID_DRAW_SEEDS.items():
-            if k1_dtype == "fp32":
-                fd.first_preactivation = lambda tokens, t, k1, b1: first(tokens, t, exact_k1, b1)
-            fids[k1_dtype] = []
-            for seed in seeds:
-                with tempfile.TemporaryDirectory() as root:
-                    out = cli._eval_generation(argparse.Namespace(**{**vars(args), "seed": seed}),
-                                               [0.8], vq, dcfg, den, ds, root, torch.device("cuda"))
-                fids[k1_dtype].append(out[0.8]["FID"])
-    finally:
-        fd.first_preactivation = first
-    for k1_dtype, values in fids.items():
-        log(f"  FID at 0.8, first conv's kernel in {k1_dtype}, seeds {FID_DRAW_SEEDS[k1_dtype]}: "
-            f"{values}, median {statistics.median(values)} [{card}]")
-    return fids
+CLI_RUNS = ("train", "eval", "gate")
 
 
 def cli_launch_counts(runs: dict, idx: int) -> dict:
     """A kernel's launches (index ``idx`` of ``launch_counts()``) in each
     CLI run."""
-    return {run: runs[run]["launches"][idx] for run in ("train", "eval")}
+    return {run: runs[run]["launches"][idx] for run in CLI_RUNS}
 
 
 def main() -> int:
@@ -2314,7 +2372,6 @@ def main() -> int:
             trained = phase_trained_weights(smi)
         with Phase("cli"):
             cli_runs = phase_cli(smi)
-            cli_runs["fid_draws"] = fid_draws(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -2325,7 +2382,8 @@ def main() -> int:
         "name": "K1 lif_fwd", "route": "cuda",
         "source": "spiking_diffusion_tpu_torch/csrc/lif_fwd.cu",
         "replaces": K1_REPLACES, "launches": launches,
-        "max_abs_err": max(k1["max_abs_err"], k1_s1["fwd_err"]),
+        # random inputs at the path's shapes, stage 1's and the CLI eval's
+        "max_abs_err": max(k1["max_abs_err"], k1_s1["fwd_err"], trained["k1_cli_max_abs_err"]),
         # times of the 248 launches of one generated batch of 256
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
@@ -2359,8 +2417,10 @@ def main() -> int:
             "replaces": K2_REPLACES, "launches": fused_launches[name][0],
             # the CLI's sweeps: fp32 in the training run, bf16 in the eval
             "launches_cli": {run: cli_runs[run]["launches"][4] if name == dname else 0
-                             for run, dname in (("train", "fp32"), ("eval", "bf16"))},
-            # on the trained weights: the first reverse step and t = 25
+                             for run, dname in (("train", "fp32"), ("eval", "bf16"),
+                                                ("gate", "bf16"))},
+            # on the trained weights: the first reverse step and t = 25, at
+            # batch 256 and at the CLI's chunk sizes
             "max_abs_err_trained": trained["k2_max_abs_err"][name],
             # one call at batch 256; no single PyTorch call is the denoiser
             "library_ms": None, **row, "sass_hmma": k2_hmma,

@@ -53,6 +53,18 @@ MAX_STEPS = 128  # T: a 128-row tile holds whole T-step sequences (tc::kBM)
 MAX_ROWS = 2**31 - 1  # N * P * T: the kernels' 32-bit row index
 STAGE_DEPTH = 64  # a kernel row's contraction is padded to whole stages (tc::kBK)
 ROW_ORDER = (1, 0, 2)  # kernel rows dy in the kernel's contraction: centre, top, bottom
+# The precision of the first conv's folded kernel for each sampler dtype
+# (the conv runs outside K2, once per call; the token map is exact in bf16,
+# so the kernel is its only operand a rounding moves). bf16 and int8 take
+# it in bf16: the arithmetic of the JAX package's records of these
+# samplers, run on a TPU, whose default precision rounds a conv's fp32
+# operands to bf16, and of the port's own bf16 denoiser, whose convs take
+# bf16 operands. fp32 keeps it exact: every fp32 path of the port runs
+# without TF32 or any other operand rounding, and the fp32 sampler is held
+# to the layerwise fp32 denoiser logit for logit; the port reproduces no
+# TPU rounding in fp32, here or in any other conv.
+FIRST_CONV_DTYPES = {torch.float32: torch.float32, torch.bfloat16: torch.bfloat16,
+                     torch.int8: torch.bfloat16}
 
 _FN = None
 
@@ -78,10 +90,9 @@ def _kernel():
 class FoldedDenoiser:
     """BN-folded weights of a ``SpikingDenoiser`` for the fused sampler.
 
-    ``k1`` (C1, 2, 3, 3) and ``b1`` (C1,): the first conv, fp32; for bf16
-    and int8 weights ``k1`` holds bf16 values (:func:`fold_denoiser_weights`).
-    Then one
-    entry per conv of the kernel, blocks 2..L and the readout last:
+    ``k1`` (C1, 2, 3, 3) and ``b1`` (C1,): the first conv, fp32 tensors;
+    ``k1`` holds values of ``FIRST_CONV_DTYPES[dtype]``. Then one entry per
+    conv of the kernel, blocks 2..L and the readout last:
     ``weights[i]`` (3, 3 * Cin, Cout) in ``dtype``, rows grouped by kernel
     row dy and then (dx, cin); ``biases[i]`` (1, Cout) fp32, or for int8
     (4, Cout): the bias and one dequant scale per kernel row.
@@ -133,8 +144,7 @@ def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
     Counterpart of the JAX ``_extract_folded_weights`` with
     ``folded_conv_params``. The readout conv has no BN and is not folded;
     it is cast or quantized like the others. The first conv stays outside
-    the kernel; for bf16 and int8 its weight is rounded to bf16, the
-    arithmetic of the JAX package's first conv on a TPU.
+    the kernel, its weight rounded to ``FIRST_CONV_DTYPES[dtype]``.
     """
     if dtype not in DTYPES:
         raise TypeError(f"fused sampler dtype must be one of {list(DTYPES)}, got {dtype}")
@@ -144,12 +154,7 @@ def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
     folded.append((denoiser.readout.weight.detach().float(),
                    denoiser.readout.bias.detach().float()))
     k1, b1 = folded[0]
-    if dtype != torch.float32:
-        # the first conv on bf16 operands, as the denoiser's bf16 branch runs
-        # it and as the JAX package's default precision computes it on a TPU
-        # (the token map is exact in bf16): the trained model's samples
-        # depend on it (PERF.md, the CLI's FID at temperature 0.8)
-        k1 = k1.to(torch.bfloat16).float()
+    k1 = k1.to(FIRST_CONV_DTYPES[dtype]).float()
     weights, biases = [], []
     for w, b in folded[1:]:
         w = _kernel_rows(w)

@@ -10,10 +10,12 @@ atol 1e-5 / rtol 1e-5, the JAX package's own kernel-vs-mirror tolerance
 sums taken in another order. Folded weights agree to 1e-7 and int8
 weights are identical.
 
-The bf16 and int8 samplers run the first conv on bf16 operands, as the
-JAX package's default precision computes it on a TPU; on the CPU the JAX
-side computes it in fp32, so for those dtypes its ``_first_preactivation``
-gets the folded kernel rounded to bf16 (``_tpu_first_conv``).
+The bf16 and int8 samplers take the first conv's kernel in bf16, the
+arithmetic of the JAX package's records of them on a TPU
+(``FIRST_CONV_DTYPES``); on the CPU the JAX side computes that conv in
+fp32. So the tests of those samplers run the JAX side through
+``test_torch_tpu_precision.tpu_first_conv``, a deviation from the JAX
+package as it runs on the CPU that each such test names.
 """
 
 import os
@@ -33,6 +35,7 @@ from spiking_diffusion_tpu_torch import generate
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.models import weights
+from test_torch_tpu_precision import rounds_first_conv, tpu_first_conv, tpu_kernel
 
 ATOL = RTOL = 1e-5
 FOLD_ATOL = 1e-7
@@ -91,15 +94,6 @@ def _inputs(cfg, n, seed):
     return tokens, t
 
 
-def _tpu_first_conv(monkeypatch, jdt):
-    """The JAX first conv on a bf16-rounded kernel for bf16 and int8."""
-    if jdt == jnp.float32:
-        return
-    first = jfd._first_preactivation
-    monkeypatch.setattr(jfd, "_first_preactivation", lambda x, t, k1, b1, hw: first(
-        x, t, jnp.asarray(k1).astype(jnp.bfloat16).astype(jnp.float32), b1, hw))
-
-
 def _port_logits(den, cfg, tokens, t, dtype):
     fn = fd.make_fused_denoise_fn(den, cfg, dtype)
     return fn(torch.from_numpy(tokens), torch.from_numpy(t)).numpy()
@@ -108,16 +102,19 @@ def _port_logits(den, cfg, tokens, t, dtype):
 @pytest.mark.parametrize("which", ["tiny", "flagship"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_folded_weights_match_jax(which, dtype):
+    """The port's folded weights against JAX's ``_extract_folded_weights``.
+    Deviation from the JAX package on the CPU: for bf16 and int8 JAX's
+    first-conv kernel is rounded by ``tpu_kernel`` (a TPU's default
+    precision), as the port's is."""
     tdt, jdt = DTYPES[dtype]
     jcfg, cfg, variables, den = _models(which)
     n_l = len(cfg.denoiser_channels)
     k1, b1, ws, bs, kf, bf = jfd._extract_folded_weights(
         variables, n_l, jdt, conv_mode="taps")
     folded = fd.fold_denoiser_weights(den, tdt)
-    # k1: torch (C1, 2, 3, 3) against flax (3, 3, 2, C1), rounded to bf16
-    # for the bf16 and int8 samplers
-    if dtype != "fp32":
-        k1 = np.asarray(jnp.asarray(k1).astype(jnp.bfloat16).astype(jnp.float32))
+    # k1: torch (C1, 2, 3, 3) against flax (3, 3, 2, C1)
+    if rounds_first_conv(tdt):
+        k1 = tpu_kernel(k1)
     np.testing.assert_allclose(folded.k1.permute(2, 3, 1, 0).numpy(),
                                np.asarray(k1), atol=FOLD_ATOL, rtol=0)
     np.testing.assert_allclose(folded.b1.numpy(), np.asarray(b1),
@@ -153,8 +150,11 @@ def test_first_preactivation_matches_jax():
 @pytest.mark.parametrize("n", [6, 8])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_plain_matches_jax_mirror_and_kernel(dtype, n, monkeypatch):
+    """The plain version against JAX's mirror and its interpreted kernel.
+    Deviation from the JAX package on the CPU: the JAX side's first conv
+    runs through ``tpu_first_conv`` (for bf16 and int8)."""
     tdt, jdt = DTYPES[dtype]
-    _tpu_first_conv(monkeypatch, jdt)
+    tpu_first_conv(monkeypatch, tdt)
     jcfg, cfg, variables, den = _models("tiny", seed=3)
     tokens, t = _inputs(cfg, n, seed=4 + n)
     mirror = np.asarray(jax.jit(jfd.mirror_denoise_fn(variables, jcfg, jdt))(
@@ -170,8 +170,11 @@ def test_plain_matches_jax_mirror_and_kernel(dtype, n, monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["fp32", "int8"])
 def test_plain_matches_jax_mirror_flagship(dtype, monkeypatch):
+    """The plain version against JAX's mirror on the committed flagship.
+    Deviation from the JAX package on the CPU: the JAX side's first conv
+    runs through ``tpu_first_conv`` (for int8)."""
     tdt, jdt = DTYPES[dtype]
-    _tpu_first_conv(monkeypatch, jdt)
+    tpu_first_conv(monkeypatch, tdt)
     jcfg, cfg, variables, den = _models("flagship")
     tokens, t = _inputs(cfg, 2, seed=5)
     # op by op: at full width this is ~3x faster than compiling the jit
@@ -195,8 +198,11 @@ def _jax_noise(key, cfg, n, steps):
 
 @pytest.mark.parametrize("dtype", ["fp32", "int8"])
 def test_fused_sampler_matches_jax(dtype, monkeypatch):
+    """The port's fused sampler against JAX's on the same noise, code for
+    code. Deviation from the JAX package on the CPU: the JAX side's first
+    conv runs through ``tpu_first_conv`` (for int8)."""
     tdt, jdt = DTYPES[dtype]
-    _tpu_first_conv(monkeypatch, jdt)
+    tpu_first_conv(monkeypatch, tdt)
     jcfg, cfg, variables, den = _models("tiny", seed=6)
     n, key = 5, jax.random.PRNGKey(12)
     fused = jfd.make_fused_denoise_fn(variables, jcfg, dtype=jdt, block_n=4)

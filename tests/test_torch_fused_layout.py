@@ -44,6 +44,7 @@ from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models import weights
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.snn.neuron import lif_step
+from test_torch_tpu_precision import tpu_first_conv
 
 # channels that are not multiples of 8, so every part of every operand is
 # padded, and a readout of 9 classes
@@ -287,14 +288,11 @@ def test_layer_outer_order_equals_plain_version(dtype, steps):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_layer_outer_order_matches_jax_mirror(dtype, monkeypatch):
     """The emulated kernel on the folded weights against the JAX package's
-    mirror on the same numpy inputs; for bf16 and int8 the mirror's first
-    conv takes its kernel rounded to bf16, as the port's does (the JAX
-    package's arithmetic on a TPU)."""
+    mirror on the same numpy inputs. Deviation from the JAX package on the
+    CPU: the mirror's first conv runs through
+    ``test_torch_tpu_precision.tpu_first_conv`` (for bf16 and int8)."""
     jdt = {"fp32": jnp.float32, "bf16": jnp.bfloat16, "int8": jnp.int8}[dtype]
-    if dtype != "fp32":
-        first = jfd._first_preactivation
-        monkeypatch.setattr(jfd, "_first_preactivation", lambda x, t, k1, b1, hw: first(
-            x, t, jnp.asarray(k1).astype(jnp.bfloat16).astype(jnp.float32), b1, hw))
+    tpu_first_conv(monkeypatch, DTYPES[dtype])
     cfg, den, variables = _model(4, seed=3)
     jcfg = JaxDiffusionConfig(num_steps=4, **SMALL)
     tokens, t = _tokens(cfg, 4, seed=5)
