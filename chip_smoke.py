@@ -158,12 +158,33 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    every K1 launch of the CLI eval's bf16 decode of a 512-grid chunk, of a
    recon batch of 256 and of the codes' remainder batch held bitwise
    against the plain version.
-10. cli: ``cli.main(..., device="cuda")`` three times in a temporary
+10. syops: the op/energy profiler (``profiling/``) on the trained weights,
+   a ``DeviceMonitor`` sampling the card's memory across the phase (some
+   sample above 0 bytes). The VQ-VAE in fp32, in eval, on 'auto' (exactly
+   6 K1 launches a forward, no other kernel) and 'bnlif' (6 K3): on the
+   first 32 test images as the CLI loads them, its counters held to the
+   JAX package's record of the same images and weights
+   (``profiling/assets/syops_e60_jax.json``, ``scripts/syops_jax_record.py``),
+   and on the first 256 to the port's counters on the CPU: the same 19
+   keys, ops and MACs equal, every rate within 1e-4, ACs within 1e-4 of the
+   layer's ops (a conv summed in another order may flip a spike), the same
+   parameter count. The denoiser at the 5 default probes of 64 grids
+   sampled at 0.8, on 'auto' (5 K1 a forward) and 'bnlif' (5 K3), the
+   totals of the branches held alike. ``generation_energy`` at 64 samples
+   on the layerwise sampler (exactly 245 + 25 + 3 K1 launches): finite,
+   positive, the spike rate in (0, 1). Then no hook is left on any model,
+   and a layerwise sample at 16 launches what it did before the profiles,
+   with the same codes. ``benchmark`` times the VQ-VAE's eval forward at
+   256 with and without profiling (CUDA events); ``trace`` of one forward
+   per branch names ``lif_fwd_kernel`` (6 times) or ``bn_lif_fwd_kernel``
+   (6) and not the other branch's kernel.
+11. cli: ``cli.main(..., device="cuda")`` three times in a temporary
    directory, the launch counts reset just before each and held exactly to
    what the flags give (``cli_launches``): a training run (1 + 2 epochs
    over 512 images at batch 32, 'bnlif' stage 2, a 256-image sweep at 0.8
-   on fp32 K2) whose artifact tree and metrics.json keys are the JAX
-   CLI's; then the eval of the trained weights with the JAX record's flags
+   on fp32 K2, ``--syops``) whose artifact tree and metrics.json keys are
+   the JAX CLI's and whose output holds the ``--syops`` report (19 rows,
+   TOTAL, parameters and the three summary lines); then the eval of the trained weights with the JAX record's flags
    (``--bf16 --batch_size 256``, 60,000 + 10,240 synthetic images, 8,192
    reference images, temperatures 0.8 and 1.0 of 1,280 images each on bf16
    K2): K1 and K2 only, the frozen stats verified, the space's sha
@@ -181,6 +202,8 @@ Any failure prints its traceback and exits non-zero without that line.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -210,6 +233,7 @@ from spiking_diffusion_tpu_torch.ops import bn_lif as bnl
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as lif_op
 from spiking_diffusion_tpu_torch.ops import spike_conv as sc
+from spiking_diffusion_tpu_torch.profiling import benchmark, monitor, syops, trace
 from spiking_diffusion_tpu_torch.snn import surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
 from spiking_diffusion_tpu_torch.train import stage1, stage2
@@ -334,7 +358,8 @@ K2_AGREE_ATOL = 1e-5  # logged: the fused logits' share within this of the layer
 # canonical 60,000 + 10,240 synthetic set, 8,192 reference images)
 CLI_TRAIN_FLAGS = ["--epochs", "1", "--batch_size", "32", "--synthetic_train", "512",
                    "--synthetic_test", "2560", "--ref_size", "1280", "--temperatures", "0.8",
-                   "--sample_batches", "16", "--grid_batches", "1", "--frozen_metrics", "on"]
+                   "--sample_batches", "16", "--grid_batches", "1", "--frozen_metrics", "on",
+                   "--syops"]
 CLI_EVAL_FLAGS = ["--checkpoint", str(TRAINED), "--bf16", "--batch_size", "256",
                   "--synthetic_train", "60000", "--synthetic_test", "10240", "--ref_size",
                   "8192", "--frozen_metrics", "on", "--temperatures", "0.8,1.0"]
@@ -359,6 +384,28 @@ FID_08_BOUND = 2 * JAX_RECORD["0.8"]["FID"]
 # layerwise, 93.9-103.0 (PERF.md section 6): the bound sits between the two
 CLI_GATE_FLAGS = CLI_EVAL_FLAGS[:-2] + ["--temperatures", "0.8", "--sample_batches", "512"]
 FID_GATE_BOUND = 80.0
+# the op/energy profiler on the trained VQ-VAE: the JAX package's counts of
+# its first 32 test images (scripts/syops_jax_record.py), the card's held to
+# them and to the CPU's: ops and MACs exactly, each rate within 1e-4 and the
+# ACs within 1e-4 of the layer's ops (a conv summed in another order may
+# put a membrane on the other side of its threshold)
+SYOPS_RECORD = (Path(__file__).resolve().parent / "spiking_diffusion_tpu_torch" / "profiling"
+                / "assets" / "syops_e60_jax.json")
+SYOPS_RECORD_IMAGES = 32  # the CLI's default --batch_size
+SYOPS_RATE_ATOL = 1e-4
+SYOPS_ACS_SHARE = 1e-4
+SYOPS_SAMPLES = 64  # generation_energy's default
+SYOPS_LAYERS = 19  # the VQ-VAE's counted layers: 3 x 3 encoder, 3 re-spike, 7 decoder
+# launches of one eval forward, as launch_counts() orders them
+SYOPS_VQ_LAUNCHES = {"auto": (6, 0, 0, 0, 0, 0, 0), "bnlif": (0, 0, 6, 0, 0, 0, 0)}
+SYOPS_DEN_LAUNCHES = {"auto": (5, 0, 0, 0, 0, 0, 0), "bnlif": (0, 0, 5, 0, 0, 0, 0)}
+SYOPS_TIMING_ITERS = 10
+SYOPS_SAMPLE_BATCH = 16  # the layerwise sample held before and after the profiles
+SYOPS_MONITOR_S = 0.5
+# the trace names each branch's neuron kernel (bn_lif_fwd_kernel also
+# contains lif_fwd_kernel)
+TRACE_KERNELS = {"auto": re.compile(r"(?<!bn_)lif_fwd_kernel"),
+                 "bnlif": re.compile(r"bn_lif_fwd_kernel")}
 
 
 def log(msg: str) -> None:
@@ -2152,7 +2199,228 @@ def phase_trained_weights(card: str) -> dict:
             "fused_logits_within_1e-5": logit_share, "k1_cli_max_abs_err": k1_err}
 
 
-# --- phase 10: the command-line interface -------------------------------------
+# --- phase 10: the op/energy profiler ----------------------------------------
+
+
+def syops_images(n: int) -> torch.Tensor:
+    """The first n test images as the CLI loads them at its default sizes
+    (the synthetic fallback), minus 0.5, on the card."""
+    args = cli.parse_args([])
+    ds = synthetic_dataset("MNIST", args.synthetic_train, args.synthetic_test)
+    return torch.from_numpy(ds.test_images[:n] - 0.5).cuda()
+
+
+def total_entry(total: dict) -> dict:
+    """The totals as an entry: ops, acs, macs, rate (the mean rate)."""
+    return {"ops": total["ops"], "acs": total["acs"], "macs": total["macs"],
+            "rate": total["mean_spike_rate"]}
+
+
+def hold_entry(what: str, got: dict, want: dict) -> tuple:
+    """An entry against a reference: ops and MACs equal, the rate within
+    SYOPS_RATE_ATOL, the ACs within SYOPS_ACS_SHARE of the ops. Returns
+    (|d rate|, |d ACs| / ops)."""
+    d_rate = abs(got["rate"] - want["rate"])
+    d_acs = abs(got["acs"] - want["acs"]) / want["ops"]
+    check(got["ops"] == want["ops"] and got["macs"] == want["macs"],
+          f"{what}: ops, MACs {got['ops']}, {got['macs']} against {want['ops']}, {want['macs']}")
+    check(d_rate <= SYOPS_RATE_ATOL and d_acs <= SYOPS_ACS_SHARE,
+          f"{what}: rate {got['rate']} against {want['rate']}, ACs {got['acs']} against "
+          f"{want['acs']}")
+    return d_rate, d_acs
+
+
+def hold_counts(what: str, per_layer: dict, total: dict, want_layer: dict,
+                want_total: dict) -> tuple:
+    """A profile against a reference, layer by layer and in total: the same
+    keys, each entry held by ``hold_entry``. Returns the largest |d rate|
+    and |d ACs| / ops."""
+    check(list(per_layer) == list(want_layer), f"{what}: keys {list(per_layer)}")
+    pairs = [(k, e, want_layer[k]) for k, e in per_layer.items()]
+    pairs.append(("totals", total_entry(total), total_entry(want_total)))
+    diffs = [hold_entry(f"{what}, {k}", e, w) for k, e, w in pairs]
+    return max(d[0] for d in diffs), max(d[1] for d in diffs)
+
+
+def hook_count(model: torch.nn.Module) -> int:
+    """Forward hooks on the model's modules, and LIF layers under a profile."""
+    return sum(len(m._forward_hooks) + len(m._forward_pre_hooks)
+               + (isinstance(m, LIF) and m.profile is not None) for m in model.modules())
+
+
+def add_counts(acc: list, counts: tuple) -> None:
+    for i, c in enumerate(counts):
+        acc[i] += c
+
+
+def phase_syops(card: str) -> dict:
+    """The op/energy profiler on the trained weights, with a
+    ``DeviceMonitor`` sampling the card's memory across it."""
+    dm = monitor.DeviceMonitor(interval=SYOPS_MONITOR_S)
+    try:
+        res = syops_checks(card)
+    finally:
+        records = dm.stop()
+    in_use = [r["0"]["bytes_in_use"] for r in records if "0" in r]
+    res["device_monitor"] = dm.summary()
+    log(f"  DeviceMonitor: {len(records)} samples every {SYOPS_MONITOR_S} s, bytes in use "
+        f"{min(in_use, default=0)}..{max(in_use, default=0)}, summary {res['device_monitor']}")
+    check(max(in_use, default=0) > 0, "DeviceMonitor saw no bytes in use")
+    return res
+
+
+def syops_checks(card: str) -> dict:
+    """The trained VQ-VAE profiled on 'auto' (K1) and 'bnlif' (K3): the
+    first 32 test images against the JAX package's record, 256 against the
+    CPU; the trained denoiser at the default probes of 64 sampled grids on
+    both branches; ``generation_energy``; no hook left and the launches of
+    a layerwise sample unchanged; the cost of counting (``benchmark``);
+    ``trace`` names each branch's kernel."""
+    dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
+    with open(SYOPS_RECORD) as f:
+        record = json.load(f)
+    args = cli.parse_args([])
+    check(record["images"] == SYOPS_RECORD_IMAGES == args.batch_size
+          and record["data_sizes"] == [args.synthetic_train, args.synthetic_test],
+          "the JAX record's images are not the CLI's")
+    images = syops_images(BATCH)
+    branches = tuple(SYOPS_VQ_LAUNCHES)
+    vqs = {b: load_trained("model", SNNVQVAE(vcfg, lif_backend=b), "cuda") for b in branches}
+    dens = {b: load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend=b), "cuda")
+            for b in branches}
+    models = list(vqs.values()) + list(dens.values())
+    check(all(hook_count(m) == 0 for m in models), "hooks on a model before profiling")
+    steps = len(diffusion.schedule(dcfg)[0])
+
+    def layerwise_sample():
+        gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
+        noise = diffusion.draw_noise(dcfg, SYOPS_SAMPLE_BATCH, steps, gen, "cuda")
+        reset_launch_counts()
+        codes = sample_codes(dens["auto"], dcfg, SYOPS_SAMPLE_BATCH, noise=noise, device="cuda")
+        return codes, launch_counts()
+
+    codes_before, launches_before = layerwise_sample()
+    check(launches_before == (5 * steps, 0, 0, 0, 0, 0, 0),
+          f"layerwise sample launches {launches_before}")
+    launches = [0] * 7
+    res = {"vqvae": {}}
+    for branch, vq in vqs.items():
+        reset_launch_counts()
+        _, per_layer, total = syops.profile_apply(vq, images[:SYOPS_RECORD_IMAGES], train=False)
+        counts = launch_counts()
+        add_counts(launches, counts)
+        check(counts == SYOPS_VQ_LAUNCHES[branch], f"{branch}: profile launches {counts}")
+        check(len(per_layer) == SYOPS_LAYERS, f"{branch}: {len(per_layer)} layers")
+        rec = record[branch]
+        d_rec = hold_counts(f"{branch} against the JAX record", per_layer, total,
+                            rec["per_layer"], rec["totals"])
+        n_params = syops.count_params(vq)
+        check(n_params == rec["count_params"], f"{branch}: {n_params} parameters")
+        reset_launch_counts()
+        _, per_layer, total = syops.profile_apply(vq, images, train=False)
+        counts = launch_counts()
+        add_counts(launches, counts)
+        check(counts == SYOPS_VQ_LAUNCHES[branch], f"{branch}: profile launches {counts}")
+        vq_cpu = load_trained("model", SNNVQVAE(vcfg, lif_backend=branch), "cpu")
+        _, per_layer_cpu, total_cpu = syops.profile_apply(vq_cpu, images.cpu(), train=False)
+        d_cpu = hold_counts(f"{branch} card against the CPU", per_layer, total, per_layer_cpu,
+                            total_cpu)
+        log(f"  VQ-VAE {branch}, eval: launches {format_counts(counts)}; {SYOPS_RECORD_IMAGES} "
+            f"images against the JAX record: max|d rate| {d_rec[0]:.3g}, max|d ACs|/ops "
+            f"{d_rec[1]:.3g}; {BATCH} images card against the CPU: {d_cpu[0]:.3g}, "
+            f"{d_cpu[1]:.3g} (tol {SYOPS_RATE_ATOL:g}, {SYOPS_ACS_SHARE:g}); at {BATCH}: ops "
+            f"{total['ops']:.6e}, ACs {total['acs']:.6e}, MACs {total['macs']:.6e}, mean rate "
+            f"{total['mean_spike_rate']:.6f}, {total['energy_mJ']:.6f} mJ, {n_params} "
+            "parameters")
+        res["vqvae"][branch] = {"totals": total, "against_record": d_rec, "against_cpu": d_cpu}
+
+    # the denoiser at the default probes of 64 grids sampled at 0.8
+    gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED + 1)
+    codes = sample_codes(dens["auto"], dcfg, SYOPS_SAMPLES, temperature=0.8, generator=gen,
+                         device="cuda")
+    probes = []
+    for t in syops.default_probe_steps(dcfg):
+        t_vec = torch.full((SYOPS_SAMPLES,), t, dtype=torch.int32, device="cuda")
+        u = torch.rand(codes.shape, generator=gen, device="cuda")
+        probes.append((diffusion.q_sample(codes, t_vec, dcfg.mask_id, dcfg.num_timesteps,
+                                          u)[0], t_vec))
+    probe_totals = {}
+    for branch, den in dens.items():
+        probe_totals[branch] = []
+        for x_t, t_vec in probes:
+            reset_launch_counts()
+            _, _, total = syops.profile_apply(den, x_t, t_vec)
+            counts = launch_counts()
+            add_counts(launches, counts)
+            check(counts == SYOPS_DEN_LAUNCHES[branch], f"denoiser {branch}: launches {counts}")
+            probe_totals[branch].append(total)
+    d_den = [hold_entry(f"denoiser probe t={int(t_vec[0])}, 'bnlif' against 'auto'",
+                        total_entry(b), total_entry(a))
+             for (_, t_vec), a, b in zip(probes, *probe_totals.values())]
+    log(f"  denoiser at the probes {syops.default_probe_steps(dcfg)} of {SYOPS_SAMPLES} grids: "
+        + "; ".join(f"t={int(t_vec[0])}: ops {a['ops']:.6e}, ACs {a['acs']:.6e}, MACs "
+                    f"{a['macs']:.6e}, mean rate {a['mean_spike_rate']:.6f}"
+                    for (_, t_vec), a in zip(probes, probe_totals["auto"]))
+        + f"; 'bnlif' against 'auto': max|d rate| {max(d[0] for d in d_den):.3g}, max|d ACs|/ops "
+        f"{max(d[1] for d in d_den):.3g}")
+    res["denoiser_probes"] = probe_totals
+
+    gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED + 2)
+    reset_launch_counts()
+    energy = syops.generation_energy(dens["auto"], vqs["auto"], dcfg, gen,
+                                     n_samples=SYOPS_SAMPLES, device="cuda")
+    counts = launch_counts()
+    add_counts(launches, counts)
+    probes_n = len(syops.default_probe_steps(dcfg))
+    want = (5 * steps + 5 * probes_n + K1_DECODE_LAUNCHES, 0, 0, 0, 0, 0, 0)
+    log(f"  generation_energy at {SYOPS_SAMPLES} samples, layerwise: "
+        + ", ".join(f"{k} {v!r}" for k, v in energy.items())
+        + f"; launches {format_counts(counts)}")
+    check(counts == want, f"generation_energy launches {counts}, expected {want}")
+    check(all(math.isfinite(v) and v > 0 for v in energy.values()),
+          f"generation_energy {energy}")
+    check(0 < energy["denoiser_spike_rate"] < 1, "denoiser spike rate outside (0, 1)")
+    res["generation_energy"] = energy
+
+    # profiling off: no hook left, and a sample launches what it did before
+    check(all(hook_count(m) == 0 for m in models), "a hook or profile left on a model")
+    codes_after, launches_after = layerwise_sample()
+    check(launches_after == launches_before and torch.equal(codes_after, codes_before),
+          f"layerwise sample after profiling: launches {launches_after}")
+    log(f"  profiling off: no hook on any model; a layerwise sample at {SYOPS_SAMPLE_BATCH} "
+        f"launches {format_counts(launches_after)} before and after, the same codes")
+
+    res["timing"] = {}
+    for branch, vq in vqs.items():
+        plain = benchmark(lambda: vq(images, train=False), iters=SYOPS_TIMING_ITERS)
+        counted = benchmark(lambda: syops.profile_apply(vq, images, train=False),
+                            iters=SYOPS_TIMING_ITERS)
+        res["timing"][branch] = {"forward": plain, "profiled": counted}
+        log(f"  VQ-VAE {branch} eval forward at {BATCH} (CUDA events, mean of "
+            f"{SYOPS_TIMING_ITERS}): {plain['mean_ms']:.3f} ms (min {plain['min_ms']:.3f}); "
+            f"profiled {counted['mean_ms']:.3f} ms (min {counted['min_ms']:.3f}) [{card}]")
+
+    res["trace"] = {}
+    with tempfile.TemporaryDirectory() as root:
+        for branch, vq in vqs.items():
+            with trace(os.path.join(root, branch)) as log_dir:
+                vq(images, train=False)
+            with open(os.path.join(log_dir, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+            hits = [n for n in names if TRACE_KERNELS[branch].search(n)]
+            others = [n for b, pat in TRACE_KERNELS.items() if b != branch
+                      for n in names if pat.search(n)]
+            log(f"  trace of one {branch} forward: {len(names)} kernel events, {len(hits)} of "
+                f"{sorted(set(hits))}")
+            check(len(hits) == SYOPS_VQ_LAUNCHES[branch][0 if branch == "auto" else 2]
+                  and not others, f"{branch} trace: kernels {sorted(set(names))}")
+            res["trace"][branch] = len(hits)
+    res["launches"] = tuple(launches)
+    return res
+
+
+# --- phase 11: the command-line interface -------------------------------------
 
 
 def temperatures(args) -> list:
@@ -2168,11 +2436,14 @@ def cli_launches(args) -> tuple:
     ``--checkpoint``) on 'bnlif': 5 + 5 K3 a step over twice the epochs,
     every 10th epoch 32 layerwise samples (5 K3 per reverse step) and their
     decode (3 K1). Recon: 6 K1 per batch. Each temperature: 49 K2 and a
-    decode (3 K1) per chunk of up to 512 images."""
+    decode (3 K1) per chunk of up to 512 images. ``--syops``: one eval
+    forward of the stage-1 model (6 K1)."""
     steps = 49
     n_train, batch = args.synthetic_train, args.batch_size
     k1_fwd = 3 * -(-n_train // 256) + 6 * (args.synthetic_test // batch)
     k1_bwd = k3_fwd = k3_bwd = 0
+    if args.syops:
+        k1_fwd += SYOPS_VQ_LAUNCHES["auto"][0]
     if not args.checkpoint:
         epochs, steps1 = args.epochs, n_train // batch
         samples = len(range(0, 2 * epochs, 10))
@@ -2186,16 +2457,32 @@ def cli_launches(args) -> tuple:
             K2_STEP_LAUNCHES * chunks, 0, 0)
 
 
+class Tee(io.TextIOBase):
+    """A text stream that writes to ``stream`` and keeps a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.copy = stream, io.StringIO()
+
+    def write(self, text: str) -> int:
+        self.copy.write(text)
+        return self.stream.write(text)
+
+    def flush(self) -> None:
+        self.stream.flush()
+
+
 def cli_run(flags, root: str, card: str) -> tuple:
     """``cli.main(flags)`` on the card with the counts reset just before,
     held to ``cli_launches``: (its return, its sample dir, its result dir,
-    launches)."""
+    launches, what it printed)."""
     dirs = ["--result_dir", os.path.join(root, "result"),
             "--sample_dir", os.path.join(root, "sample")]
     want = cli_launches(cli.parse_args(flags))
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = cli.main(flags + dirs, device="cuda")
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = cli.main(flags + dirs, device="cuda")
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     log(f"  cli.main {' '.join(flags)}: {seconds:.1f} s (host clock); stages "
@@ -2205,7 +2492,28 @@ def cli_run(flags, root: str, card: str) -> tuple:
     check(counts == want, f"cli launches {counts}, expected {want}")
     model_dir = os.path.join("MNIST", "snn-vq-vae")
     return out, os.path.join(root, "sample", model_dir), os.path.join(root, "result", model_dir), \
-        counts
+        counts, tee.copy.getvalue()
+
+
+def check_syops_report(printed: str) -> list:
+    """The ``--syops`` report in a CLI run's output: the header, a row per
+    counted layer of the VQ-VAE's 'auto' branch, the rule, the TOTAL row,
+    the parameters line and the three summary lines, in the JAX CLI's
+    format; returns its lines."""
+    lines = printed.splitlines()
+    heads = [i for i, line in enumerate(lines) if line.split()[:2] == ["layer", "Ops"]]
+    check(len(heads) == 1, f"{len(heads)} --syops reports")
+    report = lines[heads[0]:heads[0] + SYOPS_LAYERS + 7]
+    rows, tail = report[1:SYOPS_LAYERS + 1], report[SYOPS_LAYERS + 1:]
+    check(all(r.split()[0].endswith("/counters") and r.endswith("%") for r in rows),
+          "--syops rows")
+    check(len(tail) == 6 and tail[0] == "-" * 112 and tail[1].startswith("TOTAL ")
+          and tail[2].startswith("params: "), "--syops TOTAL and params lines")
+    for line, label in zip(tail[3:], ("Computational complexity ACs:",
+                                      "Computational complexity MACs:",
+                                      "Number of parameters: ")):
+        check(line.startswith(f"{label:<30}  "), f"--syops summary line {line!r}")
+    return report
 
 
 def check_metrics(path: str, flags) -> dict:
@@ -2231,7 +2539,9 @@ def phase_cli(card: str) -> dict:
     the eval of the committed trained weights with the JAX record's flags,
     and that eval at 0.8 over 8,192 images, the gate on its FID."""
     with tempfile.TemporaryDirectory() as root:
-        out, sample, result, train_counts = cli_run(CLI_TRAIN_FLAGS, root, card)
+        out, sample, result, train_counts, printed = cli_run(CLI_TRAIN_FLAGS, root, card)
+        report = check_syops_report(printed)
+        log(f"  --syops: a report of {SYOPS_LAYERS} layers, {report[SYOPS_LAYERS + 2]!r}")
         for name in ("epoch=0_test.png", "model.pt", "diff_result/epoch=0_test.png",
                      "diff_result/diff_model.pt"):
             check(os.path.isfile(os.path.join(result, name)), f"no {name}")
@@ -2240,10 +2550,10 @@ def phase_cli(card: str) -> dict:
         check(len(os.listdir(os.path.join(sample, "classes"))) > 0, "no classes/ grids")
         check_metrics(sample, CLI_TRAIN_FLAGS)
         train = {"launches": train_counts, "seconds": out["seconds"],
-                 "recon": [out["recon_mse"], out["recon_ssim_loss"]]}
+                 "recon": [out["recon_mse"], out["recon_ssim_loss"]], "syops": report[-6:]}
 
     with tempfile.TemporaryDirectory() as root:
-        out, sample, _, eval_counts = cli_run(CLI_EVAL_FLAGS, root, card)
+        out, sample, _, eval_counts, _ = cli_run(CLI_EVAL_FLAGS, root, card)
         metrics = check_metrics(sample, CLI_EVAL_FLAGS)
     temps = temperatures(cli.parse_args(CLI_EVAL_FLAGS))
     space = metrics["feature_space"]
@@ -2266,7 +2576,7 @@ def phase_cli(card: str) -> dict:
                   "recon": [out["recon_mse"], out["recon_ssim_loss"]], "metrics": metrics}
 
     with tempfile.TemporaryDirectory() as root:
-        out, sample, _, gate_counts = cli_run(CLI_GATE_FLAGS, root, card)
+        out, sample, _, gate_counts, _ = cli_run(CLI_GATE_FLAGS, root, card)
         gate = check_metrics(sample, CLI_GATE_FLAGS)
     n_gate = cli.parse_args(CLI_GATE_FLAGS).sample_batches * 16
     log(f"  gate: FID at 0.8 over {n_gate} images {gate['0.8']['FID']} (bound "
@@ -2370,6 +2680,9 @@ def main() -> int:
         with Phase("trained_weights"):
             torch.cuda.empty_cache()
             trained = phase_trained_weights(smi)
+        with Phase("syops"):
+            torch.cuda.empty_cache()
+            profiled = phase_syops(smi)
         with Phase("cli"):
             cli_runs = phase_cli(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2394,6 +2707,8 @@ def main() -> int:
         "launches_train_stage2": stage_launches(train["layerwise"], 0),
         "launches_train_stage1": stage_launches(train1["layerwise"], 0),
         "launches_cli": cli_launch_counts(cli_runs, 0),
+        # the profiler's runs on the trained weights (phase syops)
+        "launches_syops": profiled["launches"][0],
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -2434,6 +2749,7 @@ def main() -> int:
             "launches": stage_launches(train["bnlif"], idx),
             "launches_train_stage1": stage_launches(train1["bnlif"], idx),
             "launches_cli": cli_launch_counts(cli_runs, idx),
+            "launches_syops": profiled["launches"][idx],
             "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
             "ms": k3["fp32"][f"{key}_ms"], "plain_ms": k3["fp32"][f"{key}_plain_ms"],

@@ -24,9 +24,11 @@ What the port maps or refuses:
   * ``--lif_backend auto|pallas|scan|unroll`` all run stage 1 on K1 (the
     LIF's plain version serves only the CPU); only ``auto`` puts stage 2 on
     'bnlif' on the card, as the JAX CLI does on its accelerator.
-  * ``--model snn-vae`` and ``vq-vae``, ``--syops`` and ``--data_parallel``
-    above 1 raise ``NotImplementedError``; CIFAR10 and CIFAR10-BW raise
-    from ``load_dataset``.
+  * ``--syops`` prints the spike-aware op/energy report of the stage-1
+    model after stage 1, as the JAX CLI does (``profiling/syops.py``).
+  * ``--model snn-vae`` and ``vq-vae`` (ROADMAP.md queue 1, item 2) and
+    ``--data_parallel`` above 1 (item 4) raise ``NotImplementedError``;
+    CIFAR10 and CIFAR10-BW raise from ``load_dataset``.
 
 Usage:
     python -m spiking_diffusion_tpu_torch.cli --dataset_name MNIST \\
@@ -63,6 +65,7 @@ from spiking_diffusion_tpu_torch.metrics import (
     ssim,
 )
 from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from spiking_diffusion_tpu_torch.train.stage1 import extract_code_indices, train_vqvae
 from spiking_diffusion_tpu_torch.train.stage2 import train_diffusion
@@ -161,8 +164,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="snn-vae scheduled-sampling probability (snn-vae "
                         "is not ported)")
     p.add_argument("--syops", action="store_true",
-                   help="the spike-aware op/energy report; raises: "
-                        "profiling is not ported")
+                   help="print the spike-aware op/energy report of the "
+                        "stage-1 model")
     return p.parse_args(argv)
 
 
@@ -170,10 +173,7 @@ def _refuse(args: argparse.Namespace) -> None:
     """Raise for the choices the port does not run."""
     if args.model in ("snn-vae", "vq-vae"):
         raise NotImplementedError(
-            f"--model {args.model} is not ported (ROADMAP.md queue 1, item 5)")
-    if args.syops:
-        raise NotImplementedError(
-            "--syops: profiling is not ported (ROADMAP.md queue 1, item 2)")
+            f"--model {args.model} is not ported (ROADMAP.md queue 1, item 2)")
     if args.data_parallel > 1:
         raise NotImplementedError(
             "--data_parallel > 1: the port trains on one card (ROADMAP.md queue 1, item 4)")
@@ -240,6 +240,8 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
                     batch_size=args.batch_size, seed=args.seed, epoch_callback=epoch_cb,
                     data_parallel=args.data_parallel, device=dev)
     seconds["stage1"] = _clock(dev) - t0
+    if args.syops:
+        _print_syops(args, model, ds, dev)
 
     # ---- stage 2: diffusion prior ---------------------------------------
     print("prepare data for train diffusion...")
@@ -289,6 +291,18 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
     seconds["generation"] = _clock(dev) - t0
     return {"recon_mse": mse, "recon_ssim_loss": ssim_loss, "metrics": results,
             "seconds": seconds}
+
+
+def _print_syops(args, model, ds, dev):
+    """The stage-1 model's op/energy report in eval on the first
+    ``--batch_size`` test images, in the JAX CLI's format."""
+    imgs = torch.from_numpy(ds.test_images[:args.batch_size] - 0.5).to(dev)
+    _, per_layer, total = syops.profile_apply(model, imgs, train=False)
+    n_params = syops.count_params(model)
+    print(syops.format_report(per_layer, total, n_params))
+    print("{:<30}  {:.3e}".format("Computational complexity ACs:", total["acs"]))
+    print("{:<30}  {:.3e}".format("Computational complexity MACs:", total["macs"]))
+    print("{:<30}  {:,}".format("Number of parameters: ", n_params))
 
 
 @torch.no_grad()

@@ -41,6 +41,7 @@ from torch import nn
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models.layers import LIF, SeqBatchNorm, SeqConv
 from spiking_diffusion_tpu_torch.ops.bn_lif import bn_lif
+from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.snn.encoding import direct_encode
 from spiking_diffusion_tpu_torch.snn.neuron import BACKENDS
 
@@ -107,6 +108,7 @@ class SpikingDenoiser(nn.Module):
                 y_seq = y.reshape((1 if i == 0 else t_steps, -1) + tuple(y.shape[1:]))
                 s = bn_lif(y_seq, scale, shift, self.params, t_out=t_steps,
                            reference=self.lif_backend in PLAIN_BACKENDS)
+                syops.record_fused(lif, s)
                 h = s.reshape((-1,) + tuple(y.shape[1:]))
             else:
                 h = bn(y)

@@ -167,6 +167,10 @@ class LIF(nn.Module):
     Stateless: the membrane starts at v_reset on every call.
     """
 
+    # the profile counting this layer while ``profiling.syops.profile_apply``
+    # runs, for the fused call sites that run K3 in place of this layer
+    profile = None
+
     def __init__(self, params: NeuronParams, num_steps: int,
                  backend: str = "auto"):
         super().__init__()

@@ -44,6 +44,7 @@ from spiking_diffusion_tpu_torch.models.layers import (
     SeqConvTranspose,
 )
 from spiking_diffusion_tpu_torch.ops.bn_lif import bn_lif
+from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.snn.encoding import direct_encode
 from spiking_diffusion_tpu_torch.snn.neuron import BACKENDS
 from spiking_diffusion_tpu_torch.snn.temporal import membrane_output, psp
@@ -63,13 +64,15 @@ def bn_spikes(y: torch.Tensor, bn: SeqBatchNorm, lif: LIF, t_in: int,
               backend: str) -> torch.Tensor:
     """BN then LIF of a conv output (t_in*N, C, H, W) -> spikes (T*N, C, H,
     W); with t_in = 1 the normalised input is repeated over the T steps.
-    On the fused branches K3 applies BN's affine inside the recurrence."""
+    On the fused branches K3 applies BN's affine inside the recurrence, and
+    a profile counting ``lif`` counts that neuron layer here."""
     t_steps = lif.num_steps
     if backend in BNLIF_BACKENDS:
         scale, shift = bn(y, return_affine=True)
         y_seq = y.reshape((t_in, -1) + tuple(y.shape[1:]))
         s = bn_lif(y_seq, scale, shift, lif.params, t_out=t_steps,
                    reference=backend == "bnlif_torch")
+        syops.record_fused(lif, s)
         return s.reshape((-1,) + tuple(y.shape[1:]))
     h = bn(y)
     if t_in == 1:

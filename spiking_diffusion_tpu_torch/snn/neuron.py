@@ -75,8 +75,11 @@ def lif_scan(
     x_seq: torch.Tensor,
     v_init: Optional[torch.Tensor] = None,
     params: NeuronParams = NeuronParams(),
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """LIF over a (T, ...) input; returns (spikes in the input dtype, v_T).
+    return_v_seq: bool = False,
+):
+    """LIF over a (T, ...) input; returns (spikes in the input dtype, v_T),
+    or with ``return_v_seq`` (spikes, the membrane after each step (T, ...),
+    v_T).
 
     Membranes are fp32 whatever the input dtype.
     """
@@ -86,11 +89,16 @@ def lif_scan(
                        device=x_seq.device)
     else:
         v = v_init.float()
-    spikes = []
+    spikes, v_seq = [], []
     for t in range(xt.shape[0]):
         v, s = lif_step(v, xt[t], params)
         spikes.append(s)
-    return torch.stack(spikes).to(x_seq.dtype), v
+        if return_v_seq:
+            v_seq.append(v)
+    s_seq = torch.stack(spikes).to(x_seq.dtype)
+    if return_v_seq:
+        return s_seq, torch.stack(v_seq), v
+    return s_seq, v
 
 
 def lif_multi_step(

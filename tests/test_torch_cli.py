@@ -4,6 +4,9 @@
   the same option strings, default, choices, type and action, and no
   other flag.
 * The choices the port does not run raise.
+* ``--syops`` prints ``format_report`` of ``profile_apply`` on the trained
+  stage-1 model and the first ``--batch_size`` test images, and JAX's
+  three summary lines.
 * A tiny two-stage run on the CPU (the denoiser narrowed to 8-16 channels
   by monkeypatching the CLI's ``DiffusionConfig``, T = 2, K = 8) writes
   the JAX CLI's artifact tree, ``.pt`` files in place of the orbax
@@ -35,8 +38,10 @@ from spiking_diffusion_tpu.metrics import ssim as jax_ssim
 from spiking_diffusion_tpu.models.vqvae import SNNVQVAE as JaxSNNVQVAE
 from spiking_diffusion_tpu.train.checkpoint import load_variables
 from spiking_diffusion_tpu_torch import cli
-from spiking_diffusion_tpu_torch.config import DiffusionConfig
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.data import synthetic_dataset
 from spiking_diffusion_tpu_torch.models import weights
+from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.train import stage2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,7 +108,6 @@ def test_parser_flag_equals_jax(dest):
 @pytest.mark.parametrize("flags,error", [
     (["--model", "snn-vae"], NotImplementedError),
     (["--model", "vq-vae"], NotImplementedError),
-    (["--syops"], NotImplementedError),
     (["--data_parallel", "2"], NotImplementedError),
     (["--dataset_name", "CIFAR10"], ValueError),
     (["--dataset_name", "CIFAR10-BW"], ValueError),
@@ -144,6 +148,33 @@ def test_tiny_run_writes_the_jax_artifact_tree(tmp_path, monkeypatch):
     assert out["metrics"]["null_FID"] == metrics["null_FID"]
     assert np.isfinite(out["recon_mse"]) and 0.0 <= out["recon_ssim_loss"] <= 2.0
     assert set(out["seconds"]) == {"stage1", "codes", "stage2", "recon", "generation"}
+
+
+def test_syops_prints_the_report(tmp_path, monkeypatch, capsys):
+    """``--syops`` prints the report of the trained stage-1 model on the
+    first ``--batch_size`` test images, and the three summary lines."""
+    monkeypatch.setattr(cli, "DiffusionConfig",
+                        functools.partial(DiffusionConfig, denoiser_channels=TINY_CHANNELS))
+    flags = TINY_FLAGS + ["--syops"]
+    cli.main(flags + _dirs(tmp_path), device="cpu")
+    printed = capsys.readouterr().out
+    args = cli.parse_args(flags)
+    vq_cfg = VQVAEConfig(num_steps=args.num_steps, num_embeddings=args.codebook_size)
+    model = weights.load_vqvae(*weights.init_vqvae_variables(vq_cfg, torch.Generator()),
+                               vq_cfg, device="cpu")
+    saved = torch.load(tmp_path / "result" / "MNIST" / "snn-vq-vae" / "model.pt",
+                       weights_only=True)
+    model.load_state_dict(saved["model"])
+    ds = synthetic_dataset("MNIST", args.synthetic_train, args.synthetic_test)
+    images = torch.from_numpy(ds.test_images[:args.batch_size] - 0.5)
+    _, per_layer, total = syops.profile_apply(model, images, train=False)
+    n_params = syops.count_params(model)
+    report = syops.format_report(per_layer, total, n_params)
+    assert report in printed and len(report.splitlines()) == 19 + 4
+    assert "\n".join([
+        "{:<30}  {:.3e}".format("Computational complexity ACs:", total["acs"]),
+        "{:<30}  {:.3e}".format("Computational complexity MACs:", total["macs"]),
+        "{:<30}  {:,}".format("Number of parameters: ", n_params)]) in printed
 
 
 def test_checkpoint_recon_equals_jax(tmp_path):

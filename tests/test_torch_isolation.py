@@ -36,7 +36,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage",
-             "metrics.scores", "metrics.ssim", "utils.grids"):
+             "metrics.scores", "metrics.ssim", "utils.grids", "profiling.syops",
+             "profiling.timing", "profiling.monitor"):
     assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"

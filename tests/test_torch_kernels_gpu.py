@@ -31,7 +31,9 @@ bitwise in int8, where every partial sum is an exact integer; in fp32 and bf16 i
 order than cuBLAS's, so a membrane one rounding from threshold may flip a
 spike: at least 99 % of the logits lie within 1e-4 and the median
 |difference| is at most 1e-6; its conv and readout kernels run on the
-tensor cores (HMMA in their SASS), and it refuses T > 128.
+tensor cores (HMMA in their SASS), and it refuses T > 128. The op/energy
+counters (``profiling/syops.py``) of a full-width VQ-VAE and denoiser
+forward through K1 or K3 equal those through the plain versions.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed. Without a CUDA device every test skips with a reason. On a
@@ -466,6 +468,53 @@ def test_stage1_train_step_kernels_match_plain(cuda_device, deterministic_cudnn,
     assert tuple(a - b for a, b in zip(_counts(), before)) == STAGE1_ENCODE_LAUNCHES[backend]
     assert torch.equal(codes, model_p.encode_indices(images))
     assert codes.shape == (8, 7, 7) and codes.dtype == torch.int32
+
+
+# --- the op/energy counters through K1 and K3 -------------------------------
+
+# launches of one eval forward: K1 fwd, K1 bwd, K3 fwd, K3 bwd, K4 fwd, K4 bwd
+PROFILE_LAUNCHES = {("vqvae", "auto"): (6, 0, 0, 0, 0, 0),
+                    ("vqvae", "bnlif"): (0, 0, 6, 0, 0, 0),
+                    ("denoiser", "auto"): (5, 0, 0, 0, 0, 0),
+                    ("denoiser", "bnlif"): (0, 0, 5, 0, 0, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["vqvae", "denoiser"])
+@pytest.mark.parametrize("backend,plain", [("auto", "torch"), ("bnlif", "bnlif_torch")])
+def test_profile_counters_match_plain(cuda_device, deterministic_cudnn, model, backend,
+                                      plain):
+    """The counters of a full-width eval forward through K1 ('auto') or K3
+    ('bnlif') equal those through their plain versions, the kernels being
+    bitwise theirs, with the forward's launches and none while not
+    profiling beyond the forward's own."""
+    from spiking_diffusion_tpu_torch.profiling import syops
+
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    if model == "vqvae":
+        cfg = VQVAEConfig()
+        variables = weights.init_vqvae_variables(cfg, torch.Generator().manual_seed(2))
+        load = weights.load_vqvae
+        args = (torch.rand((8, 28, 28, 1), generator=gen, device=cuda_device) - 0.5,)
+    else:
+        cfg = DiffusionConfig()
+        variables = weights.init_denoiser_variables(cfg, torch.Generator().manual_seed(2))
+        load = weights.load_denoiser
+        args = (torch.randint(0, 129, (8, 7, 7), generator=gen, device=cuda_device),
+                torch.randint(1, 50, (8,), generator=gen, device=cuda_device))
+    kernel, ref = (load(*variables, cfg, device=cuda_device, lif_backend=b)
+                   for b in (backend, plain))
+    weights.calibrate_batchnorm(kernel, lambda: kernel(*args))  # the LIF layers fire
+    ref.load_state_dict(kernel.state_dict())
+    before = _counts()
+    kernel(*args)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == PROFILE_LAUNCHES[model, backend]
+    before = _counts()
+    _, per_layer, total = syops.profile_apply(kernel, *args)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == PROFILE_LAUNCHES[model, backend]
+    _, per_layer_p, total_p = syops.profile_apply(ref, *args)
+    assert per_layer == per_layer_p and total == total_p
+    assert 0.0 < total["acs"] and 0.0 < total["mean_spike_rate"] < 1.0
 
 
 # --- K2 ----------------------------------------------------------------------
