@@ -193,6 +193,38 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    record's 46.5738; every number logged beside the record's. Then the
    gate: the same eval at 0.8 over 8,192 generated images, exact launches,
    10 modes and FID under ``FID_GATE_BOUND``.
+12. cli_vq_vae: ``--model vq-vae`` (the ANN VQ-VAE, no kernel in stage 1)
+   through ``cli.main`` twice, the launches held exactly: a training run
+   with the cli phase's flags (K3 in stage 2, fp32 K2 in the sweep, no K1)
+   whose ``--syops`` report has no layer row, as the JAX CLI's for that
+   model; then the eval of the exported baseline
+   (``result_torch/MNIST/vq-vae``) with its record's flags (fp32,
+   ``--batch_size 256``, 60,000 + 10,240 synthetic images, 8,192
+   reference images, 0.8 and 1.0 of 1,280 images): frozen stats verified,
+   null FID within 0.01 of 12.676, 10 modes, FID at 0.8 under twice the
+   record's 172.406, every figure logged beside the record's. Its recon
+   of 1,024 images on the card and the CPU: MSE and 1 - SSIM within 1e-4,
+   the codes that differ counted.
+13. cli_snn_vae: ``--model snn-vae`` on the card. Every K1 launch of a
+   training step at batch 32 and 256 (the latent head's (16, N·56) and the
+   decoder input's (16, N·784) among them), forward and backward, bitwise
+   against the plain versions; a CLI training run with ``--vae_scheduled_p
+   anneal`` (exactly 7 + 7 K1 a step and 3 K1 a sample call; ``model.pt``
+   and ``image.png``); 4 steps of the exported baseline at batch 32 and
+   256 on 'auto' (7 + 7 K1 a step) and 'bnlif' (5 + 5 K3 and 2 + 2 K1),
+   ms per step by CUDA events, one more step by kernel, the first step at
+   32 equal to the plain versions' on the card; ``sample`` of 64 on one
+   injected choice, card against CPU: z equal, images within 1e-4; the
+   eval of the exported baseline with its record's flags (10,240 samples,
+   8,192 reference images), IS, KID and FID logged beside the record's
+   8.98 and 801.5.
+14. metrics_extra: InceptionV3 of seeded weights (BN statistics from 4
+   calibration images) at 299 on 8 images in both pipelines, card against
+   CPU within 1e-4 of the largest output, and its forward time;
+   ``clean_resize`` of 64 uint8 images card against CPU within 1e-5; the
+   freeze protocol at canonical sizes (60,000 + 10,240 images, 5 epochs)
+   into a temporary root, read back in mode 'on' and its stats verified
+   as the CLI verifies them, with its seconds.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -203,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import math
@@ -221,12 +254,15 @@ import numpy as np
 import torch
 
 from spiking_diffusion_tpu_torch import cli
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
-from spiking_diffusion_tpu_torch.data import data_variance, synthetic_dataset
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.data import data_variance, load_dataset, synthetic_dataset
 from spiking_diffusion_tpu_torch.generate import sample_codes
+from spiking_diffusion_tpu_torch.metrics import cleanfid, frozen, inception
 from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.models.ann_vqvae import ANNVQVAE
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
 from spiking_diffusion_tpu_torch.models.layers import LIF, SeqConv
+from spiking_diffusion_tpu_torch.models.snn_vae import SNNVAE
 from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 from spiking_diffusion_tpu_torch.ops import _build
 from spiking_diffusion_tpu_torch.ops import bn_lif as bnl
@@ -406,6 +442,41 @@ SYOPS_MONITOR_S = 0.5
 # contains lif_fwd_kernel)
 TRACE_KERNELS = {"auto": re.compile(r"(?<!bn_)lif_fwd_kernel"),
                  "bnlif": re.compile(r"bn_lif_fwd_kernel")}
+# the paper's two baselines: the exported weights of the JAX package's
+# round-3 MNIST runs (scripts/export_torch_weights.py)
+BASELINES = Path(__file__).resolve().parent / "result_torch" / "MNIST"
+# the JAX package's record of the ANN VQ-VAE's eval on a TPU, in fp32
+# (sample_r3/MNIST/vq-vae/metrics.json; quality, not speed)
+VQ_VAE_RECORD = {"0.8": {"IS": 9.2838, "FID": 172.406, "mode_KL": 0.0444, "covered_modes": 10},
+                 "1.0": {"IS": 9.3644, "FID": 124.7888, "mode_KL": 0.0281, "covered_modes": 10},
+                 "null_FID": 12.676, "sha256": "fa7286439409571c"}
+VQ_VAE_FID_08_BOUND = 2 * VQ_VAE_RECORD["0.8"]["FID"]  # phase cli's band for e60
+# the SNN-VAE's run in the same frozen space (STATUS_r3.md:64)
+SNN_VAE_RECORD = {"FID": 801.5, "IS": 8.98}
+CLI_VQ_TRAIN_FLAGS = ["--model", "vq-vae"] + CLI_TRAIN_FLAGS
+CLI_VQ_EVAL_FLAGS = ["--model", "vq-vae", "--checkpoint", str(BASELINES / "vq-vae"),
+                     "--batch_size", "256", "--synthetic_train", "60000", "--synthetic_test",
+                     "10240", "--ref_size", "8192", "--frozen_metrics", "on",
+                     "--temperatures", "0.8,1.0"]
+CLI_SNN_TRAIN_FLAGS = ["--model", "snn-vae", "--epochs", "1", "--batch_size", "32",
+                       "--synthetic_train", "512", "--synthetic_test", "2560", "--ref_size",
+                       "1280", "--vae_scheduled_p", "anneal", "--frozen_metrics", "on"]
+CLI_SNN_EVAL_FLAGS = ["--model", "snn-vae", "--checkpoint", str(BASELINES / "snn-vae"),
+                      "--batch_size", "256", "--synthetic_train", "60000", "--synthetic_test",
+                      "10240", "--ref_size", "8192", "--frozen_metrics", "on"]
+SNN_VAE_BRANCHES = {"layerwise": ("auto", "torch"), "bnlif": ("bnlif", "bnlif_torch")}
+# launches of an SNN-VAE training step (encoder 3, the heads 2, decoder 2)
+# and of a sample call (the decoder input, decoder 2), as launch_counts() orders them
+SNN_VAE_STEP_LAUNCHES = {"layerwise": (7, 7, 0, 0, 0, 0, 0), "bnlif": (2, 2, 5, 5, 0, 0, 0)}
+SNN_VAE_SAMPLE_LAUNCHES = {"layerwise": (3, 0, 0, 0, 0, 0, 0), "bnlif": (1, 0, 2, 0, 0, 0, 0)}
+SNN_VAE_SAMPLE_CHECK = 64  # images of the sample held card against CPU
+SNN_VAE_SAMPLE_ATOL = 1e-4
+INCEPTION_CALIBRATION = 4  # images whose batch statistics set the seeded net's BN
+INCEPTION_IMAGES = 8
+INCEPTION_REPS = 5
+INCEPTION_RTOL = 1e-4  # of the largest output: the CPU tests' tolerance against JAX
+RESIZE_ATOL = 1e-5
+FREEZE_SIZES = (60000, 10240)  # the canonical freeze protocol's sets
 
 
 def log(msg: str) -> None:
@@ -2437,7 +2508,12 @@ def cli_launches(args) -> tuple:
     every 10th epoch 32 layerwise samples (5 K3 per reverse step) and their
     decode (3 K1). Recon: 6 K1 per batch. Each temperature: 49 K2 and a
     decode (3 K1) per chunk of up to 512 images. ``--syops``: one eval
-    forward of the stage-1 model (6 K1)."""
+    forward of the stage-1 model (6 K1). The ANN VQ-VAE (``--model
+    vq-vae``) runs no kernel: its runs launch the K3 and K2 terms only.
+    ``--model snn-vae``: ``snn_vae_cli_launches``."""
+    if args.model == "snn-vae":
+        return snn_vae_cli_launches(args)
+    spiking = 0 if args.model == "vq-vae" else 1  # stage 1's K1 launches
     steps = 49
     n_train, batch = args.synthetic_train, args.batch_size
     k1_fwd = 3 * -(-n_train // 256) + 6 * (args.synthetic_test // batch)
@@ -2453,8 +2529,19 @@ def cli_launches(args) -> tuple:
         k3_bwd = K3_PER_STEP * 2 * epochs * steps1
     n_total = args.sample_batches * 16
     chunks = len(temperatures(args)) * -(-n_total // min(512, n_total))
-    return (k1_fwd + K1_DECODE_LAUNCHES * chunks, k1_bwd, k3_fwd, k3_bwd,
-            K2_STEP_LAUNCHES * chunks, 0, 0)
+    return (spiking * (k1_fwd + K1_DECODE_LAUNCHES * chunks), spiking * k1_bwd, k3_fwd,
+            k3_bwd, K2_STEP_LAUNCHES * chunks, 0, 0)
+
+
+def snn_vae_cli_launches(args) -> tuple:
+    """Launches of a ``--model snn-vae`` run (the CLI maps every
+    ``--lif_backend`` to 'auto'): 7 + 7 K1 a training step (unless
+    ``--checkpoint``), then 3 K1 per ``sample`` call, one for the grid and
+    ``cli.SNN_VAE_SAMPLE_CALLS`` for the scores."""
+    steps = 0 if args.checkpoint else args.epochs * (args.synthetic_train // args.batch_size)
+    fwd, bwd = SNN_VAE_STEP_LAUNCHES["layerwise"][:2]
+    sample = SNN_VAE_SAMPLE_LAUNCHES["layerwise"][0] * (1 + cli.SNN_VAE_SAMPLE_CALLS)
+    return (fwd * steps + sample, bwd * steps, 0, 0, 0, 0, 0)
 
 
 class Tee(io.TextIOBase):
@@ -2477,7 +2564,8 @@ def cli_run(flags, root: str, card: str) -> tuple:
     launches, what it printed)."""
     dirs = ["--result_dir", os.path.join(root, "result"),
             "--sample_dir", os.path.join(root, "sample")]
-    want = cli_launches(cli.parse_args(flags))
+    args = cli.parse_args(flags)
+    want = cli_launches(args)
     reset_launch_counts()
     t0 = time.perf_counter()
     tee = Tee(sys.stdout)
@@ -2485,26 +2573,28 @@ def cli_run(flags, root: str, card: str) -> tuple:
         out = cli.main(flags + dirs, device="cuda")
     seconds = time.perf_counter() - t0
     counts = launch_counts()
+    figures = (f"recon MSE {out['recon_mse']:.6f}, 1 - SSIM {out['recon_ssim_loss']:.6f}"
+               if "recon_mse" in out else
+               f"IS {out['IS']:.4f}, KID_x1e3 {out['KID_x1e3']:.4f}, FID {out['FID']:.4f}")
     log(f"  cli.main {' '.join(flags)}: {seconds:.1f} s (host clock); stages "
         + ", ".join(f"{k} {v:.2f} s" for k, v in out["seconds"].items())
-        + f"; recon MSE {out['recon_mse']:.6f}, 1 - SSIM {out['recon_ssim_loss']:.6f}; "
-        f"launches {format_counts(counts)} [{card}]")
+        + f"; {figures}; launches {format_counts(counts)} [{card}]")
     check(counts == want, f"cli launches {counts}, expected {want}")
-    model_dir = os.path.join("MNIST", "snn-vq-vae")
+    model_dir = os.path.join(args.dataset_name, args.model)
     return out, os.path.join(root, "sample", model_dir), os.path.join(root, "result", model_dir), \
         counts, tee.copy.getvalue()
 
 
-def check_syops_report(printed: str) -> list:
+def check_syops_report(printed: str, layers: int = SYOPS_LAYERS) -> list:
     """The ``--syops`` report in a CLI run's output: the header, a row per
-    counted layer of the VQ-VAE's 'auto' branch, the rule, the TOTAL row,
-    the parameters line and the three summary lines, in the JAX CLI's
-    format; returns its lines."""
+    counted layer (``layers``: the VQ-VAE's 'auto' branch has 19, the ANN
+    VQ-VAE none), the rule, the TOTAL row, the parameters line and the
+    three summary lines, in the JAX CLI's format; returns its lines."""
     lines = printed.splitlines()
     heads = [i for i, line in enumerate(lines) if line.split()[:2] == ["layer", "Ops"]]
     check(len(heads) == 1, f"{len(heads)} --syops reports")
-    report = lines[heads[0]:heads[0] + SYOPS_LAYERS + 7]
-    rows, tail = report[1:SYOPS_LAYERS + 1], report[SYOPS_LAYERS + 1:]
+    report = lines[heads[0]:heads[0] + layers + 7]
+    rows, tail = report[1:layers + 1], report[layers + 1:]
     check(all(r.split()[0].endswith("/counters") and r.endswith("%") for r in rows),
           "--syops rows")
     check(len(tail) == 6 and tail[0] == "-" * 112 and tail[1].startswith("TOTAL ")
@@ -2599,6 +2689,305 @@ def cli_launch_counts(runs: dict, idx: int) -> dict:
     return {run: runs[run]["launches"][idx] for run in CLI_RUNS}
 
 
+# --- phases 12-14: the paper's baselines and the metrics' other modules ------
+
+
+def baseline_model(model: str, module: torch.nn.Module, device) -> torch.nn.Module:
+    """A baseline's exported stage-1 state dict (``weights_only``) into a
+    full-width module, strictly, in eval mode on ``device``."""
+    ckpt = torch.load(BASELINES / model / "model.pt", map_location=device, weights_only=True)
+    module.load_state_dict(ckpt["model"], strict=True)
+    return module.to(device).eval()
+
+
+def phase_cli_vq_vae(card: str) -> dict:
+    """``--model vq-vae`` (the ANN VQ-VAE) through ``cli.main`` on the card:
+    a short two-stage training run (exact K3 and K2 launches, no K1) with
+    ``--syops`` (no counted layer), the eval of the exported baseline with
+    its record's flags, and its recon of 1,024 images card against CPU."""
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, result, train_counts, printed = cli_run(CLI_VQ_TRAIN_FLAGS, root, card)
+        report = check_syops_report(printed, layers=0)
+        log(f"  --syops of the ANN VQ-VAE: no layer rows, {report[2]!r}")
+        for name in ("epoch=0_test.png", "model.pt", "diff_result/epoch=0_test.png",
+                     "diff_result/diff_model.pt"):
+            check(os.path.isfile(os.path.join(result, name)), f"vq-vae: no {name}")
+        for name in ("0.8/image_0.8_0.png", "paper_image.png"):
+            check(os.path.isfile(os.path.join(sample, name)), f"vq-vae: no {name}")
+        check_metrics(sample, CLI_VQ_TRAIN_FLAGS)
+        train = {"launches": train_counts, "seconds": out["seconds"],
+                 "recon": [out["recon_mse"], out["recon_ssim_loss"]]}
+
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, _, eval_counts, _ = cli_run(CLI_VQ_EVAL_FLAGS, root, card)
+        metrics = check_metrics(sample, CLI_VQ_EVAL_FLAGS)
+    space = metrics["feature_space"]
+    log(f"  vq-vae eval: feature space {space}; null FID {metrics['null_FID']} (JAX record "
+        f"{VQ_VAE_RECORD['null_FID']})")
+    for t in temperatures(cli.parse_args(CLI_VQ_EVAL_FLAGS)):
+        entry, rec = metrics[str(t)], VQ_VAE_RECORD[str(t)]
+        log(f"  vq-vae eval temperature {t}: " + ", ".join(
+            f"{k} {entry[k]} (JAX record {rec[k]})" for k in rec)
+            + f"; KID_x1e3 {entry['KID_x1e3']}; {entry['images_per_sec']} images/s [{card}]")
+        check(entry["covered_modes"] == 10, f"vq-vae eval {t}: a mode not covered")
+    check(space["stats_verified"] and space["frozen"], "vq-vae eval: frozen stats not verified")
+    check(space["sha256"] == VQ_VAE_RECORD["sha256"], f"vq-vae feature space {space['sha256']}")
+    check(abs(metrics["null_FID"] - VQ_VAE_RECORD["null_FID"]) <= NULL_FID_ATOL,
+          f"vq-vae null FID {metrics['null_FID']}")
+    check(metrics["0.8"]["FID"] < VQ_VAE_FID_08_BOUND,
+          f"vq-vae FID at 0.8 {metrics['0.8']['FID']} not under {VQ_VAE_FID_08_BOUND}")
+    evaluation = {"launches": eval_counts, "seconds": out["seconds"],
+                  "recon": [out["recon_mse"], out["recon_ssim_loss"]], "metrics": metrics}
+
+    # the CLI's recon of 1,024 test images, card against CPU; the codes of
+    # the two may differ at near-ties, which the log counts
+    vq = baseline_model("vq-vae", ANNVQVAE(VQVAEConfig()), "cuda")
+    vq_cpu = baseline_model("vq-vae", ANNVQVAE(VQVAEConfig()), "cpu")
+    ds = synthetic_dataset("MNIST", n_train=0, n_test=TRAINED_IMAGES)
+    args = argparse.Namespace(batch_size=BATCH)
+    reset_launch_counts()
+    card_recon = cli._eval_recon(args, vq, ds, torch.device("cuda"))
+    counts = launch_counts()
+    cpu_recon = cli._eval_recon(args, vq_cpu, ds, torch.device("cpu"))
+    d_recon = [abs(a - b) for a, b in zip(card_recon, cpu_recon)]
+    x = torch.from_numpy(ds.test_images - 0.5)
+    codes = vq.encode_indices(x.cuda()).cpu()
+    differing = int((codes != vq_cpu.encode_indices(x)).sum())
+    log(f"  vq-vae recon of {TRAINED_IMAGES} images: card MSE {card_recon[0]:.8f}, 1 - SSIM "
+        f"{card_recon[1]:.8f}; CPU {cpu_recon[0]:.8f}, {cpu_recon[1]:.8f}; |d| "
+        f"{d_recon[0]:.3g}, {d_recon[1]:.3g} (tol {STAGE1_CPU_LOSS_ATOL:g}); codes differing "
+        f"card against CPU: {differing} of {codes.numel()}, {len(torch.unique(codes))} "
+        f"distinct; launches {format_counts(counts)} [{card}]")
+    check(counts == (0,) * 7, f"the ANN VQ-VAE launched {counts}")
+    check(max(d_recon) <= STAGE1_CPU_LOSS_ATOL, "vq-vae recon: card against CPU")
+    return {"train": train, "eval": evaluation,
+            "recon": {"card": card_recon, "cpu": cpu_recon, "codes_differing": differing}}
+
+
+def snn_vae_model(backend: str, device) -> SNNVAE:
+    """The exported SNN-VAE on ``device`` on branch ``backend``, in
+    training mode."""
+    return baseline_model("snn-vae", SNNVAE(SNNVAEConfig(), VQVAEConfig(), backend),
+                          device).train()
+
+
+def snn_vae_images(n: int) -> torch.Tensor:
+    """n synthetic training images as the CLI feeds them, on the card."""
+    ds = synthetic_dataset("MNIST", n_train=BATCH, n_test=1, seed=0)
+    return torch.from_numpy(ds.train_images[:n]).cuda() - 0.5
+
+
+def k1_bwd_launches_of(run) -> list:
+    """(x, v_init, spike cotangent, params, need_dv0) of every K1 backward
+    launch that ``run()`` makes, copied as the kernel gets them."""
+    seen = []
+    bwd = lif_op.lif_bwd
+
+    def record(x, v_init, gs, params=NeuronParams(), need_dv0=True):
+        seen.append((x.clone(), None if v_init is None else v_init.clone(), gs.clone(),
+                     params, need_dv0))
+        return bwd(x, v_init, gs, params, need_dv0)
+
+    lif_op.lif_bwd = record
+    try:
+        run()
+    finally:
+        lif_op.lif_bwd = bwd
+    return seen
+
+
+def snn_vae_k1_shapes(n: int, card: str) -> float:
+    """Every K1 launch of an SNN-VAE training step at batch n on 'auto'
+    (the heads' (16, n*56) and (16, n*784) among them), forward and
+    backward, held bitwise against its plain version; returns the largest
+    difference."""
+    model = snn_vae_model("auto", "cuda")
+    images = snn_vae_images(n)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    fwd = k1_launches_of(lambda: model(images, gen, p_scheduled=0.2))
+    err = max(compare_lif(x, v_init, params, rate_range=None) for x, v_init, params in fwd)
+    gen.manual_seed(1)
+    state = create_train_state(model)
+    bwd = k1_bwd_launches_of(lambda: cli.make_train_step_snn_vae()(state, images, gen, 0.2))
+    for x, v_init, gs, params, need_dv0 in bwd:
+        dx, dv = lif_op.lif_bwd(x, v_init, gs, params, need_dv0)
+        dx_ref, dv_ref = lif_op.lif_bwd_reference(x, v_init, gs, params, need_dv0)
+        check(torch.equal(dx, dx_ref) and (dv is None) == (dv_ref is None),
+              "K1 bwd differs from the plain version at an SNN-VAE shape")
+        err = max(err, float((dx - dx_ref).abs().max()))
+    m_fwd = [x.shape[1] for x, _, _ in fwd]
+    check(len(fwd) == len(bwd) == SNN_VAE_STEP_LAUNCHES["layerwise"][0],
+          f"SNN-VAE step: {len(fwd)} K1 forwards, {len(bwd)} backwards")
+    check(n * SNNVAEConfig().latent_dim in m_fwd and n * 784 in m_fwd,
+          f"the heads' shapes are not among {m_fwd}")
+    log(f"  K1 at the SNN-VAE's batch-{n} step: forward M {m_fwd}, backward M "
+        f"{[x.shape[1] for x, *_ in bwd]}, bitwise equal to the plain versions [{card}]")
+    return err
+
+
+def phase_cli_snn_vae(card: str) -> dict:
+    """``--model snn-vae`` on the card: K1 bitwise at the step's shapes; a
+    CLI training run with ``--vae_scheduled_p anneal``; TRAIN_STEPS steps
+    of the exported model at batch 32 and 256 on 'auto' and 'bnlif' with
+    exact launches (the first at 32 equal to the plain versions' step on
+    the card); ``sample`` card against CPU on one injected choice; the eval
+    of the exported baseline with its record's flags."""
+    k1_err = max(snn_vae_k1_shapes(n, card) for n in TRAIN_BATCHES)
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, result, train_counts, printed = cli_run(CLI_SNN_TRAIN_FLAGS, root, card)
+        check(sorted(os.listdir(result)) == ["model.pt"], f"snn-vae result {os.listdir(result)}")
+        check(sorted(os.listdir(sample)) == ["image.png"], f"snn-vae sample {os.listdir(sample)}")
+        check("IS = " in printed and all(math.isfinite(out[k]) for k in ("IS", "FID")),
+              "snn-vae: no scores")
+    train_run = {"launches": train_counts, "seconds": out["seconds"],
+                 "scores": {k: out[k] for k in ("IS", "KID_x1e3", "FID")}}
+
+    step = cli.make_train_step_snn_vae()
+    steps = {}
+    for branch, (backend, plain) in SNN_VAE_BRANCHES.items():
+        steps[branch] = {}
+        want = tuple(k * TRAIN_STEPS for k in SNN_VAE_STEP_LAUNCHES[branch])
+        for n in TRAIN_BATCHES:
+            state = create_train_state(snn_vae_model(backend, "cuda"))
+            batches = [snn_vae_images(n)] * TRAIN_STEPS
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            times, losses, first, counts, peak = run_steps(
+                state, lambda st, x: step(st, x, gen, 0.2), batches)
+            ms = statistics.median(times[1:])
+            log(f"  snn-vae {branch} batch {n}: launches {format_counts(counts)} in "
+                f"{TRAIN_STEPS} steps; ms per step {', '.join(f'{t:.2f}' for t in times)} "
+                f"(median after the first {ms:.2f}); losses "
+                f"{', '.join(f'{v:.4f}' for v in losses)}; peak memory {peak / 2**30:.2f} GiB "
+                f"[{card}]")
+            check(counts == want, f"snn-vae {branch} batch {n}: launches {counts}, "
+                  f"expected {want}")
+            check(all(math.isfinite(v) for v in losses), f"snn-vae {branch}: loss not finite")
+            row = {"launches": counts, "ms": times, "ms_median": ms, "losses": losses,
+                   "peak_bytes": peak}
+            row["profile"] = step_profile(f"snn-vae {branch} batch {n}", ms,
+                                          lambda: step(state, batches[0], gen, 0.2))
+            if n == TRAIN_BATCHES[0]:
+                before = launch_counts()
+                plain_state = create_train_state(snn_vae_model(plain, "cuda"))
+                gen.manual_seed(2)
+                loss = step(plain_state, batches[0], gen, 0.2)["loss"]
+                check(launch_counts() == before, "the plain SNN-VAE step launched a kernel")
+                row["vs_plain"] = compare_steps("the plain versions on the card", first,
+                                                step_record(plain_state, loss), True)
+            steps[branch][n] = row
+
+    # sample on the card against the CPU on one injected choice
+    cfg = SNNVAEConfig()
+    choice = torch.randint(0, cfg.k, (cfg.num_steps, SNN_VAE_SAMPLE_CHECK, cfg.latent_dim),
+                           generator=torch.Generator().manual_seed(3))
+    model = snn_vae_model("auto", "cuda")
+    reset_launch_counts()
+    x_card, z_card = model.sample(choice=choice.cuda())
+    sample_counts = launch_counts()
+    x_cpu, z_cpu = snn_vae_model("auto", "cpu").sample(choice=choice)
+    z_differing = int((z_card.cpu() != z_cpu).sum())
+    d_image = float((x_card.cpu() - x_cpu).abs().max())
+    log(f"  snn-vae sample of {SNN_VAE_SAMPLE_CHECK} on one choice: launches "
+        f"{format_counts(sample_counts)}; z differing card against CPU {z_differing} of "
+        f"{z_cpu.numel()} (rate {float(z_cpu.mean()):.4f}); max|d image| {d_image:.3g} "
+        f"(tol {SNN_VAE_SAMPLE_ATOL:g}) [{card}]")
+    check(sample_counts == SNN_VAE_SAMPLE_LAUNCHES["layerwise"],
+          f"snn-vae sample launches {sample_counts}")
+    check(z_differing == 0 and d_image <= SNN_VAE_SAMPLE_ATOL,
+          "snn-vae sample: card against CPU")
+
+    with tempfile.TemporaryDirectory() as root:
+        out, _, _, eval_counts, _ = cli_run(CLI_SNN_EVAL_FLAGS, root, card)
+    log(f"  snn-vae eval of {out['n_samples']} samples: IS {out['IS']:.4f} (record "
+        f"{SNN_VAE_RECORD['IS']}), FID {out['FID']:.4f} (record {SNN_VAE_RECORD['FID']}), "
+        f"KID_x1e3 {out['KID_x1e3']:.4f}; space {out['feature_space']} [{card}]")
+    check(out["feature_space"]["frozen"] and out["feature_space"]["sha256"]
+          == VQ_VAE_RECORD["sha256"], f"snn-vae feature space {out['feature_space']}")
+    check(all(math.isfinite(out[k]) for k in ("IS", "KID_x1e3", "FID")), "snn-vae eval scores")
+    return {"k1_max_abs_err": k1_err, "train": train_run, "steps": steps,
+            "sample": {"launches": sample_counts, "z_differing": z_differing,
+                       "max_abs_image_err": d_image},
+            "eval": {"launches": eval_counts, "seconds": out["seconds"],
+                     "scores": {k: out[k] for k in ("IS", "KID_x1e3", "FID")}}}
+
+
+def phase_metrics_extra(card: str) -> dict:
+    """InceptionV3 (seeded weights) at 299 on the card against the CPU in
+    both pipelines; ``clean_resize`` card against CPU; the freeze protocol
+    at canonical sizes into a temporary root, read back and verified."""
+    calibration = torch.rand((INCEPTION_CALIBRATION, 299, 299, 3),
+                             generator=torch.Generator().manual_seed(1))
+    net_cpu = inception.seeded_inception(0, calibration)
+    net = copy.deepcopy(net_cpu).cuda()
+    images = synthetic_dataset("MNIST", n_train=0, n_test=INCEPTION_IMAGES).test_images
+    feats, probs = inception.inception_feature_fn(net, INCEPTION_IMAGES)(images)
+    feats_cpu, probs_cpu = inception.inception_feature_fn(net_cpu, INCEPTION_IMAGES,
+                                                          device="cpu")(images)
+    errs = [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in ((feats, feats_cpu), (probs, probs_cpu))]
+    x = inception.resize_for_inception(images)
+    times = []
+    with torch.no_grad():
+        for _ in range(INCEPTION_REPS + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            net(x * 2.0 - 1.0, transform_input=True)
+            ev[1].record()
+            ev[1].synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+    ms = statistics.median(times[1:])
+    log(f"  InceptionV3 (seeded) at 299 on {INCEPTION_IMAGES} images, card against CPU: "
+        f"features {errs[0]:.3g}, probabilities {errs[1]:.3g} of the largest (tol "
+        f"{INCEPTION_RTOL:g}); a forward {ms:.3f} ms [{card}]")
+    check(all(e <= INCEPTION_RTOL for e in errs), "InceptionV3: card against CPU")
+
+    raw = np.random.RandomState(0).randint(0, 256, (64, 28, 28)).astype(np.uint8)
+    resize_err = float((cleanfid.clean_resize(raw).cpu()
+                        - cleanfid.clean_resize(raw, device="cpu")).abs().max())
+    log(f"  clean_resize of 64 uint8 images to 299, card against CPU: max|d| "
+        f"{resize_err:.3g} (tol {RESIZE_ATOL:g})")
+    check(resize_err <= RESIZE_ATOL, "clean_resize: card against CPU")
+
+    ds = load_dataset("MNIST", synthetic_size=FREEZE_SIZES)
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = frozen.freeze_feature_space("MNIST", ds.train_images, ds.train_labels,
+                                          ds.test_images, ds.num_classes, root=root,
+                                          log_fn=None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        feature_fn, info = frozen.get_feature_space("MNIST", ds.train_images, ds.train_labels,
+                                                    ds.num_classes, mode="on", root=root,
+                                                    log_fn=None)
+        stats = frozen.load_frozen_stats("MNIST", root=root)
+        real = ds.test_images[:frozen.CANONICAL_REF_N]
+        feats, _ = feature_fn(real)
+        verified = bool(stats["data_sha"] == frozen.data_hash(real)
+                        and np.allclose(np.mean(feats, axis=0), stats["mu"], rtol=1e-4,
+                                        atol=1e-4)
+                        and np.allclose(np.cov(feats, rowvar=False), stats["sigma"],
+                                        rtol=1e-3, atol=1e-4))
+    log(f"  freeze_feature_space at {FREEZE_SIZES[0]} + {FREEZE_SIZES[1]} images, "
+        f"{frozen.FREEZE_EPOCHS} epochs: {seconds:.2f} s (host clock), space "
+        f"{out['space_sha'][:16]} (the committed space, frozen on a TPU: "
+        f"{VQ_VAE_RECORD['sha256']}); read back in mode 'on': {info['space_sha'][:16]}, "
+        f"stats verified {verified} [{card}]")
+    check(info["frozen"] and info["space_sha"] == out["space_sha"], "frozen space read back")
+    check(verified, "the space frozen on the card does not verify")
+    return {"inception": {"feature_rel_err": errs[0], "prob_rel_err": errs[1],
+                          "forward_ms": ms, "images": INCEPTION_IMAGES},
+            "clean_resize_max_abs_err": resize_err,
+            "freeze": {"seconds": seconds, "space_sha": out["space_sha"][:16],
+                       "verified": verified}}
+
+
+def launches_of(runs: dict, idx: int) -> dict:
+    """A kernel's launches (index ``idx`` of ``launch_counts()``) in each
+    run of a phase."""
+    return {run: row["launches"][idx] for run, row in runs.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -2685,6 +3074,18 @@ def main() -> int:
             profiled = phase_syops(smi)
         with Phase("cli"):
             cli_runs = phase_cli(smi)
+        with Phase("cli_vq_vae"):
+            vq = phase_cli_vq_vae(smi)
+            vq_runs = {"cli_train": vq["train"], "cli_eval": vq["eval"]}
+        with Phase("cli_snn_vae"):
+            torch.cuda.empty_cache()
+            snn = phase_cli_snn_vae(smi)
+            snn_runs = {"cli_train": snn["train"], "cli_eval": snn["eval"],
+                        "sample": snn["sample"],
+                        **{f"{b} {n}": row for b, rows in snn["steps"].items()
+                           for n, row in rows.items()}}
+        with Phase("metrics_extra"):
+            phase_metrics_extra(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -2696,7 +3097,8 @@ def main() -> int:
         "source": "spiking_diffusion_tpu_torch/csrc/lif_fwd.cu",
         "replaces": K1_REPLACES, "launches": launches,
         # random inputs at the path's shapes, stage 1's and the CLI eval's
-        "max_abs_err": max(k1["max_abs_err"], k1_s1["fwd_err"], trained["k1_cli_max_abs_err"]),
+        "max_abs_err": max(k1["max_abs_err"], k1_s1["fwd_err"], trained["k1_cli_max_abs_err"],
+                           snn["k1_max_abs_err"]),
         # times of the 248 launches of one generated batch of 256
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
@@ -2707,6 +3109,10 @@ def main() -> int:
         "launches_train_stage2": stage_launches(train["layerwise"], 0),
         "launches_train_stage1": stage_launches(train1["layerwise"], 0),
         "launches_cli": cli_launch_counts(cli_runs, 0),
+        # the baselines: the ANN VQ-VAE runs none; the SNN-VAE 7 a training
+        # step ('bnlif': 2), 3 a sample call
+        "launches_cli_vq_vae": launches_of(vq_runs, 0),
+        "launches_snn_vae": launches_of(snn_runs, 0),
         # the profiler's runs on the trained weights (phase syops)
         "launches_syops": profiled["launches"][0],
         "shapes": k1["rows"],
@@ -2719,7 +3125,8 @@ def main() -> int:
         "launches": stage_launches(train["layerwise"], 1),
         "launches_train_stage1": stage_launches(train1["layerwise"], 1),
         "launches_cli": cli_launch_counts(cli_runs, 1),
-        "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"]),
+        "launches_snn_vae": launches_of(snn_runs, 1),
+        "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "shapes": k1_bwd["rows"],
@@ -2734,6 +3141,9 @@ def main() -> int:
             "launches_cli": {run: cli_runs[run]["launches"][4] if name == dname else 0
                              for run, dname in (("train", "fp32"), ("eval", "bf16"),
                                                 ("gate", "bf16"))},
+            # the ANN VQ-VAE's sweeps run fp32 K2 (no --bf16, as its record)
+            "launches_cli_vq_vae": {run: n if name == "fp32" else 0
+                                    for run, n in launches_of(vq_runs, 4).items()},
             # on the trained weights: the first reverse step and t = 25, at
             # batch 256 and at the CLI's chunk sizes
             "max_abs_err_trained": trained["k2_max_abs_err"][name],
@@ -2749,6 +3159,8 @@ def main() -> int:
             "launches": stage_launches(train["bnlif"], idx),
             "launches_train_stage1": stage_launches(train1["bnlif"], idx),
             "launches_cli": cli_launch_counts(cli_runs, idx),
+            "launches_cli_vq_vae": launches_of(vq_runs, idx),
+            "launches_snn_vae": launches_of(snn_runs, idx),
             "launches_syops": profiled["launches"][idx],
             "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256

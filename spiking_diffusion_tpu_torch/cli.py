@@ -1,40 +1,53 @@
 """Command-line interface of the port: the JAX package's ``cli.py`` on one
 NVIDIA GPU.
 
-It trains stage 1 (the spiking VQ-VAE), extracts the code grids, trains
-stage 2 (the diffusion prior), then evaluates: reconstruction MSE and
-1 - SSIM over the test set, and a temperature sweep of generated images
-scored by IS, FID, KID and mode coverage in the LeNet feature space
-(the committed frozen one by default). Same flags, defaults and choices
-as the JAX CLI, and the same artifact tree, with ``.pt`` files in place
-of the orbax directories::
+The two-stage models (``--model snn-vq-vae``, ``snn-vq-vae-uni`` and the
+ANN baseline ``vq-vae``) train stage 1 (the VQ-VAE), extract the code
+grids, train stage 2 (the diffusion prior), then evaluate: reconstruction
+MSE and 1 - SSIM over the test set, and a temperature sweep of generated
+images scored by IS, FID, KID and mode coverage in the LeNet feature
+space (the committed frozen one by default). The SNN-VAE baseline
+(``--model snn-vae``) trains alone, samples 40 x ``--batch_size`` images
+from its prior and prints their IS, KID and FID. Same flags, defaults and
+choices as the JAX CLI, and the same artifact tree, with ``.pt`` files in
+place of the orbax directories::
 
     <result_dir>/<dataset>/<model>/epoch=<e>_test.png, model.pt
     <result_dir>/<dataset>/<model>/diff_result/epoch=<e>_test.png, diff_model.pt
     <sample_dir>/<dataset>/<model>/<temp>/image_<temp>_<g>.png
     <sample_dir>/<dataset>/<model>/classes/class_<c>.png, paper_image.png
     <sample_dir>/<dataset>/<model>/metrics.json
+    <result_dir>/<dataset>/snn-vae/model.pt; <sample_dir>/<dataset>/snn-vae/image.png
 
-On the card stage 1 runs its LIF layers on K1 (forward and BPTT), stage 2
-with ``--lif_backend auto`` on the fused BN + LIF kernel K3 ('bnlif'), and
-the sweep on the fused sampler K2 (``--fused_sampler auto``). ``main``
-runs on the card unless the caller passes ``device="cpu"``.
+On the card the spiking stage 1 runs its LIF layers on K1 (forward and
+BPTT; the ANN VQ-VAE runs none), stage 2 with ``--lif_backend auto`` on
+the fused BN + LIF kernel K3 ('bnlif'), and the sweep on the fused
+sampler K2 (``--fused_sampler auto``); the SNN-VAE's encoder, heads and
+decoder run on K1. ``main`` runs on the card unless the caller passes
+``device="cpu"``.
 
 What the port maps or refuses:
-  * ``--lif_backend auto|pallas|scan|unroll`` all run stage 1 on K1 (the
-    LIF's plain version serves only the CPU); only ``auto`` puts stage 2 on
-    'bnlif' on the card, as the JAX CLI does on its accelerator.
+  * ``--lif_backend auto|pallas|scan|unroll`` all run the spiking stage 1
+    and the SNN-VAE on K1 (the LIF's plain version serves only the CPU);
+    only ``auto`` puts stage 2 on 'bnlif' on the card, as the JAX CLI does
+    on its accelerator.
+  * ``--bf16`` reaches the stage-1 model only for the spiking VQ-VAE: the
+    ANN VQ-VAE and the SNN-VAE stay fp32, as in the JAX CLI; the denoiser
+    and the sampler follow it for every two-stage model.
   * ``--syops`` prints the spike-aware op/energy report of the stage-1
-    model after stage 1, as the JAX CLI does (``profiling/syops.py``).
-  * ``--model snn-vae`` and ``vq-vae`` (ROADMAP.md queue 1, item 2) and
-    ``--data_parallel`` above 1 (item 4) raise ``NotImplementedError``;
-    CIFAR10 and CIFAR10-BW raise from ``load_dataset``.
+    model after stage 1, as the JAX CLI does (``profiling/syops.py``; the
+    ANN VQ-VAE has no counted layer).
+  * ``--data_parallel`` above 1 (ROADMAP.md queue 1, item 2) raises
+    ``NotImplementedError``; CIFAR10 and CIFAR10-BW raise from
+    ``load_dataset``.
 
 Usage:
     python -m spiking_diffusion_tpu_torch.cli --dataset_name MNIST \\
         --model snn-vq-vae --epochs 100
     python -m spiking_diffusion_tpu_torch.cli \\
         --checkpoint result_torch/MNIST/snn-vq-vae --bf16 --batch_size 256
+    python -m spiking_diffusion_tpu_torch.cli --model snn-vae \\
+        --checkpoint result_torch/MNIST/snn-vae --batch_size 256
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import batch_iterator, data_variance, load_dataset
 from spiking_diffusion_tpu_torch.device import resolve_device
 from spiking_diffusion_tpu_torch.generate import sample_codes
@@ -69,12 +82,13 @@ from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 from spiking_diffusion_tpu_torch.train.stage1 import extract_code_indices, train_vqvae
 from spiking_diffusion_tpu_torch.train.stage2 import train_diffusion
-from spiking_diffusion_tpu_torch.train.state import create_train_state
+from spiking_diffusion_tpu_torch.train.state import TrainState, create_train_state
 from spiking_diffusion_tpu_torch.utils import save_image_grid, save_recon_grid
 
 TEMPERATURES = [0.001, 0.01, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0]
 SAMPLER_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 FUSED = {"auto": "auto", "on": True, "off": False}
+SNN_VAE_SAMPLE_CALLS = 40  # the SNN-VAE's sample calls of --batch_size images scored
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -89,8 +103,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model", default="snn-vq-vae",
                    choices=["snn-vq-vae", "snn-vq-vae-uni", "snn-vae",
-                            "vq-vae"],
-                   help="snn-vae and vq-vae raise: not ported")
+                            "vq-vae"])
     p.add_argument("--data_path", default=None)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--metric", default=None,
@@ -105,7 +118,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--num_steps", type=int, default=16, help="SNN T")
     p.add_argument("--lif_backend", default="auto",
                    choices=["auto", "scan", "pallas", "unroll"],
-                   help="every choice runs stage 1 on the LIF kernel K1; "
+                   help="every choice runs the spiking stage 1 and the "
+                        "SNN-VAE on the LIF kernel K1; "
                         "auto also trains stage 2 on the fused BN+LIF "
                         "kernel K3 on the card")
     p.add_argument("--sample_batches", type=int, default=80,
@@ -161,8 +175,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="real reference-set size for FID/KID (flagship "
                         "runs use 8192)")
     p.add_argument("--vae_scheduled_p", default="off",
-                   help="snn-vae scheduled-sampling probability (snn-vae "
-                        "is not ported)")
+                   help="snn-vae scheduled-sampling probability: 'off' = 0, "
+                        "'anneal' = 0.1 -> 0.3 over training, or a fixed "
+                        "float")
     p.add_argument("--syops", action="store_true",
                    help="print the spike-aware op/energy report of the "
                         "stage-1 model")
@@ -171,12 +186,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def _refuse(args: argparse.Namespace) -> None:
     """Raise for the choices the port does not run."""
-    if args.model in ("snn-vae", "vq-vae"):
-        raise NotImplementedError(
-            f"--model {args.model} is not ported (ROADMAP.md queue 1, item 2)")
     if args.data_parallel > 1:
         raise NotImplementedError(
-            "--data_parallel > 1: the port trains on one card (ROADMAP.md queue 1, item 4)")
+            "--data_parallel > 1: the port trains on one card (ROADMAP.md queue 1, item 2)")
 
 
 def _clock(dev: torch.device) -> float:
@@ -188,7 +200,8 @@ def _clock(dev: torch.device) -> float:
 
 def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
     """Run the CLI; returns the recon means, the metrics.json contents and
-    the seconds of each stage (host clock, the card synchronised)."""
+    the seconds of each stage (host clock, the card synchronised), or for
+    ``--model snn-vae`` what ``_run_snn_vae`` returns."""
     args = parse_args(argv)
     _refuse(args)
     dev = resolve_device(device)
@@ -220,10 +233,21 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
         in_channels=int(ds.train_images.shape[-1]),
         usage_loss_weight=0.1 if args.model == "snn-vq-vae-uni" else 0.0,
     )
-    model = weights.load_vqvae(
-        *weights.init_vqvae_variables(vq_cfg, torch.Generator().manual_seed(args.seed)),
-        vq_cfg, device=dev, lif_backend="auto", train=True, dtype=dtype)
+    init = torch.Generator().manual_seed(args.seed)
+    if args.model == "vq-vae":
+        model = weights.load_ann_vqvae(weights.init_ann_vqvae_variables(vq_cfg, init),
+                                       vq_cfg, device=dev, train=True)
+    elif args.model == "snn-vae":
+        vae_cfg = SNNVAEConfig(num_steps=args.num_steps)
+        model = weights.load_snn_vae(
+            *weights.init_snn_vae_variables(vae_cfg, vq_cfg, init), vae_cfg, vq_cfg,
+            device=dev, lif_backend="auto", train=True)
+    else:
+        model = weights.load_vqvae(*weights.init_vqvae_variables(vq_cfg, init), vq_cfg,
+                                   device=dev, lif_backend="auto", train=True, dtype=dtype)
     print("The model is ready!")
+    if args.model == "snn-vae":
+        return _run_snn_vae(args, model, ds, save_path, sample_path, dev)
     t0 = _clock(dev)
     if args.checkpoint or args.ready:
         restore_checkpoint(create_train_state(model), args.checkpoint or args.ready, "model")
@@ -421,6 +445,95 @@ def _eval_generation(args, sweep, model, d_cfg, denoiser, ds, sample_path, dev):
         json.dump(results, f, indent=2)
     print("metrics written to", os.path.join(sample_path, "metrics.json"))
     return results
+
+
+def make_train_step_snn_vae():
+    """A step ``(state, images (N, H, W, C) in [-0.5, 0.5], generator,
+    p_scheduled) -> {"loss", "mmd", "rec"}`` of the SNN-VAE: loss =
+    mmd_loss + recon_loss, BPTT, AdamW; updates ``state`` in place."""
+
+    def train_step(state: TrainState, images: torch.Tensor, generator: torch.Generator,
+                   p_scheduled: float):
+        model = state.model
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        out = model(images, generator, p_scheduled=p_scheduled)
+        loss = out["mmd_loss"] + out["recon_loss"]
+        loss.backward()
+        state.optimizer.step()
+        state.step += 1
+        return {"loss": loss.detach(), "mmd": out["mmd_loss"].detach(),
+                "rec": out["recon_loss"].detach()}
+
+    return train_step
+
+
+def scheduled_p(mode: str, epoch: int, epochs: int) -> float:
+    """``--vae_scheduled_p``: 'off' 0, 'anneal' 0.1 -> 0.3 over the
+    epochs, else the number given."""
+    if mode == "anneal":
+        return 0.1 + (0.3 - 0.1) * epoch / max(epochs, 1)
+    if mode == "off":
+        return 0.0
+    return float(mode)
+
+
+def _run_snn_vae(args, model, ds, save_path, sample_path, dev) -> Dict[str, object]:
+    """The SNN-VAE's path: train (or ``--checkpoint``), a sample grid,
+    then IS, KID and FID of 40 x ``--batch_size`` samples against the
+    first ``--ref_size`` test images. Returns the figures, the feature
+    space and the seconds of each part (host clock, the card
+    synchronised)."""
+    state = create_train_state(model)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    seconds = {}
+    t0 = _clock(dev)
+    if args.checkpoint:
+        restore_checkpoint(state, args.checkpoint, "model")
+        print(f"loaded stage-1 checkpoint from {args.checkpoint}")
+    else:
+        step_fn = make_train_step_snn_vae()
+        spe = ds.train_images.shape[0] // args.batch_size
+        for epoch in range(args.epochs):
+            p_sched = scheduled_p(args.vae_scheduled_p, epoch, args.epochs)
+            for i, batch in enumerate(batch_iterator(ds.train_images, args.batch_size,
+                                                     seed=args.seed, epoch=epoch)):
+                m = step_fn(state, torch.from_numpy(batch - 0.5).to(dev), generator, p_sched)
+                if (i + 1) % 20 == 0 or i + 1 == spe:
+                    print(f"[{epoch}/{args.epochs}][{i}/{spe}]: "
+                          f"loss {float(m['loss']):.3f} "
+                          f"loss_eq {float(m['mmd']):.3f} "
+                          f"loss_rec {float(m['rec']):.3f}")
+            save_checkpoint(state, save_path, "model")
+    seconds["train"] = _clock(dev) - t0
+
+    t0 = _clock(dev)
+    x, _ = model.sample(args.batch_size, generator)
+    save_image_grid(x.cpu().numpy(), os.path.join(sample_path, "image.png"))
+    gen = torch.cat([model.sample(args.batch_size, generator)[0]
+                     for _ in range(SNN_VAE_SAMPLE_CALLS)]).cpu().numpy()
+    gen = np.clip(gen + 0.5, 0, 1)
+    seconds["sample"] = _clock(dev) - t0
+
+    t0 = _clock(dev)
+    feature_fn, space_info = get_feature_space(
+        args.dataset_name, ds.train_images, ds.train_labels, ds.num_classes,
+        mode=args.frozen_metrics, device=dev)
+    feats, probs = feature_fn(gen)
+    real_feats, _ = feature_fn(ds.test_images[:args.ref_size])
+    is_mean, _ = inception_score_from_probs(probs, splits=4)
+    kid_mean, _ = kid_from_features(real_feats, feats, subsets=10,
+                                    subset_size=min(500, len(gen)), normalize="unit")
+    fid = fid_from_features(feats, real_feats)
+    sha = space_info.get("space_sha", "")[:16]
+    print(f"IS = {is_mean:.4f}  KIDx1e3 = {kid_mean * 1e3:.4f}  "
+          f"FID = {fid:.4f}  "
+          f"[space {sha}{' frozen' if space_info.get('frozen') else ''}]")
+    seconds["metrics"] = _clock(dev) - t0
+    return {"IS": float(is_mean), "KID_x1e3": float(kid_mean * 1e3), "FID": float(fid),
+            "feature_space": {"frozen": bool(space_info.get("frozen")),
+                              "name": space_info.get("name"), "sha256": sha},
+            "n_samples": int(len(gen)), "seconds": seconds}
 
 
 if __name__ == "__main__":

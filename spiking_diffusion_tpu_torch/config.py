@@ -2,8 +2,8 @@
 
 The same frozen dataclasses, fields and defaults as
 ``spiking_diffusion_tpu/config.py`` (``LIFConfig``, ``VQVAEConfig``,
-``DiffusionConfig``, ``TrainConfig``), kept as a copy so that the port imports nothing of
-the JAX package. The defaults are the MNIST flagship: a T=16 spiking
+``DiffusionConfig``, ``SNNVAEConfig``, ``TrainConfig``, ``ExperimentConfig``),
+kept as a copy so that the port imports nothing of the JAX package. The defaults are the MNIST flagship: a T=16 spiking
 VQ-VAE with a 7x7 latent and K=128 codes, and a 49-step absorbing
 diffusion prior with denoiser channels 64-128-256-512-256.
 """
@@ -11,7 +11,7 @@ diffusion prior with denoiser channels 64-128-256-512-256.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +78,20 @@ class DiffusionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SNNVAEConfig:
+    """FSVAE-style autoregressive-Bernoulli SNN-VAE baseline
+    (``--model snn-vae``): a latent of ``latent_dim`` binary units per
+    step, each drawn from one of ``k`` Bernoulli channels."""
+
+    latent_dim: int = 56  # 28*2
+    k: int = 20
+    num_steps: int = 16
+    scheduled_start: float = 0.1
+    scheduled_end: float = 0.3
+    lif: LIFConfig = dataclasses.field(default_factory=LIFConfig)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimiser and loop settings (AdamW of the reference's ``main.py``)."""
 
@@ -94,3 +108,18 @@ class TrainConfig:
     lif_backend: str = "auto"
     # data-parallel device count; 1 = single card
     data_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    """One experiment: dataset, model and every sub-configuration."""
+
+    dataset: str = "MNIST"
+    model: str = "snn-vq-vae"  # snn-vq-vae | snn-vae | vq-vae
+    data_path: Optional[str] = None
+    vqvae: VQVAEConfig = dataclasses.field(default_factory=VQVAEConfig)
+    diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
+    snn_vae: SNNVAEConfig = dataclasses.field(default_factory=SNNVAEConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    result_dir: str = "./result"
+    sample_dir: str = "./sample"

@@ -15,14 +15,25 @@ package's records. The stats are a verification anchor: when an eval's
 real set has the committed ``data_sha``, its recomputed stats must equal
 them (the CLI checks this).
 
-The spaces were made by the JAX package on a TPU, whose default precision
-rounds the operands of every conv and matrix product to bf16 and sums in
-fp32. Their stats reproduce only in that arithmetic: on the canonical
-MNIST set, fp32 operands move the features' mean by up to 0.025 and miss
-the check, bf16 operands meet it (mean within 4.4e-6). So a frozen space
-runs with ``operand_dtype=FROZEN_OPERAND_DTYPE``; a retrained one
-(``mode="off"``) runs in fp32. Making new spaces (the JAX package's
-``freeze_feature_space``) is not ported.
+The committed spaces were made by the JAX package on a TPU, whose
+default precision rounds the operands of every conv and matrix product
+to bf16 and sums in fp32. Their stats reproduce only in that arithmetic:
+on the canonical MNIST set, fp32 operands move the features' mean by up
+to 0.025 and miss the check, bf16 operands meet it (mean within 4.4e-6).
+So a frozen space runs with ``operand_dtype=FROZEN_OPERAND_DTYPE``; a
+retrained one (``mode="off"``) runs in fp32.
+
+The freeze protocol (:func:`freeze_feature_space`, the JAX package's
+canonical one: ``train_lenet`` for ``FREEZE_EPOCHS`` epochs from
+``FREEZE_SEED``, stats of the first ``CANONICAL_REF_N`` test images)
+makes a new space in the same files, which the JAX package's
+``load_frozen_lenet`` reads with the same ``space_hash``. The LeNet
+trains in fp32, but the space's stats are computed as every eval will
+recompute them, by the frozen space's own feature function with bf16
+operands: stats pinned in fp32 would fail this module's own
+``get_feature_space(mode="on")`` check on the space just written. The
+writers take their ``root`` from the caller; ``scripts/freeze_metric_space_torch.py``
+writes over the committed ``assets/`` only when asked to.
 """
 
 from __future__ import annotations
@@ -45,6 +56,12 @@ ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 FROZEN_OPERAND_DTYPE = torch.bfloat16
 MODES = ("auto", "on", "off")
 
+# the canonical freeze protocol: any change makes spaces that differ from
+# the committed ones, so change it deliberately
+FREEZE_SEED = 20260817
+FREEZE_EPOCHS = 5
+CANONICAL_REF_N = 8192  # reference-set size of a space's stats
+
 
 def space_hash(params: Mapping[str, np.ndarray]) -> str:
     """sha256 over the sorted names and contiguous fp32 bytes of flat
@@ -62,12 +79,87 @@ def data_hash(images: np.ndarray) -> str:
     ).hexdigest()
 
 
+def _lenet_path(name: str, root: str) -> str:
+    return os.path.join(root, f"lenet_{name}.npz")
+
+
+def _stats_path(name: str, root: str) -> str:
+    return os.path.join(root, f"stats_{name}.npz")
+
+
+def save_frozen_lenet(name: str, params: Mapping[str, np.ndarray], num_classes: int,
+                      in_channels: int, *, root: str,
+                      meta: Optional[Mapping[str, Any]] = None) -> str:
+    """Write a space's flat flax-layout parameters (fp32) and meta,
+    ``space_sha`` among them, to ``<root>/lenet_<name>.npz``; returns the
+    path."""
+    os.makedirs(root, exist_ok=True)
+    flat = {f"param:{k}": np.asarray(v, np.float32) for k, v in sorted(params.items())}
+    flat["meta:num_classes"] = np.int64(num_classes)
+    flat["meta:in_channels"] = np.int64(in_channels)
+    flat["meta:space_sha"] = np.bytes_(space_hash(params))
+    for k, v in (meta or {}).items():
+        flat[f"meta:{k}"] = np.asarray(v)
+    path = _lenet_path(name, root)
+    np.savez(path, **flat)
+    return path
+
+
+def save_frozen_stats(name: str, feature_fn: FeatureFn, images: np.ndarray, space_sha: str,
+                      *, root: str) -> str:
+    """Write mu and sigma of ``feature_fn(images)``, their count, the
+    images' ``data_hash`` and the space's sha to ``<root>/stats_<name>.npz``;
+    returns the path."""
+    os.makedirs(root, exist_ok=True)
+    feats, _ = feature_fn(images)
+    path = _stats_path(name, root)
+    np.savez(path, mu=np.mean(feats, axis=0), sigma=np.cov(feats, rowvar=False),
+             n=images.shape[0], data_sha=np.bytes_(data_hash(images)),
+             space_sha=np.bytes_(space_sha))
+    return path
+
+
+def freeze_feature_space(
+    name: str,
+    train_images: np.ndarray,
+    train_labels: np.ndarray,
+    test_images: np.ndarray,
+    num_classes: int,
+    *,
+    root: str,
+    epochs: int = FREEZE_EPOCHS,
+    seed: int = FREEZE_SEED,
+    log_fn: Optional[Callable[[str], None]] = print,
+    device="cuda",
+) -> Dict[str, Any]:
+    """Train and write a dataset's frozen space under ``root``: the LeNet
+    (``train_lenet`` from ``seed``, ``epochs`` epochs, on ``device``) and
+    the stats of the first ``CANONICAL_REF_N`` test images, computed by
+    the written space's own feature function (bf16 operands). Returns
+    ``space_sha`` and the two paths."""
+    _, params = train_lenet(train_images, train_labels, num_classes, epochs=epochs,
+                            seed=seed, log_fn=log_fn, device=device)
+    sha = space_hash(params)
+    in_ch = int(train_images.shape[-1]) if train_images.ndim == 4 else 1
+    wpath = save_frozen_lenet(
+        name, params, num_classes, in_ch, root=root,
+        meta={"seed": np.int64(seed), "epochs": np.int64(epochs),
+              "n_train": np.int64(train_images.shape[0]),
+              "train_data_sha": np.bytes_(data_hash(train_images))})
+    frozen, _, _ = load_frozen_lenet(name, root=root)
+    spath = save_frozen_stats(name, lenet_feature_fn(frozen, device),
+                              test_images[:CANONICAL_REF_N], sha, root=root)
+    if log_fn:
+        log_fn(f"frozen space {name}: sha={sha[:16]} -> {wpath}, {spath}")
+    return {"space_sha": sha, "weights": wpath, "stats": spath}
+
+
 def load_frozen_lenet(
     name: str, root: str = ASSETS
 ) -> Optional[Tuple[LeNet, Dict[str, np.ndarray], Dict[str, Any]]]:
     """(model, flat params, info) of a committed space, or None if absent.
     The model is on the CPU, in the frozen spaces' arithmetic."""
-    path = os.path.join(root, f"lenet_{name}.npz")
+    path = _lenet_path(name, root)
     if not os.path.exists(path):
         return None
     with np.load(path) as data:
@@ -84,7 +176,7 @@ def load_frozen_lenet(
 def load_frozen_stats(
     name: str, root: str = ASSETS
 ) -> Optional[Dict[str, Any]]:
-    path = os.path.join(root, f"stats_{name}.npz")
+    path = _stats_path(name, root)
     if not os.path.exists(path):
         return None
     with np.load(path) as d:

@@ -7,8 +7,15 @@ from ``train/checkpoint.py`` ``load_variables``). The layout rules:
 * ConvTranspose: flax (H, W, Cin, Cout) -> torch (Cin, Cout, H, W),
   spatially flipped: flax's explicit-padding ``conv_transpose`` does not
   mirror the kernel, torch's transposed convolution does.
+* Dense: flax (in, out) -> ``nn.Linear`` (out, in).
 * BatchNorm: ``scale``/``bias``/``mean``/``var`` as they are.
 * Codebook: (K, D) as it is; the readout blend ``alpha`` a 0-d scalar.
+
+Models: the spiking VQ-VAE (``vqvae_*``), the denoiser (``denoiser_*``)
+and the two baselines of the CLI's ``--model``, the ANN VQ-VAE
+(``ann_vqvae_*``, no BatchNorm) and the SNN-VAE (``snn_vae_*``, the
+VQ-VAE's encoder and decoder around Dense heads and the posterior's and
+prior's 3-layer Dense stacks).
 
 ``init_*_variables`` make seeded random trees in the flax layout with
 the JAX package's initialisers (``utils/init.py``: torch-default kaiming
@@ -25,10 +32,12 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.device import resolve_device
+from spiking_diffusion_tpu_torch.models.ann_vqvae import ANNVQVAE
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
 from spiking_diffusion_tpu_torch.models.layers import SeqBatchNorm
+from spiking_diffusion_tpu_torch.models.snn_vae import SNNVAE
 from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 
 Tree = Mapping[str, Any]
@@ -53,6 +62,11 @@ def _conv(prefix: str, node: Tree, deconv: bool = False) -> Dict[str, np.ndarray
             f"{prefix}.bias": np.asarray(node["bias"], np.float32)}
 
 
+def _dense(prefix: str, node: Tree) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.ascontiguousarray(np.asarray(node["kernel"], np.float32).T),
+            f"{prefix}.bias": np.asarray(node["bias"], np.float32)}
+
+
 def _bn(prefix: str, params: Tree, stats: Tree) -> Dict[str, np.ndarray]:
     return {f"{prefix}.scale": np.asarray(params["scale"], np.float32),
             f"{prefix}.bias": np.asarray(params["bias"], np.float32),
@@ -74,24 +88,18 @@ def denoiser_state_dict(params: Tree, batch_stats: Tree,
     return sd
 
 
-def vqvae_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
-    """flax ``SNNVQVAE`` variables -> the port's state dict: the encoder,
-    the quantizer (codebook, readout blend ``alpha``, re-spike) and the
-    decoder."""
-    enc, enc_stats = params["encoder"], batch_stats["encoder"]
-    vq, vq_stats = params["vq_layer"], batch_stats["vq_layer"]
-    dec, dec_stats = params["decoder"], batch_stats["decoder"]
+def _encoder_state_dict(enc: Tree, enc_stats: Tree) -> Dict[str, np.ndarray]:
     sd = {}
     for i in range(3):
         sd.update(_conv(f"encoder.convs.{i}", enc[f"SeqConv_{i}"]["Conv_0"]))
         bn = f"SeqBatchNorm_{i}"
         sd.update(_bn(f"encoder.bns.{i}", enc[bn]["BatchNorm_0"],
                       enc_stats[bn]["BatchNorm_0"]))
-    sd["vq_layer.embeddings"] = np.asarray(vq["embeddings"], np.float32)
-    sd["vq_layer.alpha"] = np.asarray(vq["alpha"], np.float32).reshape(())
-    sd.update(_conv("vq_layer.poisson_conv", vq["poisson_conv"]["Conv_0"]))
-    sd.update(_bn("vq_layer.poisson_bn", vq["poisson_bn"]["BatchNorm_0"],
-                  vq_stats["poisson_bn"]["BatchNorm_0"]))
+    return sd
+
+
+def _decoder_state_dict(dec: Tree, dec_stats: Tree) -> Dict[str, np.ndarray]:
+    sd = {}
     for j in range(3):
         sd.update(_conv(f"decoder.deconvs.{j}",
                         dec[f"SeqConvTranspose_{j}"]["ConvTranspose_0"],
@@ -100,6 +108,46 @@ def vqvae_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
         bn = f"SeqBatchNorm_{j}"
         sd.update(_bn(f"decoder.bns.{j}", dec[bn]["BatchNorm_0"],
                       dec_stats[bn]["BatchNorm_0"]))
+    return sd
+
+
+def vqvae_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
+    """flax ``SNNVQVAE`` variables -> the port's state dict: the encoder,
+    the quantizer (codebook, readout blend ``alpha``, re-spike) and the
+    decoder."""
+    vq, vq_stats = params["vq_layer"], batch_stats["vq_layer"]
+    sd = _encoder_state_dict(params["encoder"], batch_stats["encoder"])
+    sd["vq_layer.embeddings"] = np.asarray(vq["embeddings"], np.float32)
+    sd["vq_layer.alpha"] = np.asarray(vq["alpha"], np.float32).reshape(())
+    sd.update(_conv("vq_layer.poisson_conv", vq["poisson_conv"]["Conv_0"]))
+    sd.update(_bn("vq_layer.poisson_bn", vq["poisson_bn"]["BatchNorm_0"],
+                  vq_stats["poisson_bn"]["BatchNorm_0"]))
+    sd.update(_decoder_state_dict(params["decoder"], batch_stats["decoder"]))
+    return sd
+
+
+def ann_vqvae_state_dict(params: Tree) -> Dict[str, np.ndarray]:
+    """flax ``ANNVQVAE`` parameters (it has no batch statistics) -> the
+    port's state dict."""
+    sd = {"embeddings": np.asarray(params["embeddings"], np.float32)}
+    for name in ("enc1", "enc2", "enc3"):
+        sd.update(_conv(name, params[name]))
+    for name in ("dec1", "dec2", "dec3"):
+        sd.update(_conv(name, params[name], deconv=True))
+    return sd
+
+
+def snn_vae_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
+    """flax ``SNNVAE`` variables -> the port's state dict: the encoder,
+    the Dense heads, the posterior's and prior's Dense stacks and the
+    decoder."""
+    sd = _encoder_state_dict(params["encoder"], batch_stats["encoder"])
+    sd.update(_decoder_state_dict(params["decoder"], batch_stats["decoder"]))
+    for name in ("before_latent", "decoder_input"):
+        sd.update(_dense(name, params[name]))
+    for cell in ("posterior", "prior"):
+        for i in range(3):
+            sd.update(_dense(f"{cell}.mlp.denses.{i}", params[cell]["mlp"][f"dense_{i}"]))
     return sd
 
 
@@ -134,6 +182,24 @@ def load_vqvae(params: Tree, batch_stats: Tree,
     The parameters stay fp32 and convert alike on every branch."""
     return _load(SNNVQVAE(cfg, lif_backend, dtype),
                  vqvae_state_dict(params, batch_stats), device, train)
+
+
+def load_ann_vqvae(params: Tree, cfg: VQVAEConfig = VQVAEConfig(), device="cuda",
+                   train: bool = False) -> ANNVQVAE:
+    """The port's ANN VQ-VAE on ``device`` from flax parameters, in eval
+    mode or, with ``train``, in training mode; fp32."""
+    return _load(ANNVQVAE(cfg), ann_vqvae_state_dict(params), device, train)
+
+
+def load_snn_vae(params: Tree, batch_stats: Tree, cfg: SNNVAEConfig = SNNVAEConfig(),
+                 vq_cfg: VQVAEConfig = VQVAEConfig(), device="cuda",
+                 lif_backend: str = "auto", train: bool = False) -> SNNVAE:
+    """The port's SNN-VAE on ``device`` from flax variables, in eval mode
+    or, with ``train``, in training mode. ``lif_backend`` picks the
+    encoder's and decoder's branch (``SNNVAE``): layerwise 'auto' or fused
+    'bnlif'; fp32."""
+    return _load(SNNVAE(cfg, vq_cfg, lif_backend), snn_vae_state_dict(params, batch_stats),
+                 device, train)
 
 
 @torch.no_grad()
@@ -193,6 +259,33 @@ def init_denoiser_variables(cfg: DiffusionConfig,
     return params, stats
 
 
+def _dense_vars(g, fan_in: int, out: int, bias_fan_in: int) -> Dict:
+    return {"kernel": _uniform(g, (fan_in, out), math.sqrt(1.0 / fan_in)),
+            "bias": _uniform(g, (out,), 1.0 / math.sqrt(bias_fan_in))}
+
+
+def _decoder_vars(cfg: VQVAEConfig, generator: torch.Generator) -> Tuple[Dict, Dict]:
+    dec, dec_stats = {}, {}
+    chans = (cfg.embedding_dim,) + tuple(cfg.dec_channels) + (cfg.in_channels,)
+    for j, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        # torch ConvTranspose2d's bias fan-in is Cout * k * k
+        dec[f"SeqConvTranspose_{j}"] = {
+            "ConvTranspose_0": _conv_vars(generator, 3, cin, cout, 9 * cout)}
+        if j < 2:
+            dec[f"SeqBatchNorm_{j}"], dec_stats[f"SeqBatchNorm_{j}"] = _bn_vars(cout)
+    return dec, dec_stats
+
+
+def _encoder_vars(cfg: VQVAEConfig, generator: torch.Generator) -> Tuple[Dict, Dict]:
+    enc, enc_stats = {}, {}
+    chans = (cfg.in_channels,) + tuple(cfg.enc_channels) + (cfg.embedding_dim,)
+    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
+        k = 1 if i == 2 else 3
+        enc[f"SeqConv_{i}"] = {"Conv_0": _conv_vars(generator, k, cin, cout, k * k * cin)}
+        enc[f"SeqBatchNorm_{i}"], enc_stats[f"SeqBatchNorm_{i}"] = _bn_vars(cout)
+    return enc, enc_stats
+
+
 def init_vqvae_variables(cfg: VQVAEConfig,
                          generator: torch.Generator) -> Tuple[Dict, Dict]:
     """Random flax-layout (params, batch_stats) of a whole ``SNNVQVAE``:
@@ -203,20 +296,40 @@ def init_vqvae_variables(cfg: VQVAEConfig,
     vq = {"embeddings": emb, "alpha": np.asarray(0.5, np.float32),
           "poisson_conv": {"Conv_0": _conv_vars(generator, 1, d, d, d)},
           "poisson_bn": pbn}
-    dec, dec_stats = {}, {}
-    chans = (d,) + tuple(cfg.dec_channels) + (cfg.in_channels,)
-    for j, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
-        # torch ConvTranspose2d's bias fan-in is Cout * k * k
-        dec[f"SeqConvTranspose_{j}"] = {
-            "ConvTranspose_0": _conv_vars(generator, 3, cin, cout, 9 * cout)}
-        if j < 2:
-            dec[f"SeqBatchNorm_{j}"], dec_stats[f"SeqBatchNorm_{j}"] = _bn_vars(cout)
-    enc, enc_stats = {}, {}
-    chans = (cfg.in_channels,) + tuple(cfg.enc_channels) + (d,)
-    for i, (cin, cout) in enumerate(zip(chans[:-1], chans[1:])):
-        k = 1 if i == 2 else 3
-        enc[f"SeqConv_{i}"] = {"Conv_0": _conv_vars(generator, k, cin, cout, k * k * cin)}
-        enc[f"SeqBatchNorm_{i}"], enc_stats[f"SeqBatchNorm_{i}"] = _bn_vars(cout)
+    dec, dec_stats = _decoder_vars(cfg, generator)
+    enc, enc_stats = _encoder_vars(cfg, generator)
     return ({"vq_layer": vq, "decoder": dec, "encoder": enc},
             {"vq_layer": {"poisson_bn": pbn_stats}, "decoder": dec_stats,
              "encoder": enc_stats})
+
+
+def init_ann_vqvae_variables(cfg: VQVAEConfig, generator: torch.Generator) -> Dict:
+    """Random flax-layout parameters of an ``ANNVQVAE`` (no batch
+    statistics)."""
+    c1, c2 = cfg.enc_channels
+    d1, d2 = cfg.dec_channels
+    d = cfg.embedding_dim
+    params = {"embeddings": torch.randn((cfg.num_embeddings, d), generator=generator).numpy()}
+    for name, k, cin, cout in (("enc1", 3, cfg.in_channels, c1), ("enc2", 3, c1, c2),
+                               ("enc3", 1, c2, d)):
+        params[name] = _conv_vars(generator, k, cin, cout, k * k * cin)
+    for name, cin, cout in (("dec1", d, d1), ("dec2", d1, d2), ("dec3", d2, cfg.in_channels)):
+        params[name] = _conv_vars(generator, 3, cin, cout, 9 * cout)
+    return params
+
+
+def init_snn_vae_variables(cfg: SNNVAEConfig, vq_cfg: VQVAEConfig,
+                           generator: torch.Generator) -> Tuple[Dict, Dict]:
+    """Random flax-layout (params, batch_stats) of an ``SNNVAE``."""
+    c, k = cfg.latent_dim, cfg.k
+    flat = vq_cfg.embedding_dim * vq_cfg.latent_size ** 2
+    enc, enc_stats = _encoder_vars(vq_cfg, generator)
+    dec, dec_stats = _decoder_vars(vq_cfg, generator)
+    params = {"encoder": enc, "decoder": dec,
+              "before_latent": _dense_vars(generator, flat, c, flat),
+              "decoder_input": _dense_vars(generator, c, flat, c)}
+    for cell, c_in in (("posterior", 2 * c), ("prior", c)):
+        widths = ((c_in, 2 * c, c_in), (2 * c, 4 * c, 2 * c), (4 * c, c * k, 4 * c))
+        params[cell] = {"mlp": {f"dense_{i}": _dense_vars(generator, *w)
+                                for i, w in enumerate(widths)}}
+    return params, {"encoder": enc_stats, "decoder": dec_stats}

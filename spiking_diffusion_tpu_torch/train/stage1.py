@@ -1,12 +1,17 @@
-"""Stage 1: train the spiking VQ-VAE on images, then hand its codes to
-stage 2.
+"""Stage 1: train the VQ-VAE on images, then hand its codes to stage 2.
 
 Counterpart of ``spiking_diffusion_tpu/train/stage1.py``
 (``make_train_step_vqvae``, ``eval_step_vqvae``, ``extract_code_indices``,
 ``train_vqvae``): one step runs the VQ-VAE's training forward, takes
 loss = vq_loss + recon_loss (the MSE over the data variance),
 backpropagates through time and applies AdamW; the forward moves the BN
-running statistics. On the card the layerwise branch ('auto') runs every
+running statistics. Any stage-1 model serves whose training forward
+``model(images, data_variance=...)`` returns the VQ-VAE's keys
+(``vq_loss``, ``recon_loss``, ``real_recon_loss``), whose eval forward
+``model(images, train=False)`` returns ``recon`` and ``indices``, and
+which has ``encode_indices``: the spiking ``SNNVQVAE`` (``--model
+snn-vq-vae``) and the ANN ``ANNVQVAE`` (``--model vq-vae``, no kernel).
+On the card the spiking model's layerwise branch ('auto') runs every
 LIF layer on K1 forward and backward, six of each per step; 'bnlif' runs
 every BN-apply + LIF on K3, six forward and six backward. Single device.
 """
@@ -18,9 +23,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from spiking_diffusion_tpu_torch.device import resolve_device
-from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 from spiking_diffusion_tpu_torch.train.state import TrainState, create_train_state
 
 TrainStep = Callable[[TrainState, torch.Tensor], Dict[str, torch.Tensor]]
@@ -48,13 +53,13 @@ def make_train_step_vqvae(data_variance: float) -> TrainStep:
     return train_step
 
 
-def eval_step_vqvae(model: SNNVQVAE, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def eval_step_vqvae(model: nn.Module, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval forward: (recon images (N, H, W, C), code indices (N*h*w,))."""
     out = model(images, train=False)
     return out["recon"], out["indices"]
 
 
-def extract_code_indices(model: SNNVQVAE, images: np.ndarray, batch_size: int = 256,
+def extract_code_indices(model: nn.Module, images: np.ndarray, batch_size: int = 256,
                          device="cuda") -> np.ndarray:
     """(N, h, w) int32 code grids of raw [0, 1] images (N, H, W, C) for
     stage-2 training, the remainder batch included.
@@ -73,7 +78,7 @@ def extract_code_indices(model: SNNVQVAE, images: np.ndarray, batch_size: int = 
 
 
 def train_vqvae(
-    model: SNNVQVAE,
+    model: nn.Module,
     images: np.ndarray,
     data_variance: float,
     epochs: int = 1,
@@ -88,7 +93,7 @@ def train_vqvae(
     device="cuda",
 ) -> TrainState:
     """Full stage-1 loop over raw [0, 1] images (N, H, W, C) with an
-    initialised VQ-VAE; returns the train state.
+    initialised stage-1 model; returns the train state.
 
     Runs on the card unless ``device="cpu"`` is passed. The images stay on
     the device, each batch is gathered there and shifted by -0.5; the

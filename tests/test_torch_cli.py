@@ -3,7 +3,15 @@
 * The parser: every flag of ``spiking_diffusion_tpu.cli.parse_args`` with
   the same option strings, default, choices, type and action, and no
   other flag.
-* The choices the port does not run raise.
+* The choices the port does not run raise: ``--data_parallel`` above 1
+  on every model, CIFAR10 and CIFAR10-BW.
+* A tiny ``--model vq-vae`` run (the ANN VQ-VAE, the flags of
+  ``tests/test_cli_variants.py``) writes the two-stage artifact tree and
+  prints the ``--syops`` report the JAX CLI prints for that model (no
+  counted layer); a tiny ``--model snn-vae`` run with ``--vae_scheduled_p
+  anneal`` writes ``model.pt`` and ``image.png``, prints IS, KID and FID of
+  40 x ``--batch_size`` samples in the JAX CLI's format, and evaluates
+  again from ``--checkpoint``.
 * ``--syops`` prints ``format_report`` of ``profile_apply`` on the trained
   stage-1 model and the first ``--batch_size`` test images, and JAX's
   three summary lines.
@@ -35,10 +43,12 @@ from spiking_diffusion_tpu.config import VQVAEConfig as JaxVQVAEConfig
 from spiking_diffusion_tpu.data import batch_iterator as jax_batch_iterator
 from spiking_diffusion_tpu.data import synthetic_dataset as jax_synthetic_dataset
 from spiking_diffusion_tpu.metrics import ssim as jax_ssim
+from spiking_diffusion_tpu.models.ann_vqvae import ANNVQVAE as JaxANNVQVAE
 from spiking_diffusion_tpu.models.vqvae import SNNVQVAE as JaxSNNVQVAE
+from spiking_diffusion_tpu.profiling import syops as jax_syops
 from spiking_diffusion_tpu.train.checkpoint import load_variables
 from spiking_diffusion_tpu_torch import cli
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import synthetic_dataset
 from spiking_diffusion_tpu_torch.models import weights
 from spiking_diffusion_tpu_torch.profiling import syops
@@ -106,8 +116,8 @@ def test_parser_flag_equals_jax(dest):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--model", "snn-vae"], NotImplementedError),
-    (["--model", "vq-vae"], NotImplementedError),
+    (["--model", "snn-vae", "--data_parallel", "2"], NotImplementedError),
+    (["--model", "vq-vae", "--data_parallel", "2"], NotImplementedError),
     (["--data_parallel", "2"], NotImplementedError),
     (["--dataset_name", "CIFAR10"], ValueError),
     (["--dataset_name", "CIFAR10-BW"], ValueError),
@@ -175,6 +185,66 @@ def test_syops_prints_the_report(tmp_path, monkeypatch, capsys):
         "{:<30}  {:.3e}".format("Computational complexity ACs:", total["acs"]),
         "{:<30}  {:.3e}".format("Computational complexity MACs:", total["macs"]),
         "{:<30}  {:,}".format("Number of parameters: ", n_params)]) in printed
+
+
+def test_tiny_vq_vae_run_writes_the_tree_and_the_syops_report(tmp_path, monkeypatch,
+                                                              capsys):
+    monkeypatch.setattr(cli, "DiffusionConfig",
+                        functools.partial(DiffusionConfig, denoiser_channels=TINY_CHANNELS))
+    flags = TINY_FLAGS + ["--model", "vq-vae", "--syops"]
+    out = cli.main(flags + _dirs(tmp_path), device="cpu")
+    res = tmp_path / "result" / "MNIST" / "vq-vae"
+    assert _tree(res) == ["diff_result/diff_model.pt", "diff_result/epoch=0_test.png",
+                          "epoch=0_test.png", "model.pt"]
+    smp = tmp_path / "sample" / "MNIST" / "vq-vae"
+    assert {"0.5/image_0.5_0.png", "1.0/image_1.0_0.png", "metrics.json",
+            "paper_image.png"} <= set(_tree(smp))
+    metrics = json.load(open(smp / "metrics.json"))
+    assert set(metrics) == {"0.5", "1.0", "null_FID", "feature_space"}
+    assert all(np.isfinite(v) for t in ("0.5", "1.0") for v in metrics[t].values())
+    assert np.isfinite(out["recon_mse"])
+    saved = torch.load(res / "model.pt", weights_only=True)["model"]
+    vq_cfg = VQVAEConfig(num_steps=2, num_embeddings=8)
+    weights.load_ann_vqvae(weights.init_ann_vqvae_variables(vq_cfg, torch.Generator()),
+                           vq_cfg, device="cpu").load_state_dict(saved, strict=True)
+    # the JAX CLI's report of its ANN VQ-VAE: no counted layer
+    jax_cfg = JaxVQVAEConfig(num_steps=2, num_embeddings=8)
+    images = jnp.zeros((16, 28, 28, 1))
+    params = JaxANNVQVAE(jax_cfg).init(jax.random.PRNGKey(0), images, train=False)["params"]
+    _, per_layer, total = jax_syops.profile_apply(JaxANNVQVAE(jax_cfg), {"params": params},
+                                                  images, train=False)
+    n_params = jax_syops.count_params(params)
+    assert per_layer == {}
+    printed = capsys.readouterr().out
+    assert jax_syops.format_report(per_layer, total, n_params) in printed
+    assert "{:<30}  {:,}".format("Number of parameters: ", n_params) in printed
+
+
+def test_tiny_snn_vae_run_and_its_checkpoint(tmp_path, capsys):
+    flags = ["--model", "snn-vae", "--epochs", "1", "--num_steps", "2", "--batch_size", "8",
+             "--synthetic_train", "48", "--synthetic_test", "32", "--ref_size", "32",
+             "--vae_scheduled_p", "anneal", "--frozen_metrics", "on"] + _dirs(tmp_path)
+    out = cli.main(flags, device="cpu")
+    res = tmp_path / "result" / "MNIST" / "snn-vae"
+    assert _tree(res) == ["model.pt"]
+    assert _tree(tmp_path / "sample" / "MNIST" / "snn-vae") == ["image.png"]
+    assert out["n_samples"] == 40 * 8
+    assert all(np.isfinite(out[k]) for k in ("IS", "KID_x1e3", "FID"))
+    assert out["feature_space"] == {"frozen": True, "name": "MNIST",
+                                    "sha256": "fa7286439409571c"}
+    assert set(out["seconds"]) == {"train", "sample", "metrics"}
+    printed = capsys.readouterr().out
+    assert "[0/1][5/6]: loss " in printed
+    assert (f"IS = {out['IS']:.4f}  KIDx1e3 = {out['KID_x1e3']:.4f}  FID = {out['FID']:.4f}  "
+            "[space fa7286439409571c frozen]") in printed
+    cfg, vq_cfg = SNNVAEConfig(num_steps=2), VQVAEConfig(num_steps=2)
+    model = weights.load_snn_vae(*weights.init_snn_vae_variables(cfg, vq_cfg, torch.Generator()),
+                                 cfg, vq_cfg, device="cpu")
+    model.load_state_dict(torch.load(res / "model.pt", weights_only=True)["model"],
+                          strict=True)
+    again = cli.main(flags + ["--checkpoint", str(res)], device="cpu")
+    assert again["seconds"]["train"] < out["seconds"]["train"] + 1.0
+    assert "loaded stage-1 checkpoint" in capsys.readouterr().out
 
 
 def test_checkpoint_recon_equals_jax(tmp_path):

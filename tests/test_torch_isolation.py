@@ -5,8 +5,9 @@
   package ``spiking_diffusion_tpu``.
 * The entry points' device defaults to ``"cuda"`` (the sampler's, the
   fused sampler's, the stage-1 and stage-2 trainers',
-  ``extract_code_indices``'s, the CLI's ``main`` and the LeNet feature
-  space's too): with no card they raise instead of running on the CPU.
+  ``extract_code_indices``'s, the CLI's ``main``, the LeNet feature
+  space's, the baselines' loaders, InceptionV3's, clean-fid's and the
+  freeze's too): with no card they raise instead of running on the CPU.
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -21,8 +22,8 @@ import pytest
 import torch
 
 from spiking_diffusion_tpu_torch import cli, generate
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
-from spiking_diffusion_tpu_torch.metrics import features, frozen
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.metrics import cleanfid, features, frozen, inception
 from spiking_diffusion_tpu_torch.models import diffusion, weights
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 
@@ -37,7 +38,8 @@ for name in names:
 import chip_smoke
 for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage",
              "metrics.scores", "metrics.ssim", "utils.grids", "profiling.syops",
-             "profiling.timing", "profiling.monitor"):
+             "profiling.timing", "profiling.monitor", "models.ann_vqvae", "models.snn_vae",
+             "metrics.inception", "metrics.cleanfid"):
     assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
@@ -119,6 +121,28 @@ def test_cli_and_metrics_default_to_cuda(monkeypatch, tmp_path):
     for mode in ("auto", "off"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             frozen.get_feature_space("MNIST", images, labels, 10, mode=mode, log_fn=None)
+
+
+def test_baselines_and_metrics_default_to_cuda(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vcfg, cfg = VQVAEConfig(num_steps=2), SNNVAEConfig(num_steps=2)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weights.load_ann_vqvae(weights.init_ann_vqvae_variables(vcfg, gen), vcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weights.load_snn_vae(*weights.init_snn_vae_variables(cfg, vcfg, gen), cfg, vcfg)
+    model = inception.InceptionV3(num_classes=10)
+    images = np.zeros((2, 28, 28, 1), np.float32)
+    for call in (lambda: inception.inception_feature_fn(model),
+                 lambda: inception.resize_for_inception(images),
+                 lambda: inception.load_converted_weights({}),
+                 lambda: cleanfid.clean_resize(images),
+                 lambda: cleanfid.make_clean_feature_fn(model),
+                 lambda: frozen.freeze_feature_space("MNIST", images, np.zeros(2, np.int32),
+                                                     images, 10, root=str(tmp_path),
+                                                     log_fn=None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_chip_smoke_fails_without_card():
