@@ -204,7 +204,13 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    null FID within 0.01 of 12.676, 10 modes, FID at 0.8 under twice the
    record's 172.406, every figure logged beside the record's. Its recon
    of 1,024 images on the card and the CPU: MSE and 1 - SSIM within 1e-4,
-   the codes that differ counted.
+   the codes that differ counted. K2 against its plain version on the
+   baseline's denoiser at the eval's chunk of 512 (first step and t = 25,
+   every dtype). FID at 1.0 alone through ``cli._eval_generation`` on the
+   eval's data for seeds 42-44 on fused fp32 and ``--bf16`` and seed 42 on
+   the layerwise sampler (stats verified, K2 launches exact, figures
+   logged): whether the distance from the record follows the kernel, the
+   arithmetic or the draw.
 13. cli_snn_vae: ``--model snn-vae`` on the card. Every K1 launch of a
    training step at batch 32 and 256 (the latent head's (16, N·56) and the
    decoder input's (16, N·784) among them), forward and backward, bitwise
@@ -214,7 +220,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    256 on 'auto' (7 + 7 K1 a step) and 'bnlif' (5 + 5 K3 and 2 + 2 K1),
    ms per step by CUDA events, one more step by kernel, the first step at
    32 equal to the plain versions' on the card; ``sample`` of 64 on one
-   injected choice, card against CPU: z equal, images within 1e-4; the
+   injected choice on both branches (3 K1; 'bnlif' 1 K1 + 2 K3), card
+   against CPU: z equal, images within 1e-4; the
    eval of the exported baseline with its record's flags (10,240 samples,
    8,192 reference images), IS, KID and FID logged beside the record's
    8.98 and 801.5.
@@ -224,7 +231,7 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    ``clean_resize`` of 64 uint8 images card against CPU within 1e-5; the
    freeze protocol at canonical sizes (60,000 + 10,240 images, 5 epochs)
    into a temporary root, read back in mode 'on' and its stats verified
-   as the CLI verifies them, with its seconds.
+   by the CLI's rule (``frozen.verify_stats``), with its seconds.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -452,6 +459,14 @@ VQ_VAE_RECORD = {"0.8": {"IS": 9.2838, "FID": 172.406, "mode_KL": 0.0444, "cover
                  "null_FID": 12.676, "sha256": "fa7286439409571c"}
 VQ_VAE_FID_08_BOUND = 2 * VQ_VAE_RECORD["0.8"]["FID"]  # phase cli's band for e60
 # the SNN-VAE's run in the same frozen space (STATUS_r3.md:64)
+# the vq-vae eval's FID at 1.0 against the record's: its one eval draw
+# again (--temperatures 1.0 alone), on other draws, on the layerwise
+# sampler (no K2) and in bf16, through the CLI's own evaluation
+VQ_VAE_GAP_SEEDS = (42, 43, 44)
+VQ_VAE_GAP_RUNS = ([(f"fused fp32, seed {s}", ["--seed", str(s)]) for s in VQ_VAE_GAP_SEEDS]
+                   + [("layerwise fp32, seed 42", ["--seed", "42", "--fused_sampler", "off"])]
+                   + [(f"fused bf16, seed {s}", ["--seed", str(s), "--bf16"])
+                      for s in VQ_VAE_GAP_SEEDS])
 SNN_VAE_RECORD = {"FID": 801.5, "IS": 8.98}
 CLI_VQ_TRAIN_FLAGS = ["--model", "vq-vae"] + CLI_TRAIN_FLAGS
 CLI_VQ_EVAL_FLAGS = ["--model", "vq-vae", "--checkpoint", str(BASELINES / "vq-vae"),
@@ -2163,6 +2178,47 @@ def k1_launches_of(run) -> list:
     return seen
 
 
+def k2_probes(dcfg, n: int, codes: torch.Tensor, gen: torch.Generator) -> list:
+    """K2's inputs on trained weights at batch n: the first reverse step
+    (all masked, t = T) and a grid of ``codes`` (repeated to n), half
+    masked, at t = 25."""
+    h = dcfg.latent_size
+    grids = codes.repeat(-(-n // len(codes)), 1, 1)[:n]
+    first = (torch.full((n, h, h), dcfg.mask_id, dtype=torch.int32, device="cuda"),
+             torch.full((n,), dcfg.num_timesteps, dtype=torch.int32, device="cuda"))
+    half = torch.rand((n, h, h), generator=gen, device="cuda") < 0.5
+    mid = (torch.where(half, torch.full_like(grids, dcfg.mask_id), grids),
+           torch.full((n,), 25, dtype=torch.int32, device="cuda"))
+    return [("first step", first), ("t=25", mid)]
+
+
+def compare_k2_probes(what: str, den, dcfg, inputs: list) -> dict:
+    """K2 against its plain version on ``den``'s weights folded for each
+    sampler dtype, on each of ``inputs``; max |d logits| per dtype."""
+    err = {}
+    for label, (tokens, t) in inputs:
+        for name, dtype in K2_DTYPES.items():
+            folded = fd.fold_denoiser_weights(den, dtype)
+            a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
+            d = compare_k2(f"{name} {what}, {label}", folded, a1, dcfg)
+            err[name] = max(err.get(name, 0.0), d)
+    return err
+
+
+def fused_logit_share(den, dcfg, inputs: list) -> dict:
+    """The share of the fused fp32 sampler's logits within K2_AGREE_ATOL
+    of the layerwise denoiser's (``den``'s own forward), on each input."""
+    share = {}
+    for label, (tokens, t) in inputs:
+        with torch.no_grad():
+            fused = fd.make_fused_denoise_fn(den, dcfg, torch.float32)(tokens, t)
+            d = (fused - den(tokens, t)).abs()
+        share[label] = float((d <= K2_AGREE_ATOL).float().mean())
+        log(f"  fused fp32 logits within {K2_AGREE_ATOL:g} of the layerwise ones, "
+            f"{label}, N={len(tokens)}: {share[label]:.6f}")
+    return share
+
+
 def phase_trained_weights(card: str) -> dict:
     """The trained weights on the card: recon card against CPU, the
     encoder's codes card against CPU, and the samplers on one set of
@@ -2215,30 +2271,15 @@ def phase_trained_weights(card: str) -> dict:
     # and a half-masked grid of the layerwise codes at t = 25, at batch 256
     # and at the chunk sizes of the CLI's sweeps (fp32 in its training run,
     # bf16 in its eval), on the eval's own denoiser ('bnlif', bf16)
-    h = dcfg.latent_size
     den_eval = load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend="bnlif",
                                                           dtype=torch.bfloat16), "cuda")
     k2_err, logit_share = {}, {}
     for n in k2_trained_sizes():
-        layerwise = codes["layerwise fp32"].repeat(-(-n // BATCH), 1, 1)[:n]
-        first = (torch.full((n, h, h), dcfg.mask_id, dtype=torch.int32, device="cuda"),
-                 torch.full((n,), dcfg.num_timesteps, dtype=torch.int32, device="cuda"))
-        half = torch.rand((n, h, h), generator=gen, device="cuda") < 0.5
-        mid = (torch.where(half, torch.full_like(layerwise, dcfg.mask_id), layerwise),
-               torch.full((n,), 25, dtype=torch.int32, device="cuda"))
-        for label, (tokens, t) in (("first step", first), ("t=25", mid)):
-            for name, dtype in K2_DTYPES.items():
-                folded = fd.fold_denoiser_weights(den_eval, dtype)
-                a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
-                err = compare_k2(f"{name} trained, {label}", folded, a1, dcfg)
-                k2_err[name] = max(k2_err.get(name, 0.0), err)
-            if n != BATCH:
-                continue
-            fused = fd.make_fused_denoise_fn(den, dcfg, torch.float32)(tokens, t)
-            logit_share[label] = float(((fused - den(tokens, t)).abs() <= K2_AGREE_ATOL)
-                                       .float().mean())
-            log(f"  fused fp32 logits within {K2_AGREE_ATOL:g} of the layerwise ones, "
-                f"{label}: {logit_share[label]:.6f}")
+        inputs = k2_probes(dcfg, n, codes["layerwise fp32"], gen)
+        for name, err in compare_k2_probes("trained", den_eval, dcfg, inputs).items():
+            k2_err[name] = max(k2_err.get(name, 0.0), err)
+        if n == BATCH:
+            logit_share = fused_logit_share(den, dcfg, inputs)
 
     # K1 at the CLI eval's shapes (bf16 models, the eval's batch): every
     # launch of a decode of one sampling chunk, of a recon batch and of the
@@ -2760,8 +2801,66 @@ def phase_cli_vq_vae(card: str) -> dict:
         f"distinct; launches {format_counts(counts)} [{card}]")
     check(counts == (0,) * 7, f"the ANN VQ-VAE launched {counts}")
     check(max(d_recon) <= STAGE1_CPU_LOSS_ATOL, "vq-vae recon: card against CPU")
+
+    # K2 on the baseline's denoiser as its eval runs it ('bnlif', fp32
+    # sampler), at the eval's sampling chunk, on the encoder's codes
+    dcfg = DiffusionConfig()
+    den = baseline_denoiser(None)
+    gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
+    inputs = k2_probes(dcfg, cli_chunk(CLI_VQ_EVAL_FLAGS), codes.cuda(), gen)
+    k2_err = compare_k2_probes("vq-vae trained", den, dcfg, inputs)
+    logit_share = fused_logit_share(den, dcfg, inputs)
     return {"train": train, "eval": evaluation,
-            "recon": {"card": card_recon, "cpu": cpu_recon, "codes_differing": differing}}
+            "recon": {"card": card_recon, "cpu": cpu_recon, "codes_differing": differing},
+            "k2_max_abs_err": k2_err, "fused_logits_within_1e-5": logit_share,
+            "fid_1.0": vq_vae_gap(vq, den, dcfg, card)}
+
+
+def baseline_denoiser(dtype) -> SpikingDenoiser:
+    """The vq-vae baseline's exported denoiser as its eval builds it
+    ('bnlif' on the card, ``dtype`` None or bf16), in eval mode."""
+    den = SpikingDenoiser(DiffusionConfig(), lif_backend="bnlif", dtype=dtype)
+    ckpt = torch.load(BASELINES / "vq-vae" / "diff_result" / "diff_model.pt",
+                      map_location="cuda", weights_only=True)
+    den.load_state_dict(ckpt["model"], strict=True)
+    return den.cuda().eval()
+
+
+def vq_vae_gap(vq, den, dcfg, card: str) -> dict:
+    """FID at 1.0 of the vq-vae baseline through the CLI's own evaluation
+    (``cli._eval_generation``, on the eval's data and frozen space) for
+    each of VQ_VAE_GAP_RUNS: whether its distance from the record follows
+    the kernel (fused against layerwise on one draw), the arithmetic
+    (bf16 against fp32) or the draw (the seeds)."""
+    base = cli.parse_args(CLI_VQ_EVAL_FLAGS)
+    ds = load_dataset(base.dataset_name, base.data_path,
+                      synthetic_size=(base.synthetic_train, base.synthetic_test))
+    dens = {False: den, True: baseline_denoiser(torch.bfloat16)}
+    rows = {}
+    for label, extra in VQ_VAE_GAP_RUNS:
+        args = cli.parse_args(CLI_VQ_EVAL_FLAGS[:-2] + ["--temperatures", "1.0"] + extra)
+        chunks = -(-args.sample_batches * 16 // min(512, args.sample_batches * 16))
+        np.random.seed(args.seed)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root, contextlib.redirect_stdout(io.StringIO()):
+            out = cli._eval_generation(args, temperatures(args), vq, dcfg, dens[args.bf16],
+                                       ds, root, torch.device("cuda"))
+        seconds = time.perf_counter() - t0
+        counts, entry = launch_counts(), out[1.0]
+        log(f"  vq-vae FID at 1.0, {label}: {entry['FID']} (record "
+            f"{VQ_VAE_RECORD['1.0']['FID']}), IS {entry['IS']}, KID_x1e3 "
+            f"{entry['KID_x1e3']}, {entry['covered_modes']} modes; K2 {counts[4]}; "
+            f"{seconds:.1f} s [{card}]")
+        check(out["feature_space"]["stats_verified"], f"vq-vae {label}: stats not verified")
+        check(all(math.isfinite(v) for v in entry.values()), f"vq-vae {label}: {entry}")
+        fused = cli.FUSED[args.fused_sampler] is not False
+        check(counts[4] == (K2_STEP_LAUNCHES * chunks if fused else 0),
+              f"vq-vae {label}: {counts[4]} K2 launches")
+        rows[label] = {"FID": entry["FID"], "IS": entry["IS"], "KID_x1e3": entry["KID_x1e3"],
+                       "covered_modes": entry["covered_modes"], "launches": counts,
+                       "seconds": seconds}
+    return rows
 
 
 def snn_vae_model(backend: str, device) -> SNNVAE:
@@ -2876,25 +2975,30 @@ def phase_cli_snn_vae(card: str) -> dict:
                                                 step_record(plain_state, loss), True)
             steps[branch][n] = row
 
-    # sample on the card against the CPU on one injected choice
+    # sample on the card against the CPU on one injected choice, on each
+    # branch
     cfg = SNNVAEConfig()
     choice = torch.randint(0, cfg.k, (cfg.num_steps, SNN_VAE_SAMPLE_CHECK, cfg.latent_dim),
                            generator=torch.Generator().manual_seed(3))
-    model = snn_vae_model("auto", "cuda")
-    reset_launch_counts()
-    x_card, z_card = model.sample(choice=choice.cuda())
-    sample_counts = launch_counts()
-    x_cpu, z_cpu = snn_vae_model("auto", "cpu").sample(choice=choice)
-    z_differing = int((z_card.cpu() != z_cpu).sum())
-    d_image = float((x_card.cpu() - x_cpu).abs().max())
-    log(f"  snn-vae sample of {SNN_VAE_SAMPLE_CHECK} on one choice: launches "
-        f"{format_counts(sample_counts)}; z differing card against CPU {z_differing} of "
-        f"{z_cpu.numel()} (rate {float(z_cpu.mean()):.4f}); max|d image| {d_image:.3g} "
-        f"(tol {SNN_VAE_SAMPLE_ATOL:g}) [{card}]")
-    check(sample_counts == SNN_VAE_SAMPLE_LAUNCHES["layerwise"],
-          f"snn-vae sample launches {sample_counts}")
-    check(z_differing == 0 and d_image <= SNN_VAE_SAMPLE_ATOL,
-          "snn-vae sample: card against CPU")
+    sample = {}
+    for branch, (backend, _) in SNN_VAE_BRANCHES.items():
+        model = snn_vae_model(backend, "cuda")
+        reset_launch_counts()
+        x_card, z_card = model.sample(choice=choice.cuda())
+        sample_counts = launch_counts()
+        x_cpu, z_cpu = snn_vae_model(backend, "cpu").sample(choice=choice)
+        z_differing = int((z_card.cpu() != z_cpu).sum())
+        d_image = float((x_card.cpu() - x_cpu).abs().max())
+        log(f"  snn-vae {branch} sample of {SNN_VAE_SAMPLE_CHECK} on one choice: launches "
+            f"{format_counts(sample_counts)}; z differing card against CPU {z_differing} of "
+            f"{z_cpu.numel()} (rate {float(z_cpu.mean()):.4f}); max|d image| {d_image:.3g} "
+            f"(tol {SNN_VAE_SAMPLE_ATOL:g}) [{card}]")
+        check(sample_counts == SNN_VAE_SAMPLE_LAUNCHES[branch],
+              f"snn-vae {branch} sample launches {sample_counts}")
+        check(z_differing == 0 and d_image <= SNN_VAE_SAMPLE_ATOL,
+              f"snn-vae {branch} sample: card against CPU")
+        sample[branch] = {"launches": sample_counts, "z_differing": z_differing,
+                          "max_abs_image_err": d_image}
 
     with tempfile.TemporaryDirectory() as root:
         out, _, _, eval_counts, _ = cli_run(CLI_SNN_EVAL_FLAGS, root, card)
@@ -2905,8 +3009,7 @@ def phase_cli_snn_vae(card: str) -> dict:
           == VQ_VAE_RECORD["sha256"], f"snn-vae feature space {out['feature_space']}")
     check(all(math.isfinite(out[k]) for k in ("IS", "KID_x1e3", "FID")), "snn-vae eval scores")
     return {"k1_max_abs_err": k1_err, "train": train_run, "steps": steps,
-            "sample": {"launches": sample_counts, "z_differing": z_differing,
-                       "max_abs_image_err": d_image},
+            "sample": sample,
             "eval": {"launches": eval_counts, "seconds": out["seconds"],
                      "scores": {k: out[k] for k in ("IS", "KID_x1e3", "FID")}}}
 
@@ -2963,11 +3066,7 @@ def phase_metrics_extra(card: str) -> dict:
         stats = frozen.load_frozen_stats("MNIST", root=root)
         real = ds.test_images[:frozen.CANONICAL_REF_N]
         feats, _ = feature_fn(real)
-        verified = bool(stats["data_sha"] == frozen.data_hash(real)
-                        and np.allclose(np.mean(feats, axis=0), stats["mu"], rtol=1e-4,
-                                        atol=1e-4)
-                        and np.allclose(np.cov(feats, rowvar=False), stats["sigma"],
-                                        rtol=1e-3, atol=1e-4))
+        verified = frozen.verify_stats(stats, real, feats) is True
     log(f"  freeze_feature_space at {FREEZE_SIZES[0]} + {FREEZE_SIZES[1]} images, "
         f"{frozen.FREEZE_EPOCHS} epochs: {seconds:.2f} s (host clock), space "
         f"{out['space_sha'][:16]} (the committed space, frozen on a TPU: "
@@ -3081,7 +3180,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             snn = phase_cli_snn_vae(smi)
             snn_runs = {"cli_train": snn["train"], "cli_eval": snn["eval"],
-                        "sample": snn["sample"],
+                        **{f"sample {b}": row for b, row in snn["sample"].items()},
                         **{f"{b} {n}": row for b, rows in snn["steps"].items()
                            for n, row in rows.items()}}
         with Phase("metrics_extra"):
@@ -3144,6 +3243,8 @@ def main() -> int:
             # the ANN VQ-VAE's sweeps run fp32 K2 (no --bf16, as its record)
             "launches_cli_vq_vae": {run: n if name == "fp32" else 0
                                     for run, n in launches_of(vq_runs, 4).items()},
+            # on the vq-vae baseline's denoiser at its eval's chunk of 512
+            "max_abs_err_trained_vq_vae": vq["k2_max_abs_err"][name],
             # on the trained weights: the first reverse step and t = 25, at
             # batch 256 and at the CLI's chunk sizes
             "max_abs_err_trained": trained["k2_max_abs_err"][name],

@@ -66,7 +66,6 @@ from spiking_diffusion_tpu_torch.data import batch_iterator, data_variance, load
 from spiking_diffusion_tpu_torch.device import resolve_device
 from spiking_diffusion_tpu_torch.generate import sample_codes
 from spiking_diffusion_tpu_torch.metrics import (
-    data_hash,
     fid_from_features,
     get_feature_space,
     inception_score_from_probs,
@@ -76,6 +75,7 @@ from spiking_diffusion_tpu_torch.metrics import (
     paper_montage,
     per_class_grids,
     ssim,
+    verify_stats,
 )
 from spiking_diffusion_tpu_torch.models import diffusion, weights
 from spiking_diffusion_tpu_torch.profiling import syops
@@ -357,15 +357,12 @@ def _eval_generation(args, sweep, model, d_cfg, denoiser, ds, sample_path, dev):
     # when this eval's real set is the one the committed stats were pinned
     # from, its recomputed stats must equal them
     if space_info.get("frozen"):
-        stats = load_frozen_stats(args.dataset_name)
-        if stats is not None and stats["data_sha"] == data_hash(real):
-            mu = np.mean(real_feats, axis=0)
-            sigma = np.cov(real_feats, rowvar=False)
-            if not (np.allclose(mu, stats["mu"], rtol=1e-4, atol=1e-4)
-                    and np.allclose(sigma, stats["sigma"], rtol=1e-3, atol=1e-4)):
-                raise RuntimeError(
-                    "frozen stats drifted (mu/sigma mismatch vs committed "
-                    "reference) — feature space not reproducible")
+        verified = verify_stats(load_frozen_stats(args.dataset_name), real, real_feats)
+        if verified is False:
+            raise RuntimeError(
+                "frozen stats drifted (mu/sigma mismatch vs committed "
+                "reference) — feature space not reproducible")
+        if verified:
             space_info["stats_verified"] = True
             print("frozen reference stats verified")
 
@@ -469,10 +466,13 @@ def make_train_step_snn_vae():
 
 
 def scheduled_p(mode: str, epoch: int, epochs: int) -> float:
-    """``--vae_scheduled_p``: 'off' 0, 'anneal' 0.1 -> 0.3 over the
-    epochs, else the number given."""
+    """``--vae_scheduled_p``: 'off' 0, 'anneal' ``SNNVAEConfig``'s
+    scheduled_start -> scheduled_end (0.1 -> 0.3) over the epochs, else
+    the number given."""
     if mode == "anneal":
-        return 0.1 + (0.3 - 0.1) * epoch / max(epochs, 1)
+        cfg = SNNVAEConfig()
+        return cfg.scheduled_start + (cfg.scheduled_end - cfg.scheduled_start) * epoch / max(
+            epochs, 1)
     if mode == "off":
         return 0.0
     return float(mode)

@@ -7,6 +7,7 @@ from spiking_diffusion_tpu_torch.metrics.frozen import (
     data_hash,
     get_feature_space,
     load_frozen_stats,
+    verify_stats,
 )
 from spiking_diffusion_tpu_torch.metrics.mode_coverage import (
     mode_coverage_kl,
@@ -35,4 +36,5 @@ __all__ = [
     "paper_montage",
     "per_class_grids",
     "ssim",
+    "verify_stats",
 ]

@@ -13,7 +13,7 @@ Every eval loads the space instead of retraining it and stamps its hash
 ``metrics.json``, so FID/IS/KID compare across runs and with the JAX
 package's records. The stats are a verification anchor: when an eval's
 real set has the committed ``data_sha``, its recomputed stats must equal
-them (the CLI checks this).
+them (:func:`verify_stats`, which the CLI applies).
 
 The committed spaces were made by the JAX package on a TPU, whose
 default precision rounds the operands of every conv and matrix product
@@ -185,6 +185,19 @@ def load_frozen_stats(
             "data_sha": bytes(d["data_sha"]).decode(),
             "space_sha": bytes(d["space_sha"]).decode(),
         }
+
+
+def verify_stats(stats: Optional[Mapping[str, Any]], images: np.ndarray,
+                 feats: np.ndarray) -> Optional[bool]:
+    """Whether ``feats``, the features of ``images``, reproduce the pinned
+    ``stats``: None when there are none or they were pinned from other
+    images (another ``data_sha``), else whether the mean (rtol and atol
+    1e-4) and the covariance (rtol 1e-3, atol 1e-4) both match."""
+    if stats is None or stats["data_sha"] != data_hash(images):
+        return None
+    return bool(np.allclose(np.mean(feats, axis=0), stats["mu"], rtol=1e-4, atol=1e-4)
+                and np.allclose(np.cov(feats, rowvar=False), stats["sigma"], rtol=1e-3,
+                                atol=1e-4))
 
 
 def get_feature_space(

@@ -250,14 +250,13 @@ class SNNVAE(nn.Module):
                     "mmd_loss": mmd_loss, "z": z}
 
     def sample(self, batch: int = 64, generator: Optional[torch.Generator] = None,
-               choice: Optional[torch.Tensor] = None, device=None):
+               choice: Optional[torch.Tensor] = None):
         """Ancestral sampling from the prior, in eval mode: (images (B, H,
         W, C), z (T, B, C)). ``choice`` defaults to uniform draws from
-        ``generator`` on ``device`` (the model's)."""
+        ``generator`` on the model's device."""
         if choice is None:
-            device = device or next(self.parameters()).device
             choice = torch.randint(0, self.cfg.k, (self.cfg.num_steps, batch, self.cfg.latent_dim),
-                                   generator=generator, device=device)
+                                   generator=generator, device=next(self.parameters()).device)
         with _mode(self, False):
             z = self.prior.sample(choice)
             return self.decode(z), z

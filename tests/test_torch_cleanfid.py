@@ -5,7 +5,9 @@
   299 and at a downscale, equals JAX's within 1e-5.
 * ``make_clean_feature_fn`` is the InceptionV3 FID pipeline on
   ``clean_resize``d images (a seeded network at 299 on the port; the
-  network itself is held to JAX in tests/test_torch_inception.py).
+  network itself is held to JAX in tests/test_torch_inception.py), and
+  with both networks replaced by that file's stand-in it equals JAX's,
+  batching included.
 * ``compute_fid`` from images or stats, and the stats registry
   (``save_stats``, ``load_stats``, ``list_stats``): the same numbers and
   files as JAX's, each package reading what the other wrote.
@@ -17,6 +19,7 @@ import torch
 
 from spiking_diffusion_tpu.metrics import cleanfid as jax_cleanfid
 from spiking_diffusion_tpu_torch.metrics import cleanfid, inception
+from tests.test_torch_inception import JaxStandIn, TorchStandIn
 
 RESIZE_ATOL = 1e-5
 FID_RTOL = 1e-9
@@ -51,6 +54,16 @@ def test_clean_feature_fn_is_the_fid_pipeline():
     np.testing.assert_allclose(feats, want.numpy(), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         cleanfid.make_clean_feature_fn(None, device="cpu")
+
+
+@pytest.mark.parametrize("images", [
+    np.random.RandomState(3).randint(0, 256, (3, 28, 28)).astype(np.uint8),
+    np.random.RandomState(4).rand(3, 28, 28, 1).astype(np.float32)], ids=["uint8", "float"])
+def test_clean_feature_fn_glue_equals_jax(images):
+    want = jax_cleanfid.make_clean_feature_fn(JaxStandIn(), {}, batch_size=2)(images)
+    got = cleanfid.make_clean_feature_fn(TorchStandIn(), batch_size=2, device="cpu")(images)
+    assert got.shape == (3, 6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=RESIZE_ATOL)
 
 
 def _features(images):

@@ -11,9 +11,9 @@ images, 1 epoch, on the CPU, into a temporary root):
   sha); JAX's ``load_frozen_stats`` reads the port's stats file as the
   port does, pinned to the test images' ``data_hash``;
 * verifies on read-back: ``get_feature_space(mode="on")`` on that root
-  recomputes the stats within the CLI's check (mu rtol/atol 1e-4, sigma
-  rtol 1e-3, atol 1e-4), since both run in the frozen spaces' bf16
-  operands;
+  recomputes the stats within the CLI's check, ``verify_stats`` (mu
+  rtol/atol 1e-4, sigma rtol 1e-3, atol 1e-4, whose edges a test holds),
+  since both run in the frozen spaces' bf16 operands;
 * ``scripts/freeze_metric_space_torch.py`` refuses the committed
   ``assets/`` as its root unless told to overwrite them.
 """
@@ -79,9 +79,27 @@ def test_space_verifies_on_read_back(space):
     real = ds.test_images[:frozen.CANONICAL_REF_N]
     assert stats["data_sha"] == frozen.data_hash(real)
     feats, _ = feature_fn(real)
-    assert np.allclose(np.mean(feats, axis=0), stats["mu"], rtol=1e-4, atol=1e-4)
-    assert np.allclose(np.cov(feats, rowvar=False), stats["sigma"], rtol=1e-3, atol=1e-4)
+    assert frozen.verify_stats(stats, real, feats) is True
     assert float(np.max(np.abs(stats["mu"]))) > 0.1
+
+
+def test_verify_stats_rule(space):
+    """The CLI's rule: no verdict without stats or for other images, a
+    miss when the mean or the covariance moves past its tolerance."""
+    root, ds, _ = space
+    stats = frozen.load_frozen_stats(NAME, root=root)
+    real = ds.test_images[:frozen.CANONICAL_REF_N]
+    feats = np.random.RandomState(0).randn(len(real), 6)
+    exact = dict(stats, mu=np.mean(feats, axis=0), sigma=np.cov(feats, rowvar=False))
+    assert frozen.verify_stats(exact, real, feats) is True
+    assert frozen.verify_stats(None, real, feats) is None
+    assert frozen.verify_stats(exact, real[:-1], feats[:-1]) is None
+    for key, where in (("mu", (0,)), ("sigma", (1, 2))):
+        moved = dict(exact, **{key: exact[key].copy()})
+        moved[key][where] += 1e-4 * (1 + abs(moved[key][where])) * 0.5
+        assert frozen.verify_stats(moved, real, feats) is True
+        moved[key][where] += 2e-3 * (1 + abs(moved[key][where]))
+        assert frozen.verify_stats(moved, real, feats) is False
 
 
 def test_script_refuses_the_committed_assets(tmp_path):

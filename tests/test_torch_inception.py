@@ -16,7 +16,9 @@ torchvision's. Then:
   magnitude;
 * ``inception_feature_fn``'s pipelines equal the network's on the
   resized batch (at 299 on the port only: JAX's network at 299 is too
-  slow here);
+  slow here), and its glue (the uint8 detection, the zero-padded last
+  batch, which pipeline feeds which output) equals JAX's with both
+  networks replaced by one cheap stand-in;
 * ``load_converted_weights`` / ``load_torch_weights_npz`` of JAX's
   converted mapping give back the port's tensors;
 * ``resize_for_inception`` (bilinear, and Lanczos-3 with antialiasing)
@@ -155,6 +157,47 @@ def test_feature_fn_runs_both_pipelines(network):
     np.testing.assert_allclose(probs[:2], torch.softmax(logits, -1).numpy(), rtol=1e-5,
                                atol=1e-7)
     np.testing.assert_allclose(probs.sum(axis=1), 1.0, rtol=1e-5)
+
+
+# the stand-in network of the glue tests: per-channel means and mean
+# squares of its NHWC input, which ``transform_input`` moves per channel
+# as the real network's rescale does, and logits linear in them
+STAND_IN_SHIFT = np.array([0.3, -0.2, 0.1], np.float32)
+STAND_IN_W = np.random.RandomState(9).randn(6, 5).astype(np.float32)
+
+
+class JaxStandIn:
+    """Duck-types the flax network's ``apply`` for the JAX feature fns."""
+
+    def apply(self, variables, x, train=False, transform_input=False):
+        if transform_input:
+            x = x * 0.5 + STAND_IN_SHIFT
+        f = jnp.concatenate([x.mean((1, 2)), (x * x).mean((1, 2))], axis=-1)
+        return f, f @ STAND_IN_W
+
+
+class TorchStandIn(torch.nn.Module):
+    """The same stand-in as an ``nn.Module`` for the port's feature fns."""
+
+    def forward(self, x, transform_input=False):
+        if transform_input:
+            x = x * 0.5 + torch.from_numpy(STAND_IN_SHIFT)
+        f = torch.cat([x.mean((1, 2)), (x * x).mean((1, 2))], dim=-1)
+        return f, f @ torch.from_numpy(STAND_IN_W)
+
+
+@pytest.mark.parametrize("kind,n", [("uint8", 3), ("float", 3), ("rgb", 4)])
+def test_feature_fn_glue_equals_jax(kind, n):
+    rng = np.random.RandomState(6)
+    images = {"uint8": lambda: rng.randint(0, 256, (n, 28, 28, 1)).astype(np.uint8),
+              "float": lambda: rng.rand(n, 28, 28, 1).astype(np.float32),
+              "rgb": lambda: rng.rand(n, 20, 20, 3).astype(np.float32)}[kind]()
+    want_feats, want_probs = jax_inception.inception_feature_fn(JaxStandIn(), {}, 2)(images)
+    feats, probs = inception.inception_feature_fn(TorchStandIn(), batch_size=2,
+                                                  device="cpu")(images)
+    assert feats.shape == (n, 6) and probs.shape == (n, 5)
+    np.testing.assert_allclose(feats, want_feats, rtol=0, atol=RESIZE_ATOL)
+    np.testing.assert_allclose(probs, want_probs, rtol=0, atol=RESIZE_ATOL)
 
 
 def test_load_converted_weights_round_trip(network, tmp_path):
