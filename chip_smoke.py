@@ -146,8 +146,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    full-width modules, strictly. The CLI's ``_eval_recon`` over 1,024
    synthetic test images in fp32 on the card (exactly 6 K1 launches per
    batch of 256) and on the CPU: MSE and 1 - SSIM within 1e-4 (stage 1's
-   card-against-CPU loss tolerance); the share of ``encode_indices`` codes
-   that agree between the card and the CPU is logged. At batch 256 on one
+   card-against-CPU loss tolerance); the ``encode_indices`` codes that
+   differ between the card and the CPU are counted. At batch 256 on one
    set of per-step noise the layerwise fp32 sampler and the fused one in
    fp32, bf16 and int8 (49 K2 launches each) give valid codes and images,
    the share of codes equal to the layerwise ones logged; K2 on the
@@ -206,11 +206,7 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    of 1,024 images on the card and the CPU: MSE and 1 - SSIM within 1e-4,
    the codes that differ counted. K2 against its plain version on the
    baseline's denoiser at the eval's chunk of 512 (first step and t = 25,
-   every dtype). FID at 1.0 alone through ``cli._eval_generation`` on the
-   eval's data for seeds 42-44 on fused fp32 and ``--bf16`` and seed 42 on
-   the layerwise sampler (stats verified, K2 launches exact, figures
-   logged): whether the distance from the record follows the kernel, the
-   arithmetic or the draw.
+   every dtype).
 13. cli_snn_vae: ``--model snn-vae`` on the card. Every K1 launch of a
    training step at batch 32 and 256 (the latent head's (16, N·56) and the
    decoder input's (16, N·784) among them), forward and backward, bitwise
@@ -232,6 +228,27 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    freeze protocol at canonical sizes (60,000 + 10,240 images, 5 epochs)
    into a temporary root, read back in mode 'on' and its stats verified
    by the CLI's rule (``frozen.verify_stats``), with its seconds.
+15. cli_datasets: every other dataset's committed spiking VQ-VAE
+   (``result_torch/<dataset>/snn-vq-vae``). CIFAR10 at 3 input channels
+   through ``cli.main``: a training run with the cli phase's flags (exact
+   K1, K3 and K2 launches, the JAX artifact tree with RGB PNGs, the
+   ``--syops`` report), then the eval of its export with the record's
+   flags (K1 and bf16 K2 only, RGB PNGs, frozen stats verified, the
+   space's sha, null FID within 1e-3 of the record's 1.6337, every figure
+   logged beside the record's); K2 on its denoiser against the plain
+   version at the eval's chunk of 512 (first step and t = 25, every
+   dtype) and every K1 launch of the eval's decode, recon and remainder
+   batch bitwise. Meanwhile the CLI eval of CIFAR10-BW, FMNIST, KMNIST and
+   Letters, each in a process of its own as a user runs it, with the
+   record's flags but a sweep of one 16-image batch: frozen stats
+   verified, the space's sha and the null FID within 1e-3 of the
+   record's (fresh processes: Letters' pinned stats, a TPU's, do not
+   verify in a process that ran the earlier phases, ROADMAP.md section 3). The
+   CLI's recon on the card (exactly 6 K1 launches a batch) and on the CPU,
+   MSE and 1 - SSIM within 1e-4: CIFAR10's over 1,024 test images, the
+   others' (MNIST's shapes, held over 1,024 in phase trained_weights) over
+   one batch of 256; the CPU's side runs in HOST_WORKERS worker
+   processes, a batch each, while the card runs CIFAR10's CLI.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -243,9 +260,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import signal
@@ -255,6 +274,7 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -459,14 +479,6 @@ VQ_VAE_RECORD = {"0.8": {"IS": 9.2838, "FID": 172.406, "mode_KL": 0.0444, "cover
                  "null_FID": 12.676, "sha256": "fa7286439409571c"}
 VQ_VAE_FID_08_BOUND = 2 * VQ_VAE_RECORD["0.8"]["FID"]  # phase cli's band for e60
 # the SNN-VAE's run in the same frozen space (STATUS_r3.md:64)
-# the vq-vae eval's FID at 1.0 against the record's: its one eval draw
-# again (--temperatures 1.0 alone), on other draws, on the layerwise
-# sampler (no K2) and in bf16, through the CLI's own evaluation
-VQ_VAE_GAP_SEEDS = (42, 43, 44)
-VQ_VAE_GAP_RUNS = ([(f"fused fp32, seed {s}", ["--seed", str(s)]) for s in VQ_VAE_GAP_SEEDS]
-                   + [("layerwise fp32, seed 42", ["--seed", "42", "--fused_sampler", "off"])]
-                   + [(f"fused bf16, seed {s}", ["--seed", str(s), "--bf16"])
-                      for s in VQ_VAE_GAP_SEEDS])
 SNN_VAE_RECORD = {"FID": 801.5, "IS": 8.98}
 CLI_VQ_TRAIN_FLAGS = ["--model", "vq-vae"] + CLI_TRAIN_FLAGS
 CLI_VQ_EVAL_FLAGS = ["--model", "vq-vae", "--checkpoint", str(BASELINES / "vq-vae"),
@@ -486,6 +498,43 @@ SNN_VAE_STEP_LAUNCHES = {"layerwise": (7, 7, 0, 0, 0, 0, 0), "bnlif": (2, 2, 5, 
 SNN_VAE_SAMPLE_LAUNCHES = {"layerwise": (3, 0, 0, 0, 0, 0, 0), "bnlif": (1, 0, 2, 0, 0, 0, 0)}
 SNN_VAE_SAMPLE_CHECK = 64  # images of the sample held card against CPU
 SNN_VAE_SAMPLE_ATOL = 1e-4
+# every other dataset's spiking VQ-VAE (scripts/export_torch_weights.py from
+# the JAX package's runs: result_r3, FMNIST result_r5_f60), and the JAX
+# record of its eval on a TPU with the flags of scripts/flagship_r3.sh, the
+# CLI eval's flags here (sample_r3/<dataset>/snn-vq-vae/metrics.json,
+# sample_r5_f60 for FMNIST; quality, not speed, one draw: no FID bound)
+EXPORTED = Path(__file__).resolve().parent / "result_torch"  # <dataset>/<model>
+DATASET_CHANNELS = {"CIFAR10": 3, "CIFAR10-BW": 1, "FMNIST": 1, "KMNIST": 1, "Letters": 1}
+DATASET_RECORDS = {
+    "CIFAR10": {"null_FID": 1.6337, "sha256": "f992769c089edcaf",
+                "0.8": {"IS": 9.0512, "FID": 278.4072, "mode_KL": 0.0707, "covered_modes": 10},
+                "1.0": {"IS": 8.9856, "FID": 220.2074, "mode_KL": 0.0583,
+                        "covered_modes": 10}},
+    "CIFAR10-BW": {"null_FID": 2.1342, "sha256": "092bc88ffb7aa330"},
+    "FMNIST": {"null_FID": 7.0819, "sha256": "97f35e8a9d0d7b4d"},
+    "KMNIST": {"null_FID": 7.32, "sha256": "d112a87d08a71e87"},
+    "Letters": {"null_FID": 16.9568, "sha256": "f5eda5f0f1f40222"},
+}
+DATASET_NULL_FID_ATOL = 1e-3
+# recon card against CPU: CIFAR10's (3 channels) over 1,024 images, the
+# others' (MNIST's shapes, held over 1,024 in phase trained_weights) over a
+# batch; the CPU's side in worker processes, a batch each, beside the card
+DATASET_RECON_IMAGES = {"CIFAR10": TRAINED_IMAGES}
+HOST_WORKERS = 4
+HOST_WAIT_S = 300  # the longest wait for a worker's result
+# the other datasets' CLI evals in the smoke: the record's flags, but a
+# sweep of one batch (their full sweeps run through the CLI on their own)
+DATASET_EVAL_SWEEP = ["--temperatures", "0.8", "--sample_batches", "1", "--grid_batches", "1"]
+CIFAR10_TRAIN_FLAGS = ["--dataset_name", "CIFAR10"] + CLI_TRAIN_FLAGS
+PNG_RGB = 2  # the colour type in a PNG's header
+
+
+def dataset_eval_flags(name: str) -> list:
+    """The CLI eval of dataset ``name``'s export with its record's flags."""
+    return ["--dataset_name", name, "--checkpoint",
+            str(EXPORTED / name / "snn-vq-vae")] + CLI_EVAL_FLAGS[2:]
+
+
 INCEPTION_CALIBRATION = 4  # images whose batch statistics set the seeded net's BN
 INCEPTION_IMAGES = 8
 INCEPTION_REPS = 5
@@ -2219,37 +2268,46 @@ def fused_logit_share(den, dcfg, inputs: list) -> dict:
     return share
 
 
+def k1_at_cli_eval(what: str, vq_eval, codes: torch.Tensor, images: np.ndarray,
+                   flags) -> float:
+    """Every K1 launch of a CLI eval's decode of one sampling chunk (grids
+    of ``codes`` repeated), of a recon batch and of the remainder batch of
+    extract_code_indices (of ``images``, repeated to a batch), on the eval
+    model ``vq_eval``, held bitwise against the plain version; max |d|."""
+    args = cli.parse_args(flags)
+    chunk = cli_chunk(flags)
+    grids = codes.repeat(-(-chunk // len(codes)), 1, 1)[:chunk]
+    x = torch.from_numpy(images - 0.5).cuda()
+    x = x.repeat(-(-args.batch_size // len(x)), 1, 1, 1)
+    remainder = args.synthetic_train % 256 or 256
+    k1_err = 0.0
+    for part, run in ((f"decode of {chunk} grids", lambda: vq_eval.decode_indices(grids)),
+                      (f"recon of {args.batch_size} images",
+                       lambda: vq_eval(x[:args.batch_size], train=False)),
+                      (f"encode_indices of {remainder} images",
+                       lambda: vq_eval.encode_indices(x[:remainder]))):
+        launches = k1_launches_of(run)
+        rates = []
+        for xs, v_init, params in launches:
+            k1_err = max(k1_err, compare_lif(xs, v_init, params, rate_range=None))
+            rates.append(float(lif_op.lif_fwd_reference(xs, v_init, params)[0].mean()))
+        log(f"  K1 at the {what}CLI eval's {part}, bf16: {len(launches)} launches, M "
+            f"{[xs.shape[1] for xs, _, _ in launches]}, firing rates "
+            f"{[round(r, 4) for r in rates]}, bitwise equal")
+        check(len(launches) > 0 and max(rates) > 0, f"K1 at the {what}{part}: no spikes")
+    return k1_err
+
+
 def phase_trained_weights(card: str) -> dict:
-    """The trained weights on the card: recon card against CPU, the
-    encoder's codes card against CPU, and the samplers on one set of
-    per-step noise, K2 against its plain version on their logits."""
+    """The trained weights on the card: recon and the encoder's codes card
+    against CPU, and the samplers on one set of per-step noise, K2 against
+    its plain version on their logits."""
     dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
     vq = load_trained("model", SNNVQVAE(vcfg), "cuda")
-    vq_cpu = load_trained("model", SNNVQVAE(vcfg), "cpu")
     den = load_trained("diff_model", SpikingDenoiser(dcfg), "cuda")
-    ds = synthetic_dataset("MNIST", n_train=0, n_test=TRAINED_IMAGES)
-    args = argparse.Namespace(batch_size=BATCH)
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    card_recon = cli._eval_recon(args, vq, ds, torch.device("cuda"))
-    card_s = time.perf_counter() - t0
-    counts = launch_counts()
-    t0 = time.perf_counter()
-    cpu_recon = cli._eval_recon(args, vq_cpu, ds, torch.device("cpu"))
-    cpu_s = time.perf_counter() - t0
-    d_recon = [abs(a - b) for a, b in zip(card_recon, cpu_recon)]
-    log(f"  recon of {TRAINED_IMAGES} images, fp32: card MSE {card_recon[0]:.8f}, 1 - SSIM "
-        f"{card_recon[1]:.8f} in {card_s:.2f} s [{card}]; CPU MSE {cpu_recon[0]:.8f}, 1 - SSIM "
-        f"{cpu_recon[1]:.8f} in {cpu_s:.2f} s; |d| {d_recon[0]:.3g}, {d_recon[1]:.3g} "
-        f"(tol {STAGE1_CPU_LOSS_ATOL:g}); launches {format_counts(counts)}")
-    want = (6 * TRAINED_IMAGES // BATCH, 0, 0, 0, 0, 0, 0)
-    check(counts == want, f"recon launches {counts}, expected {want}")
-    check(max(d_recon) <= STAGE1_CPU_LOSS_ATOL, "trained recon: card against CPU")
-    x = torch.from_numpy(ds.test_images - 0.5)
-    codes_card = vq.encode_indices(x.cuda()).cpu()
-    codes_agree = float((codes_card == vq_cpu.encode_indices(x)).float().mean())
-    log(f"  encode_indices of {TRAINED_IMAGES} images: codes agreeing card against CPU "
-        f"{codes_agree:.6f}, {len(torch.unique(codes_card))} distinct codes")
+    ds = recon_set("MNIST/snn-vq-vae", TRAINED_IMAGES)
+    recon = recon_against_cpu("MNIST/snn-vq-vae", TRAINED_IMAGES,
+                              cpu_recon("MNIST/snn-vq-vae", TRAINED_IMAGES), card)
 
     steps = len(diffusion.schedule(dcfg)[0])
     gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
@@ -2281,33 +2339,11 @@ def phase_trained_weights(card: str) -> dict:
         if n == BATCH:
             logit_share = fused_logit_share(den, dcfg, inputs)
 
-    # K1 at the CLI eval's shapes (bf16 models, the eval's batch): every
-    # launch of a decode of one sampling chunk, of a recon batch and of the
-    # remainder batch of extract_code_indices, held against the plain version
+    # K1 at the CLI eval's shapes (bf16 models, the eval's batch)
     vq_eval = load_trained("model", SNNVQVAE(vcfg, dtype=torch.bfloat16), "cuda")
-    args = cli.parse_args(CLI_EVAL_FLAGS)
-    chunk = cli_chunk(CLI_EVAL_FLAGS)
-    grids = codes["layerwise fp32"].repeat(-(-chunk // BATCH), 1, 1)[:chunk]
-    images = torch.from_numpy(ds.test_images - 0.5).cuda()
-    images = images.repeat(-(-args.batch_size // len(images)), 1, 1, 1)
-    remainder = args.synthetic_train % 256 or 256
-    k1_err = 0.0
-    for what, run in ((f"decode of {chunk} grids", lambda: vq_eval.decode_indices(grids)),
-                      (f"recon of {args.batch_size} images",
-                       lambda: vq_eval(images[:args.batch_size], train=False)),
-                      (f"encode_indices of {remainder} images",
-                       lambda: vq_eval.encode_indices(images[:remainder]))):
-        launches = k1_launches_of(run)
-        rates = []
-        for x, v_init, params in launches:
-            k1_err = max(k1_err, compare_lif(x, v_init, params, rate_range=None))
-            rates.append(float(lif_op.lif_fwd_reference(x, v_init, params)[0].mean()))
-        log(f"  K1 at the CLI eval's {what}, bf16: {len(launches)} launches, M "
-            f"{[x.shape[1] for x, _, _ in launches]}, firing rates "
-            f"{[round(r, 4) for r in rates]}, bitwise equal")
-        check(len(launches) > 0 and max(rates) > 0, f"K1 at the {what}: no spikes")
-    return {"recon_card": card_recon, "recon_cpu": cpu_recon, "recon_seconds": [card_s, cpu_s],
-            "codes_card_vs_cpu": codes_agree, "sampler_agree": agree, "k2_max_abs_err": k2_err,
+    k1_err = k1_at_cli_eval("", vq_eval, codes["layerwise fp32"], ds.test_images,
+                            CLI_EVAL_FLAGS)
+    return {"recon": recon, "sampler_agree": agree, "k2_max_abs_err": k2_err,
             "fused_logits_within_1e-5": logit_share, "k1_cli_max_abs_err": k1_err}
 
 
@@ -2665,6 +2701,22 @@ def check_metrics(path: str, flags) -> dict:
     return metrics
 
 
+def check_two_stage_tree(result: str, sample: str, flags, what: str = "") -> list:
+    """The JAX CLI's artifacts of a two-stage training run: the checkpoints
+    and epoch grids, a grid per temperature, the paper image, classes/ and
+    metrics.json; returns the PNG paths."""
+    temp = temperatures(cli.parse_args(flags))[0]
+    pngs = [os.path.join(result, n) for n in ("epoch=0_test.png", "diff_result/epoch=0_test.png")]
+    pngs += [os.path.join(sample, n) for n in (f"{temp}/image_{temp}_0.png", "paper_image.png")]
+    for path in pngs + [os.path.join(result, n) for n in ("model.pt",
+                                                          "diff_result/diff_model.pt")]:
+        check(os.path.isfile(path), f"{what}no {path}")
+    classes = os.listdir(os.path.join(sample, "classes"))
+    check(len(classes) > 0, f"{what}no classes/ grids")
+    check_metrics(sample, flags)
+    return pngs + [os.path.join(sample, "classes", c) for c in classes]
+
+
 def phase_cli(card: str) -> dict:
     """``cli.main`` three times on the card: a short two-stage training run,
     the eval of the committed trained weights with the JAX record's flags,
@@ -2673,13 +2725,7 @@ def phase_cli(card: str) -> dict:
         out, sample, result, train_counts, printed = cli_run(CLI_TRAIN_FLAGS, root, card)
         report = check_syops_report(printed)
         log(f"  --syops: a report of {SYOPS_LAYERS} layers, {report[SYOPS_LAYERS + 2]!r}")
-        for name in ("epoch=0_test.png", "model.pt", "diff_result/epoch=0_test.png",
-                     "diff_result/diff_model.pt"):
-            check(os.path.isfile(os.path.join(result, name)), f"no {name}")
-        for name in ("0.8/image_0.8_0.png", "paper_image.png"):
-            check(os.path.isfile(os.path.join(sample, name)), f"no {name}")
-        check(len(os.listdir(os.path.join(sample, "classes"))) > 0, "no classes/ grids")
-        check_metrics(sample, CLI_TRAIN_FLAGS)
+        check_two_stage_tree(result, sample, CLI_TRAIN_FLAGS)
         train = {"launches": train_counts, "seconds": out["seconds"],
                  "recon": [out["recon_mse"], out["recon_ssim_loss"]], "syops": report[-6:]}
 
@@ -2750,12 +2796,7 @@ def phase_cli_vq_vae(card: str) -> dict:
         out, sample, result, train_counts, printed = cli_run(CLI_VQ_TRAIN_FLAGS, root, card)
         report = check_syops_report(printed, layers=0)
         log(f"  --syops of the ANN VQ-VAE: no layer rows, {report[2]!r}")
-        for name in ("epoch=0_test.png", "model.pt", "diff_result/epoch=0_test.png",
-                     "diff_result/diff_model.pt"):
-            check(os.path.isfile(os.path.join(result, name)), f"vq-vae: no {name}")
-        for name in ("0.8/image_0.8_0.png", "paper_image.png"):
-            check(os.path.isfile(os.path.join(sample, name)), f"vq-vae: no {name}")
-        check_metrics(sample, CLI_VQ_TRAIN_FLAGS)
+        check_two_stage_tree(result, sample, CLI_VQ_TRAIN_FLAGS, "vq-vae: ")
         train = {"launches": train_counts, "seconds": out["seconds"],
                  "recon": [out["recon_mse"], out["recon_ssim_loss"]]}
 
@@ -2782,85 +2823,19 @@ def phase_cli_vq_vae(card: str) -> dict:
 
     # the CLI's recon of 1,024 test images, card against CPU; the codes of
     # the two may differ at near-ties, which the log counts
-    vq = baseline_model("vq-vae", ANNVQVAE(VQVAEConfig()), "cuda")
-    vq_cpu = baseline_model("vq-vae", ANNVQVAE(VQVAEConfig()), "cpu")
-    ds = synthetic_dataset("MNIST", n_train=0, n_test=TRAINED_IMAGES)
-    args = argparse.Namespace(batch_size=BATCH)
-    reset_launch_counts()
-    card_recon = cli._eval_recon(args, vq, ds, torch.device("cuda"))
-    counts = launch_counts()
-    cpu_recon = cli._eval_recon(args, vq_cpu, ds, torch.device("cpu"))
-    d_recon = [abs(a - b) for a, b in zip(card_recon, cpu_recon)]
-    x = torch.from_numpy(ds.test_images - 0.5)
-    codes = vq.encode_indices(x.cuda()).cpu()
-    differing = int((codes != vq_cpu.encode_indices(x)).sum())
-    log(f"  vq-vae recon of {TRAINED_IMAGES} images: card MSE {card_recon[0]:.8f}, 1 - SSIM "
-        f"{card_recon[1]:.8f}; CPU {cpu_recon[0]:.8f}, {cpu_recon[1]:.8f}; |d| "
-        f"{d_recon[0]:.3g}, {d_recon[1]:.3g} (tol {STAGE1_CPU_LOSS_ATOL:g}); codes differing "
-        f"card against CPU: {differing} of {codes.numel()}, {len(torch.unique(codes))} "
-        f"distinct; launches {format_counts(counts)} [{card}]")
-    check(counts == (0,) * 7, f"the ANN VQ-VAE launched {counts}")
-    check(max(d_recon) <= STAGE1_CPU_LOSS_ATOL, "vq-vae recon: card against CPU")
+    recon = recon_against_cpu("MNIST/vq-vae", TRAINED_IMAGES,
+                              cpu_recon("MNIST/vq-vae", TRAINED_IMAGES), card)
 
     # K2 on the baseline's denoiser as its eval runs it ('bnlif', fp32
     # sampler), at the eval's sampling chunk, on the encoder's codes
     dcfg = DiffusionConfig()
-    den = baseline_denoiser(None)
+    den = exported_denoiser("MNIST/vq-vae")
     gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
-    inputs = k2_probes(dcfg, cli_chunk(CLI_VQ_EVAL_FLAGS), codes.cuda(), gen)
+    inputs = k2_probes(dcfg, cli_chunk(CLI_VQ_EVAL_FLAGS), recon["codes"].cuda(), gen)
     k2_err = compare_k2_probes("vq-vae trained", den, dcfg, inputs)
     logit_share = fused_logit_share(den, dcfg, inputs)
     return {"train": train, "eval": evaluation,
-            "recon": {"card": card_recon, "cpu": cpu_recon, "codes_differing": differing},
-            "k2_max_abs_err": k2_err, "fused_logits_within_1e-5": logit_share,
-            "fid_1.0": vq_vae_gap(vq, den, dcfg, card)}
-
-
-def baseline_denoiser(dtype) -> SpikingDenoiser:
-    """The vq-vae baseline's exported denoiser as its eval builds it
-    ('bnlif' on the card, ``dtype`` None or bf16), in eval mode."""
-    den = SpikingDenoiser(DiffusionConfig(), lif_backend="bnlif", dtype=dtype)
-    ckpt = torch.load(BASELINES / "vq-vae" / "diff_result" / "diff_model.pt",
-                      map_location="cuda", weights_only=True)
-    den.load_state_dict(ckpt["model"], strict=True)
-    return den.cuda().eval()
-
-
-def vq_vae_gap(vq, den, dcfg, card: str) -> dict:
-    """FID at 1.0 of the vq-vae baseline through the CLI's own evaluation
-    (``cli._eval_generation``, on the eval's data and frozen space) for
-    each of VQ_VAE_GAP_RUNS: whether its distance from the record follows
-    the kernel (fused against layerwise on one draw), the arithmetic
-    (bf16 against fp32) or the draw (the seeds)."""
-    base = cli.parse_args(CLI_VQ_EVAL_FLAGS)
-    ds = load_dataset(base.dataset_name, base.data_path,
-                      synthetic_size=(base.synthetic_train, base.synthetic_test))
-    dens = {False: den, True: baseline_denoiser(torch.bfloat16)}
-    rows = {}
-    for label, extra in VQ_VAE_GAP_RUNS:
-        args = cli.parse_args(CLI_VQ_EVAL_FLAGS[:-2] + ["--temperatures", "1.0"] + extra)
-        chunks = -(-args.sample_batches * 16 // min(512, args.sample_batches * 16))
-        np.random.seed(args.seed)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as root, contextlib.redirect_stdout(io.StringIO()):
-            out = cli._eval_generation(args, temperatures(args), vq, dcfg, dens[args.bf16],
-                                       ds, root, torch.device("cuda"))
-        seconds = time.perf_counter() - t0
-        counts, entry = launch_counts(), out[1.0]
-        log(f"  vq-vae FID at 1.0, {label}: {entry['FID']} (record "
-            f"{VQ_VAE_RECORD['1.0']['FID']}), IS {entry['IS']}, KID_x1e3 "
-            f"{entry['KID_x1e3']}, {entry['covered_modes']} modes; K2 {counts[4]}; "
-            f"{seconds:.1f} s [{card}]")
-        check(out["feature_space"]["stats_verified"], f"vq-vae {label}: stats not verified")
-        check(all(math.isfinite(v) for v in entry.values()), f"vq-vae {label}: {entry}")
-        fused = cli.FUSED[args.fused_sampler] is not False
-        check(counts[4] == (K2_STEP_LAUNCHES * chunks if fused else 0),
-              f"vq-vae {label}: {counts[4]} K2 launches")
-        rows[label] = {"FID": entry["FID"], "IS": entry["IS"], "KID_x1e3": entry["KID_x1e3"],
-                       "covered_modes": entry["covered_modes"], "launches": counts,
-                       "seconds": seconds}
-    return rows
+            "recon": recon, "k2_max_abs_err": k2_err, "fused_logits_within_1e-5": logit_share}
 
 
 def snn_vae_model(backend: str, device) -> SNNVAE:
@@ -3081,6 +3056,222 @@ def phase_metrics_extra(card: str) -> dict:
                        "verified": verified}}
 
 
+# --- phase 15: every other committed dataset ----------------------------------
+
+
+def stage1_run_model(run: str, device, dtype=None) -> torch.nn.Module:
+    """The stage-1 model of the exported run ``<dataset>/<model>`` under
+    ``result_torch/`` (``weights_only``), strictly, in eval mode on
+    ``device``."""
+    dataset, model = run.split("/")
+    vcfg = VQVAEConfig(in_channels=DATASET_CHANNELS.get(dataset, 1))
+    module = ANNVQVAE(vcfg) if model == "vq-vae" else SNNVQVAE(vcfg, dtype=dtype)
+    ckpt = torch.load(EXPORTED / run / "model.pt", map_location=device, weights_only=True)
+    module.load_state_dict(ckpt["model"], strict=True)
+    return module.to(device).eval()
+
+
+def exported_denoiser(run: str, dtype=None) -> SpikingDenoiser:
+    """The denoiser of the exported run ``<dataset>/<model>`` as its eval
+    builds it ('bnlif' on the card, ``dtype`` None or bf16), in eval mode."""
+    den = SpikingDenoiser(DiffusionConfig(), lif_backend="bnlif", dtype=dtype)
+    ckpt = torch.load(EXPORTED / run / "diff_result" / "diff_model.pt", map_location="cuda",
+                      weights_only=True)
+    den.load_state_dict(ckpt["model"], strict=True)
+    return den.cuda().eval()
+
+
+def recon_set(run: str, n: int):
+    """The first ``n`` synthetic test images of the dataset of ``run``
+    (``<dataset>/<model>``), on which its recon is held card against CPU."""
+    return load_dataset(run.split("/")[0], synthetic_size=(0, n))
+
+
+def cpu_recon(run: str, n: int, batch: int = None) -> dict:
+    """The CLI's recon of ``run``'s export on the CPU over ``recon_set(run,
+    n)``, or over its batch of 256 ``batch`` alone: (MSE, 1 - SSIM), the
+    encoder's codes, seconds."""
+    t0 = time.perf_counter()
+    model, ds = stage1_run_model(run, "cpu"), recon_set(run, n)
+    if batch is not None:
+        ds = dataclasses.replace(ds, test_images=ds.test_images[batch * BATCH:(batch + 1) * BATCH])
+    with contextlib.redirect_stdout(io.StringIO()):
+        recon = cli._eval_recon(argparse.Namespace(batch_size=BATCH), model, ds,
+                                torch.device("cpu"))
+    codes = model.encode_indices(torch.from_numpy(ds.test_images - 0.5)).numpy()
+    return {"recon": recon, "codes": codes, "seconds": time.perf_counter() - t0}
+
+
+def pooled_cpu_recon(run: str, n: int, batch: int) -> dict:
+    """``cpu_recon`` of one batch in a worker process, in one thread."""
+    torch.set_num_threads(1)
+    return cpu_recon(run, n, batch)
+
+
+def merge_batches(parts: list) -> dict:
+    """``cpu_recon``'s result over all its batches from each batch's alone:
+    the CLI's means are means of the batches' values."""
+    return {"recon": tuple(float(np.mean([p["recon"][i] for p in parts])) for i in (0, 1)),
+            "codes": np.concatenate([p["codes"] for p in parts]),
+            "seconds": sum(p["seconds"] for p in parts)}
+
+
+def recon_against_cpu(run: str, n: int, cpu: dict, card: str) -> dict:
+    """The CLI's recon of ``run``'s export over ``n`` test images on the
+    card, with exact launches (6 K1 a batch; none for the ANN VQ-VAE), held
+    against ``cpu_recon``'s: MSE and 1 - SSIM within STAGE1_CPU_LOSS_ATOL;
+    the encoder's codes that differ are counted."""
+    model, ds = stage1_run_model(run, "cuda"), recon_set(run, n)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = cli._eval_recon(argparse.Namespace(batch_size=BATCH), model, ds,
+                              torch.device("cuda"))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    codes = model.encode_indices(torch.from_numpy(ds.test_images - 0.5).cuda()).cpu()
+    d = [abs(a - b) for a, b in zip(got, cpu["recon"])]
+    differing = int((codes != torch.from_numpy(cpu["codes"])).sum())
+    log(f"  {run} recon of {n} images, fp32: card MSE {got[0]:.8f}, 1 - SSIM {got[1]:.8f} in "
+        f"{seconds:.2f} s [{card}]; CPU {cpu['recon'][0]:.8f}, {cpu['recon'][1]:.8f} in "
+        f"{cpu['seconds']:.2f} s of CPU time; |d| {d[0]:.3g}, {d[1]:.3g} (tol "
+        f"{STAGE1_CPU_LOSS_ATOL:g}); codes differing card against CPU {differing} of "
+        f"{codes.numel()}, {len(torch.unique(codes))} distinct; launches {format_counts(counts)}")
+    k1 = 0 if run.endswith("/vq-vae") else 6 * n // BATCH
+    check(counts == (k1, 0, 0, 0, 0, 0, 0), f"{run} recon launches {counts}")
+    check(max(d) <= STAGE1_CPU_LOSS_ATOL, f"{run} recon: card against CPU")
+    return {"card": got, "cpu": cpu["recon"], "seconds": [seconds, cpu["seconds"]],
+            "codes_differing": differing, "codes": codes, "launches": counts}
+
+
+def png_color_type(path: str) -> int:
+    with open(path, "rb") as f:
+        return f.read(26)[25]
+
+
+def check_rgb(pngs: list, what: str) -> None:
+    types = {png_color_type(p) for p in pngs}
+    check(len(pngs) > 0 and types == {PNG_RGB}, f"{what}: PNG colour types {types}")
+    log(f"  {what}: {len(pngs)} PNGs, all RGB")
+
+
+def check_space(what: str, space: dict, null_fid: float, record: dict) -> None:
+    """The frozen space of a record's eval: its stats verified, its sha and
+    the null FID the record's."""
+    log(f"  {what}: feature space {space}; null FID {null_fid} (JAX record "
+        f"{record['null_FID']})")
+    check(space.get("frozen") and space.get("stats_verified"),
+          f"{what}: frozen stats not verified")
+    check(space["sha256"] == record["sha256"], f"{what}: feature space {space['sha256']}")
+    check(abs(null_fid - record["null_FID"]) <= DATASET_NULL_FID_ATOL,
+          f"{what}: null FID {null_fid}, record {record['null_FID']}")
+
+
+def cifar10_runs(card: str) -> dict:
+    """CIFAR10 (3 input channels) through ``cli.main`` on the card: a
+    training run and the eval of its export with the record's flags; K2 on
+    its denoiser and K1 at its eval's shapes against the plain versions."""
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, result, train_counts, printed = cli_run(CIFAR10_TRAIN_FLAGS, root, card)
+        check_syops_report(printed)
+        check_rgb(check_two_stage_tree(result, sample, CIFAR10_TRAIN_FLAGS, "CIFAR10: "),
+                  "CIFAR10 training run")
+        train = {"launches": train_counts, "seconds": out["seconds"],
+                 "recon": [out["recon_mse"], out["recon_ssim_loss"]]}
+
+    flags = dataset_eval_flags("CIFAR10")
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, _, eval_counts, _ = cli_run(flags, root, card)
+        metrics = check_metrics(sample, flags)
+        check_rgb([os.path.join(d, f) for d, _, files in os.walk(sample) for f in files
+                   if f.endswith(".png")], "CIFAR10 eval")
+    record = DATASET_RECORDS["CIFAR10"]
+    check_space("CIFAR10 eval", metrics["feature_space"], metrics["null_FID"], record)
+    for t in temperatures(cli.parse_args(flags)):
+        entry, rec = metrics[str(t)], record[str(t)]
+        log(f"  CIFAR10 eval temperature {t}: " + ", ".join(
+            f"{k} {entry[k]} (JAX record {rec[k]})" for k in rec)
+            + f"; KID_x1e3 {entry['KID_x1e3']}; {entry['images_per_sec']} images/s [{card}]")
+    evaluation = {"launches": eval_counts, "seconds": out["seconds"],
+                  "recon": [out["recon_mse"], out["recon_ssim_loss"]], "metrics": metrics}
+
+    # K2 on CIFAR10's denoiser as its eval runs it ('bnlif', bf16), at the
+    # eval's chunk, on the encoder's codes; K1 at the eval's shapes
+    dcfg = DiffusionConfig()
+    images = recon_set("CIFAR10/snn-vq-vae", TRAINED_IMAGES).test_images
+    codes = stage1_run_model("CIFAR10/snn-vq-vae", "cuda").encode_indices(
+        torch.from_numpy(images[:BATCH] - 0.5).cuda())
+    gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
+    inputs = k2_probes(dcfg, cli_chunk(flags), codes, gen)
+    k2_err = compare_k2_probes("CIFAR10 trained", exported_denoiser("CIFAR10/snn-vq-vae", torch.bfloat16),
+                               dcfg, inputs)
+    k1_err = k1_at_cli_eval("CIFAR10 ", stage1_run_model("CIFAR10/snn-vq-vae", "cuda",
+                                                         torch.bfloat16), codes, images, flags)
+    return {"train": train, "eval": evaluation, "k2_max_abs_err": k2_err,
+            "k1_max_abs_err": k1_err}
+
+
+def start_dataset_evals(root: str) -> dict:
+    """The CLI eval of each dataset's export but CIFAR10's, with its
+    record's flags and a sweep of one 16-image batch at 0.8, each in a
+    process of its own as a user runs it, all started at once: {name:
+    (process, log path)}."""
+    evals = {}
+    for name in DATASET_RECORDS:
+        if name == "CIFAR10":
+            continue
+        flags = dataset_eval_flags(name) + DATASET_EVAL_SWEEP + [
+            "--result_dir", os.path.join(root, "result"),
+            "--sample_dir", os.path.join(root, "sample")]
+        path = os.path.join(root, f"{name}.log")
+        with open(path, "w") as out:
+            evals[name] = (subprocess.Popen(
+                [sys.executable, "-m", "spiking_diffusion_tpu_torch.cli", *flags],
+                stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent),
+                path)
+    return evals
+
+
+def dataset_eval_result(name: str, process, path: str, root: str, card: str) -> dict:
+    """A dataset's CLI eval process, ended: the frozen stats verified, the
+    space's sha and the null FID the record's."""
+    t0 = time.perf_counter()
+    code = process.wait(timeout=HOST_WAIT_S)
+    with open(path) as f:
+        printed = f.read()
+    check(code == 0, f"{name} CLI eval exited {code}:\n{printed[-3000:]}")
+    with open(os.path.join(root, "sample", name, "snn-vq-vae", "metrics.json")) as f:
+        metrics = json.load(f)
+    check_space(f"{name} CLI eval, a process of its own (waited {time.perf_counter() - t0:.1f} s) "
+                f"[{card}]", metrics["feature_space"], metrics["null_FID"],
+                DATASET_RECORDS[name])
+    return {"null_FID": metrics["null_FID"], "feature_space": metrics["feature_space"],
+            "0.8": metrics["0.8"]}
+
+
+def phase_cli_datasets(card: str) -> dict:
+    """CIFAR10 through the CLI on the card, meanwhile every other dataset's
+    CLI eval in a process of its own and the CPU's side of every dataset's
+    recon in a pool of worker processes; then each recon card against CPU."""
+    images = {n: DATASET_RECON_IMAGES.get(n, BATCH) for n in DATASET_RECORDS}
+    with tempfile.TemporaryDirectory() as root, ProcessPoolExecutor(
+            HOST_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        evals = start_dataset_evals(root)
+        try:
+            cpu = {n: [pool.submit(pooled_cpu_recon, f"{n}/snn-vq-vae", k, b)
+                       for b in range(k // BATCH)] for n, k in images.items()}
+            cifar10 = cifar10_runs(card)
+            references = {n: dataset_eval_result(n, *evals[n], root, card) for n in evals}
+            recon = {n: recon_against_cpu(f"{n}/snn-vq-vae", k, merge_batches(
+                [job.result(HOST_WAIT_S) for job in cpu[n]]), card) for n, k in images.items()}
+        finally:
+            for process, _ in evals.values():
+                if process.poll() is None:
+                    process.kill()
+                    process.wait()
+    return {**cifar10, "references": references, "recon": recon}
+
+
 def launches_of(runs: dict, idx: int) -> dict:
     """A kernel's launches (index ``idx`` of ``launch_counts()``) in each
     run of a phase."""
@@ -3185,6 +3376,11 @@ def main() -> int:
                            for n, row in rows.items()}}
         with Phase("metrics_extra"):
             phase_metrics_extra(smi)
+        with Phase("cli_datasets"):
+            torch.cuda.empty_cache()
+            datasets = phase_cli_datasets(smi)
+            dataset_runs = {"cifar10_train": datasets["train"], "cifar10_eval": datasets["eval"],
+                            **{f"recon {n}": row for n, row in datasets["recon"].items()}}
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -3197,7 +3393,7 @@ def main() -> int:
         "replaces": K1_REPLACES, "launches": launches,
         # random inputs at the path's shapes, stage 1's and the CLI eval's
         "max_abs_err": max(k1["max_abs_err"], k1_s1["fwd_err"], trained["k1_cli_max_abs_err"],
-                           snn["k1_max_abs_err"]),
+                           snn["k1_max_abs_err"], datasets["k1_max_abs_err"]),
         # times of the 248 launches of one generated batch of 256
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
@@ -3212,6 +3408,8 @@ def main() -> int:
         # step ('bnlif': 2), 3 a sample call
         "launches_cli_vq_vae": launches_of(vq_runs, 0),
         "launches_snn_vae": launches_of(snn_runs, 0),
+        # CIFAR10's CLI runs and each dataset's recon of 1,024 images
+        "launches_cli_datasets": launches_of(dataset_runs, 0),
         # the profiler's runs on the trained weights (phase syops)
         "launches_syops": profiled["launches"][0],
         "shapes": k1["rows"],
@@ -3225,6 +3423,7 @@ def main() -> int:
         "launches_train_stage1": stage_launches(train1["layerwise"], 1),
         "launches_cli": cli_launch_counts(cli_runs, 1),
         "launches_snn_vae": launches_of(snn_runs, 1),
+        "launches_cli_datasets": launches_of(dataset_runs, 1),
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
@@ -3243,8 +3442,14 @@ def main() -> int:
             # the ANN VQ-VAE's sweeps run fp32 K2 (no --bf16, as its record)
             "launches_cli_vq_vae": {run: n if name == "fp32" else 0
                                     for run, n in launches_of(vq_runs, 4).items()},
+            # CIFAR10's CLI runs: fp32 in the training run, bf16 in the eval
+            "launches_cli_datasets": {
+                run: dataset_runs[run]["launches"][4] if name == dname else 0
+                for run, dname in (("cifar10_train", "fp32"), ("cifar10_eval", "bf16"))},
             # on the vq-vae baseline's denoiser at its eval's chunk of 512
             "max_abs_err_trained_vq_vae": vq["k2_max_abs_err"][name],
+            # on CIFAR10's denoiser at its eval's chunk of 512
+            "max_abs_err_trained_cifar10": datasets["k2_max_abs_err"][name],
             # on the trained weights: the first reverse step and t = 25, at
             # batch 256 and at the CLI's chunk sizes
             "max_abs_err_trained": trained["k2_max_abs_err"][name],
@@ -3262,6 +3467,7 @@ def main() -> int:
             "launches_cli": cli_launch_counts(cli_runs, idx),
             "launches_cli_vq_vae": launches_of(vq_runs, idx),
             "launches_snn_vae": launches_of(snn_runs, idx),
+            "launches_cli_datasets": launches_of(dataset_runs, idx),
             "launches_syops": profiled["launches"][idx],
             "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
@@ -3295,6 +3501,7 @@ def main() -> int:
             "library_ms": k4["fp32"][f"{key}_library_ms"],
             "launches_per_train_step": K4_PER_STEP,
             "launches_cli": cli_launch_counts(cli_runs, idx),
+            "launches_cli_datasets": launches_of(dataset_runs, idx),
             "launches_generation": conv_gen["launches"][idx],
             **({"generation_requests": conv_gen["requests"]} if key == "fwd" else {}),
             # fwd: the fp32 route (tensor cores for an x exact in bf16, bound

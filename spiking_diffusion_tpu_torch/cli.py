@@ -37,15 +37,22 @@ What the port maps or refuses:
   * ``--syops`` prints the spike-aware op/energy report of the stage-1
     model after stage 1, as the JAX CLI does (``profiling/syops.py``; the
     ANN VQ-VAE has no counted layer).
-  * ``--data_parallel`` above 1 (ROADMAP.md queue 1, item 2) raises
-    ``NotImplementedError``; CIFAR10 and CIFAR10-BW raise from
-    ``load_dataset``.
+  * ``--data_parallel`` above 1 (ROADMAP.md queue 1, item 1) raises
+    ``NotImplementedError``.
+
+Every dataset of ``--dataset_name`` runs: CIFAR10 at 3 input channels
+(stage 1's first conv and last deconv, RGB PNGs, SSIM and the frozen
+LeNet space over 3 channels), the others at 1.
 
 Usage:
     python -m spiking_diffusion_tpu_torch.cli --dataset_name MNIST \\
         --model snn-vq-vae --epochs 100
     python -m spiking_diffusion_tpu_torch.cli \\
         --checkpoint result_torch/MNIST/snn-vq-vae --bf16 --batch_size 256
+    python -m spiking_diffusion_tpu_torch.cli --dataset_name CIFAR10 \\
+        --checkpoint result_torch/CIFAR10/snn-vq-vae --bf16 --batch_size 256 \\
+        --synthetic_train 60000 --synthetic_test 10240 --ref_size 8192 \\
+        --frozen_metrics on
     python -m spiking_diffusion_tpu_torch.cli --model snn-vae \\
         --checkpoint result_torch/MNIST/snn-vae --batch_size 256
 """
@@ -98,8 +105,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="result dir of a trained run to evaluate")
     p.add_argument("--dataset_name", default="MNIST",
                    choices=["MNIST", "KMNIST", "FMNIST", "Letters",
-                            "CIFAR10", "CIFAR10-BW"],
-                   help="CIFAR10 and CIFAR10-BW raise: their reader is not ported")
+                            "CIFAR10", "CIFAR10-BW"])
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--model", default="snn-vq-vae",
                    choices=["snn-vq-vae", "snn-vq-vae-uni", "snn-vae",
@@ -188,7 +194,7 @@ def _refuse(args: argparse.Namespace) -> None:
     """Raise for the choices the port does not run."""
     if args.data_parallel > 1:
         raise NotImplementedError(
-            "--data_parallel > 1: the port trains on one card (ROADMAP.md queue 1, item 2)")
+            "--data_parallel > 1: the port trains on one card (ROADMAP.md queue 1, item 1)")
 
 
 def _clock(dev: torch.device) -> float:

@@ -4,11 +4,12 @@ The port's own copy of ``spiking_diffusion_tpu/data/datasets.py`` (numpy
 only; the port imports nothing of the JAX package): ``Dataset``, the IDX
 readers, ``synthetic_dataset``, ``load_dataset``, ``data_variance`` and
 ``batch_iterator``, with the same arithmetic, so the same seed gives the
-same images. CIFAR10(-BW), whose reader lives in the JAX package's
-``extra_datasets.py``, is not carried over yet.
+same images. ``load_dataset`` also reaches CIFAR10 and CIFAR10-BW through
+the port's copy of ``extra_datasets.load_cifar10``.
 
-Images are float32 in [0, 1], shaped (N, 28, 28, 1) channels-last. The
-training shift (x - 0.5) happens in the trainer (``train/stage1.py``).
+Images are float32 in [0, 1], shaped (N, 28, 28, 1) channels-last
+((N, 28, 28, 3) for CIFAR10). The training shift (x - 0.5) happens in the
+trainer (``train/stage1.py``).
 """
 
 from __future__ import annotations
@@ -173,14 +174,26 @@ def load_dataset(
     synthetic_ok: bool = True,
     synthetic_size: Tuple[int, int] = (2048, 512),
 ) -> Dataset:
-    """Load a dataset by reference CLI name: MNIST|FMNIST|KMNIST|Letters.
+    """Load a dataset by reference CLI name:
+    MNIST|FMNIST|KMNIST|Letters|CIFAR10|CIFAR10-BW.
 
-    The IDX files are looked for under ``data_path``, ``./datasets`` and
-    ``~/datasets``; without them, and with ``synthetic_ok``, the
-    deterministic ``synthetic_dataset`` of that name stands in.
+    The IDX files (CIFAR10: ``cifar-10-batches-py``) are looked for under
+    ``data_path``, ``./datasets`` and ``~/datasets``; without them, and
+    with ``synthetic_ok``, the deterministic ``synthetic_dataset`` of that
+    name stands in (CIFAR10's repeated to 3 channels).
     """
+    if name in ("CIFAR10", "CIFAR10-BW"):
+        from spiking_diffusion_tpu_torch.data.extra_datasets import load_cifar10
+
+        return load_cifar10(
+            data_path, grayscale=(name == "CIFAR10-BW"),
+            synthetic_ok=synthetic_ok, synthetic_size=synthetic_size,
+        )
     if name not in _IDX_FILES:
-        raise ValueError(f"unknown dataset {name!r}; have {sorted(_IDX_FILES)}")
+        raise ValueError(
+            f"unknown dataset {name!r}; have "
+            f"{sorted(_IDX_FILES) + ['CIFAR10', 'CIFAR10-BW']}"
+        )
     if data_path:
         ds = _load_idx_dataset(data_path, name)
         if ds is not None:

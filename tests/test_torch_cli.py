@@ -3,8 +3,8 @@
 * The parser: every flag of ``spiking_diffusion_tpu.cli.parse_args`` with
   the same option strings, default, choices, type and action, and no
   other flag.
-* The choices the port does not run raise: ``--data_parallel`` above 1
-  on every model, CIFAR10 and CIFAR10-BW.
+* The choice the port does not run raises: ``--data_parallel`` above 1
+  on every model.
 * A tiny ``--model vq-vae`` run (the ANN VQ-VAE, the flags of
   ``tests/test_cli_variants.py``) writes the two-stage artifact tree and
   prints the ``--syops`` report the JAX CLI prints for that model (no
@@ -18,11 +18,13 @@
 * A tiny two-stage run on the CPU (the denoiser narrowed to 8-16 channels
   by monkeypatching the CLI's ``DiffusionConfig``, T = 2, K = 8) writes
   the JAX CLI's artifact tree, ``.pt`` files in place of the orbax
-  directories, and a ``metrics.json`` with the keys of the JAX record.
-* ``--checkpoint result_torch/MNIST/snn-vq-vae`` on the CPU in fp32, at
-  full width: the recon MSE and 1 - SSIM equal the same loop run with the
-  JAX package's ``SNNVQVAE`` and ``metrics.ssim`` on the orbax tree,
-  within 1e-5.
+  directories, and a ``metrics.json`` with the keys of the JAX record;
+  the same run on CIFAR10 (3 input channels) writes that tree with RGB
+  PNGs and scores in CIFAR10's frozen LeNet space.
+* ``--checkpoint result_torch/<dataset>/snn-vq-vae`` on the CPU in fp32, at
+  full width, for MNIST and CIFAR10: the recon MSE and 1 - SSIM equal the
+  same loop run with the JAX package's ``SNNVQVAE`` and ``metrics.ssim``
+  on the orbax tree, within 1e-5.
 * ``train_diffusion``'s ``epoch_callback`` runs once per epoch with the
   state; ``data_parallel > 1`` raises.
 """
@@ -37,11 +39,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from spiking_diffusion_tpu import cli as jax_cli
 from spiking_diffusion_tpu.config import VQVAEConfig as JaxVQVAEConfig
 from spiking_diffusion_tpu.data import batch_iterator as jax_batch_iterator
-from spiking_diffusion_tpu.data import synthetic_dataset as jax_synthetic_dataset
+from spiking_diffusion_tpu.data import load_dataset as jax_load_dataset
 from spiking_diffusion_tpu.metrics import ssim as jax_ssim
 from spiking_diffusion_tpu.models.ann_vqvae import ANNVQVAE as JaxANNVQVAE
 from spiking_diffusion_tpu.models.vqvae import SNNVQVAE as JaxSNNVQVAE
@@ -55,8 +58,10 @@ from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.train import stage2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-EXPORTED = os.path.join(REPO, "result_torch", "MNIST", "snn-vq-vae")
-ORBAX = os.path.join(REPO, "result_r5_e60", "MNIST", "snn-vq-vae")
+# dataset -> (the orbax run, its input channels); the port's export of each
+# is result_torch/<dataset>/snn-vq-vae
+ORBAX = {"MNIST": (os.path.join(REPO, "result_r5_e60", "MNIST", "snn-vq-vae"), 1),
+         "CIFAR10": (os.path.join(REPO, "result_r3", "CIFAR10", "snn-vq-vae"), 3)}
 RECORD = os.path.join(REPO, "sample_r5_e60", "MNIST", "snn-vq-vae", "metrics.json")
 RECON_ATOL = 1e-5
 TINY_CHANNELS = (8, 16, 16, 16, 8)
@@ -64,8 +69,11 @@ TINY_FLAGS = ["--epochs", "1", "--num_steps", "2", "--codebook_size", "8",
               "--batch_size", "16", "--synthetic_train", "128", "--synthetic_test", "64",
               "--sample_batches", "2", "--grid_batches", "1", "--temperatures", "0.5,1.0",
               "--frozen_metrics", "on"]
-CKPT_FLAGS = ["--checkpoint", EXPORTED, "--sample_steps", "1", "--sample_batches", "1",
-              "--temperatures", "1.0", "--synthetic_train", "64", "--synthetic_test", "64"]
+CKPT_FLAGS = ["--sample_steps", "1", "--sample_batches", "1", "--temperatures", "1.0",
+              "--synthetic_train", "64", "--synthetic_test", "64"]
+# the JAX CLI's artifact tree of a two-stage run, the orbax directories as .pt files
+RESULT_TREE = ["diff_result/diff_model.pt", "diff_result/epoch=0_test.png", "epoch=0_test.png",
+               "model.pt"]
 
 
 def _actions(parser: argparse.ArgumentParser):
@@ -119,8 +127,6 @@ def test_parser_flag_equals_jax(dest):
     (["--model", "snn-vae", "--data_parallel", "2"], NotImplementedError),
     (["--model", "vq-vae", "--data_parallel", "2"], NotImplementedError),
     (["--data_parallel", "2"], NotImplementedError),
-    (["--dataset_name", "CIFAR10"], ValueError),
-    (["--dataset_name", "CIFAR10-BW"], ValueError),
 ])
 def test_refusals_raise(tmp_path, flags, error):
     with pytest.raises(error):
@@ -137,8 +143,7 @@ def test_tiny_run_writes_the_jax_artifact_tree(tmp_path, monkeypatch):
                         functools.partial(DiffusionConfig, denoiser_channels=TINY_CHANNELS))
     out = cli.main(TINY_FLAGS + _dirs(tmp_path), device="cpu")
     res = tmp_path / "result" / "MNIST" / "snn-vq-vae"
-    assert _tree(res) == ["diff_result/diff_model.pt", "diff_result/epoch=0_test.png",
-                          "epoch=0_test.png", "model.pt"]
+    assert _tree(res) == RESULT_TREE
     smp = tmp_path / "sample" / "MNIST" / "snn-vq-vae"
     tree = _tree(smp)
     assert {"0.5/image_0.5_0.png", "1.0/image_1.0_0.png", "metrics.json",
@@ -247,11 +252,45 @@ def test_tiny_snn_vae_run_and_its_checkpoint(tmp_path, capsys):
     assert "loaded stage-1 checkpoint" in capsys.readouterr().out
 
 
-def test_checkpoint_recon_equals_jax(tmp_path):
-    out = cli.main(CKPT_FLAGS + _dirs(tmp_path), device="cpu")
-    ds = jax_synthetic_dataset("MNIST", n_train=64, n_test=64)
-    params, stats = load_variables(ORBAX, "model")
-    model = JaxSNNVQVAE(JaxVQVAEConfig(), backend="scan")
+def test_tiny_cifar10_run_writes_the_jax_artifact_tree(tmp_path, monkeypatch):
+    """CIFAR10 at 3 input channels through both stages: the JAX CLI's tree,
+    RGB PNGs, a 3-channel stage 1 and CIFAR10's frozen LeNet space."""
+    monkeypatch.setattr(cli, "DiffusionConfig",
+                        functools.partial(DiffusionConfig, denoiser_channels=TINY_CHANNELS))
+    cli.main(TINY_FLAGS + ["--dataset_name", "CIFAR10"] + _dirs(tmp_path), device="cpu")
+    res = tmp_path / "result" / "CIFAR10" / "snn-vq-vae"
+    assert _tree(res) == RESULT_TREE
+    smp = tmp_path / "sample" / "CIFAR10" / "snn-vq-vae"
+    tree = _tree(smp)
+    classes = [p for p in tree if p.startswith("classes/class_")]
+    assert classes and sorted(set(tree) - set(classes)) == [
+        "0.5/image_0.5_0.png", "1.0/image_1.0_0.png", "metrics.json", "paper_image.png"]
+    pngs = [res / p for p in RESULT_TREE if p.endswith(".png")] + [
+        smp / p for p in tree if p.endswith(".png")]
+    assert all(Image.open(p).mode == "RGB" for p in pngs)
+    saved = torch.load(res / "model.pt", weights_only=True)["model"]
+    vq_cfg = VQVAEConfig(num_steps=2, num_embeddings=8, in_channels=3)
+    weights.load_vqvae(*weights.init_vqvae_variables(vq_cfg, torch.Generator()), vq_cfg,
+                       device="cpu").load_state_dict(saved, strict=True)
+    metrics = json.load(open(smp / "metrics.json"))
+    assert set(metrics) == {"0.5", "1.0", "null_FID", "feature_space"}
+    assert all(np.isfinite(v) for t in ("0.5", "1.0") for v in metrics[t].values())
+    space = metrics["feature_space"]
+    assert space["frozen"] and space["name"] == "CIFAR10"
+    assert space["sha256"] == json.load(open(os.path.join(
+        REPO, "sample_r3", "CIFAR10", "snn-vq-vae", "metrics.json")))["feature_space"]["sha256"]
+
+
+@pytest.mark.parametrize("dataset", sorted(ORBAX))
+def test_checkpoint_recon_equals_jax(tmp_path, dataset):
+    orbax, channels = ORBAX[dataset]
+    exported = os.path.join(REPO, "result_torch", dataset, "snn-vq-vae")
+    out = cli.main(CKPT_FLAGS + ["--dataset_name", dataset, "--checkpoint", exported]
+                   + _dirs(tmp_path), device="cpu")
+    ds = jax_load_dataset(dataset, synthetic_size=(64, 64))
+    assert ds.train_images.shape[-1] == channels
+    params, stats = load_variables(orbax, "model")
+    model = JaxSNNVQVAE(JaxVQVAEConfig(in_channels=channels), backend="scan")
     fwd = jax.jit(lambda v, x: model.apply(v, x, train=False))
     mses, ssims = [], []
     for batch in jax_batch_iterator(ds.test_images, 32, shuffle=False):

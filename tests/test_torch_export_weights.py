@@ -1,6 +1,8 @@
 """The committed trained weights of the port (``result_torch/``) against a
-live conversion of the JAX package's orbax trees: the flagship
-(``result_r5_e60``) and the two baselines of ``result_r3`` (``vq-vae``,
+live conversion of the JAX package's orbax trees: the spiking VQ-VAE and
+denoiser of every dataset (MNIST's flagship ``result_r5_e60``, FMNIST's
+``result_r5_f60``, the round-3 CIFAR10 at 3 input channels, CIFAR10-BW,
+KMNIST and Letters) and the two baselines of ``result_r3`` (``vq-vae``,
 the ANN VQ-VAE and its denoiser; ``snn-vae``).
 
 ``scripts/export_torch_weights.py`` wrote them; here the same conversion
@@ -38,11 +40,14 @@ from spiking_diffusion_tpu_torch.train.checkpoint import checkpoint_path, restor
 from spiking_diffusion_tpu_torch.train.state import create_train_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ORBAX = os.path.join(REPO, "result_r5_e60", "MNIST", "snn-vq-vae")
-EXPORTED = os.path.join(REPO, "result_torch", "MNIST", "snn-vq-vae")
-# name -> (subdirectory, the full-width module)
-FILES = {"model": ("", lambda: SNNVQVAE(VQVAEConfig())),
-         "diff_model": ("diff_result", lambda: SpikingDenoiser(DiffusionConfig()))}
+# the spiking VQ-VAE run of each dataset: dataset -> its input channels
+DATASETS = {"MNIST": 1, "CIFAR10": 3, "CIFAR10-BW": 1, "FMNIST": 1, "KMNIST": 1, "Letters": 1}
+# name -> (subdirectory, the full-width module at the given input channels)
+FILES = {"model": ("", lambda ch: SNNVQVAE(VQVAEConfig(in_channels=ch))),
+         "diff_model": ("diff_result", lambda ch: SpikingDenoiser(DiffusionConfig()))}
+# (dataset, name) of every file; MNIST's keep their earlier ids
+RUN_FILES = [(d, n) for d in DATASETS for n in sorted(FILES)]
+RUN_IDS = [n if d == "MNIST" else f"{d}-{n}" for d, n in RUN_FILES]
 # the baselines: (model, tree) -> (subdirectory, the full-width module)
 BASELINES = {
     ("vq-vae", "model"): ("", lambda: ANNVQVAE(VQVAEConfig())),
@@ -59,60 +64,78 @@ def one_thread():
     torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def live():
-    spec = importlib.util.spec_from_file_location(
-        "export_torch_weights", os.path.join(REPO, "scripts", "export_torch_weights.py"))
-    export = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(export)
-    return export.convert(ORBAX)
-
-
-def _committed(name):
-    sub, _ = FILES[name]
-    return torch.load(checkpoint_path(os.path.join(EXPORTED, sub), name), map_location="cpu",
-                      weights_only=True)
-
-
-@pytest.mark.parametrize("name", sorted(FILES))
-def test_committed_equal_live_conversion(live, name):
-    ckpt = _committed(name)
-    want = live[name].model.state_dict()
-    assert sorted(ckpt["model"]) == sorted(want)
-    for key, value in want.items():
-        got = ckpt["model"][key]
-        assert got.dtype == value.dtype == torch.float32, key
-        assert torch.equal(got, value), key
-    assert ckpt["step"] == live[name].step
-
-
-@pytest.mark.parametrize("name", sorted(FILES))
-def test_step_is_the_orbax_step(name):
-    sub, _ = FILES[name]
-    tree = ocp.StandardCheckpointer().restore(os.path.join(ORBAX, sub, name))
-    assert _committed(name)["step"] == int(tree["step"]) > 0
-
-
-@pytest.mark.parametrize("name", sorted(FILES))
-def test_load_strict_into_full_width_modules(name):
-    _, make = FILES[name]
-    module = make()
-    module.load_state_dict(_committed(name)["model"], strict=True)
-    ckpt = _committed(name)
-    assert ckpt["optimizer"]["state"] == {}  # a fresh AdamW: no moments carried over
-    state = restore_checkpoint(create_train_state(make()),
-                               os.path.join(EXPORTED, FILES[name][0]), name)
-    assert state.step == ckpt["step"]
-    for key, value in module.state_dict().items():
-        assert torch.equal(state.model.state_dict()[key], value), key
-
-
 def _export_module():
     spec = importlib.util.spec_from_file_location(
         "export_torch_weights", os.path.join(REPO, "scripts", "export_torch_weights.py"))
     export = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(export)
     return export
+
+
+@pytest.fixture(scope="module")
+def live():
+    """dataset -> {name: train state}, converted once per dataset."""
+    export, converted = _export_module(), {}
+
+    def get(dataset):
+        if dataset not in converted:
+            converted[dataset] = export.convert(export.source_of(f"{dataset}/snn-vq-vae"))
+        return converted[dataset]
+
+    return get
+
+
+def _orbax(dataset):
+    return os.path.join(REPO, _export_module().EXPORTS[f"{dataset}/snn-vq-vae"])
+
+
+def _exported(dataset, name):
+    return os.path.join(REPO, "result_torch", dataset, "snn-vq-vae", FILES[name][0])
+
+
+def _committed(dataset, name):
+    return torch.load(checkpoint_path(_exported(dataset, name), name), map_location="cpu",
+                      weights_only=True)
+
+
+def test_exports_cover_every_dataset():
+    export = _export_module()
+    assert {r for r in export.EXPORTS if r.endswith("/snn-vq-vae")} == {
+        f"{d}/snn-vq-vae" for d in DATASETS}
+    assert sorted(os.listdir(os.path.join(REPO, "result_torch"))) == sorted(DATASETS)
+
+
+@pytest.mark.parametrize("dataset,name", RUN_FILES, ids=RUN_IDS)
+def test_committed_equal_live_conversion(live, dataset, name):
+    ckpt = _committed(dataset, name)
+    want = live(dataset)[name].model.state_dict()
+    assert sorted(ckpt["model"]) == sorted(want)
+    for key, value in want.items():
+        got = ckpt["model"][key]
+        assert got.dtype == value.dtype == torch.float32, key
+        assert torch.equal(got, value), key
+    assert ckpt["step"] == live(dataset)[name].step
+
+
+@pytest.mark.parametrize("dataset,name", RUN_FILES, ids=RUN_IDS)
+def test_step_is_the_orbax_step(dataset, name):
+    sub, _ = FILES[name]
+    tree = ocp.StandardCheckpointer().restore(os.path.join(_orbax(dataset), sub, name))
+    assert _committed(dataset, name)["step"] == int(tree["step"]) > 0
+
+
+@pytest.mark.parametrize("dataset,name", RUN_FILES, ids=RUN_IDS)
+def test_load_strict_into_full_width_modules(dataset, name):
+    _, make = FILES[name]
+    module = make(DATASETS[dataset])
+    ckpt = _committed(dataset, name)
+    module.load_state_dict(ckpt["model"], strict=True)
+    assert ckpt["optimizer"]["state"] == {}  # a fresh AdamW: no moments carried over
+    state = restore_checkpoint(create_train_state(make(DATASETS[dataset])),
+                               _exported(dataset, name), name)
+    assert state.step == ckpt["step"]
+    for key, value in module.state_dict().items():
+        assert torch.equal(state.model.state_dict()[key], value), key
 
 
 def _baseline_file(model, name):
@@ -124,8 +147,8 @@ def _baseline_file(model, name):
 @pytest.mark.parametrize("model,name", list(BASELINES), ids=BASELINE_IDS)
 def test_baseline_committed_equal_live_conversion(model, name):
     export = _export_module()
-    source = export.MODELS[model][0]
-    live = export.convert(source, model)[name]
+    source = export.source_of(f"MNIST/{model}")
+    live = export.convert(source)[name]
     ckpt = _baseline_file(model, name)
     want = live.model.state_dict()
     assert sorted(ckpt["model"]) == sorted(want)

@@ -39,7 +39,7 @@ import chip_smoke
 for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage",
              "metrics.scores", "metrics.ssim", "utils.grids", "profiling.syops",
              "profiling.timing", "profiling.monitor", "models.ann_vqvae", "models.snn_vae",
-             "metrics.inception", "metrics.cleanfid"):
+             "metrics.inception", "metrics.cleanfid", "data.extra_datasets"):
     assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
