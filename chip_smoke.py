@@ -206,7 +206,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    of 1,024 images on the card and the CPU: MSE and 1 - SSIM within 1e-4,
    the codes that differ counted. K2 against its plain version on the
    baseline's denoiser at the eval's chunk of 512 (first step and t = 25,
-   every dtype).
+   every dtype). FID at 1.0 alone through ``cli._eval_generation`` on the
+   eval's data for seed 42 on fused fp32, the layerwise sampler and
+   ``--bf16`` (stats verified, K2 launches exact, figures logged): whether
+   the distance from the record follows the kernel or the arithmetic.
 13. cli_snn_vae: ``--model snn-vae`` on the card. Every K1 launch of a
    training step at batch 32 and 256 (the latent head's (16, N·56) and the
    decoder input's (16, N·784) among them), forward and backward, bitwise
@@ -238,17 +241,15 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    logged beside the record's); K2 on its denoiser against the plain
    version at the eval's chunk of 512 (first step and t = 25, every
    dtype) and every K1 launch of the eval's decode, recon and remainder
-   batch bitwise. Meanwhile the CLI eval of CIFAR10-BW, FMNIST, KMNIST and
-   Letters, each in a process of its own as a user runs it, with the
-   record's flags but a sweep of one 16-image batch: frozen stats
+   batch bitwise. Then the CLI eval of CIFAR10-BW, FMNIST, KMNIST and
+   Letters in this process, after every earlier phase, with the record's
+   flags but a sweep of one 16-image batch: exact launches, frozen stats
    verified, the space's sha and the null FID within 1e-3 of the
-   record's (fresh processes: Letters' pinned stats, a TPU's, do not
-   verify in a process that ran the earlier phases, ROADMAP.md section 3). The
-   CLI's recon on the card (exactly 6 K1 launches a batch) and on the CPU,
-   MSE and 1 - SSIM within 1e-4: CIFAR10's over 1,024 test images, the
-   others' (MNIST's shapes, held over 1,024 in phase trained_weights) over
-   one batch of 256; the CPU's side runs in HOST_WORKERS worker
-   processes, a batch each, while the card runs CIFAR10's CLI.
+   record's. The CLI's recon of all five on the card (exactly 6 K1
+   launches a batch) and on the CPU over 1,024 test images, MSE and
+   1 - SSIM within 1e-4, the codes of its forward passes compared; the
+   CPU's side runs in HOST_WORKERS worker processes, a batch each, while
+   the card runs the CLI.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -410,9 +411,9 @@ STAGE1_CPU_GRAD_TOL = dict(rtol=2e-3, atol=1e-3)
 STAGE1_FLIP_SHARE = 1e-4
 LOGIT_ATOL = 5e-5  # card vs CPU: fp32 convolutions summed in another order
 IMAGE_ATOL = 1e-5
-# the committed trained weights (scripts/export_torch_weights.py from the
-# JAX package's 60 + 120 epoch MNIST flagship run)
-TRAINED = Path(__file__).resolve().parent / "result_torch" / "MNIST" / "snn-vq-vae"
+# the committed exports (scripts/export_torch_weights.py): <dataset>/<model>;
+# MNIST/snn-vq-vae is the JAX package's 60 + 120 epoch flagship run
+EXPORTED = Path(__file__).resolve().parent / "result_torch"
 TRAINED_IMAGES = 1024  # recon and codes, card against CPU
 TRAINED_STEP_NOISE_SEED = 7
 K2_AGREE_ATOL = 1e-5  # logged: the fused logits' share within this of the layerwise ones
@@ -423,7 +424,7 @@ CLI_TRAIN_FLAGS = ["--epochs", "1", "--batch_size", "32", "--synthetic_train", "
                    "--synthetic_test", "2560", "--ref_size", "1280", "--temperatures", "0.8",
                    "--sample_batches", "16", "--grid_batches", "1", "--frozen_metrics", "on",
                    "--syops"]
-CLI_EVAL_FLAGS = ["--checkpoint", str(TRAINED), "--bf16", "--batch_size", "256",
+CLI_EVAL_FLAGS = ["--checkpoint", str(EXPORTED / "MNIST" / "snn-vq-vae"), "--bf16", "--batch_size", "256",
                   "--synthetic_train", "60000", "--synthetic_test", "10240", "--ref_size",
                   "8192", "--frozen_metrics", "on", "--temperatures", "0.8,1.0"]
 # the JAX package's record of the same eval on a TPU
@@ -469,26 +470,31 @@ SYOPS_MONITOR_S = 0.5
 # contains lif_fwd_kernel)
 TRACE_KERNELS = {"auto": re.compile(r"(?<!bn_)lif_fwd_kernel"),
                  "bnlif": re.compile(r"bn_lif_fwd_kernel")}
-# the paper's two baselines: the exported weights of the JAX package's
-# round-3 MNIST runs (scripts/export_torch_weights.py)
-BASELINES = Path(__file__).resolve().parent / "result_torch" / "MNIST"
+# the paper's two baselines are the exports of the JAX package's round-3
+# MNIST runs, MNIST/vq-vae and MNIST/snn-vae
 # the JAX package's record of the ANN VQ-VAE's eval on a TPU, in fp32
 # (sample_r3/MNIST/vq-vae/metrics.json; quality, not speed)
 VQ_VAE_RECORD = {"0.8": {"IS": 9.2838, "FID": 172.406, "mode_KL": 0.0444, "covered_modes": 10},
                  "1.0": {"IS": 9.3644, "FID": 124.7888, "mode_KL": 0.0281, "covered_modes": 10},
                  "null_FID": 12.676, "sha256": "fa7286439409571c"}
 VQ_VAE_FID_08_BOUND = 2 * VQ_VAE_RECORD["0.8"]["FID"]  # phase cli's band for e60
+# the vq-vae eval's FID at 1.0 against the record's, on one other draw
+# (--temperatures 1.0 alone) through the CLI's own evaluation: fused fp32,
+# the layerwise sampler (no K2) and bf16, all at one seed
+VQ_VAE_GAP_RUNS = [("fused fp32, seed 42", ["--seed", "42"]),
+                   ("layerwise fp32, seed 42", ["--seed", "42", "--fused_sampler", "off"]),
+                   ("fused bf16, seed 42", ["--seed", "42", "--bf16"])]
 # the SNN-VAE's run in the same frozen space (STATUS_r3.md:64)
 SNN_VAE_RECORD = {"FID": 801.5, "IS": 8.98}
 CLI_VQ_TRAIN_FLAGS = ["--model", "vq-vae"] + CLI_TRAIN_FLAGS
-CLI_VQ_EVAL_FLAGS = ["--model", "vq-vae", "--checkpoint", str(BASELINES / "vq-vae"),
+CLI_VQ_EVAL_FLAGS = ["--model", "vq-vae", "--checkpoint", str(EXPORTED / "MNIST" / "vq-vae"),
                      "--batch_size", "256", "--synthetic_train", "60000", "--synthetic_test",
                      "10240", "--ref_size", "8192", "--frozen_metrics", "on",
                      "--temperatures", "0.8,1.0"]
 CLI_SNN_TRAIN_FLAGS = ["--model", "snn-vae", "--epochs", "1", "--batch_size", "32",
                        "--synthetic_train", "512", "--synthetic_test", "2560", "--ref_size",
                        "1280", "--vae_scheduled_p", "anneal", "--frozen_metrics", "on"]
-CLI_SNN_EVAL_FLAGS = ["--model", "snn-vae", "--checkpoint", str(BASELINES / "snn-vae"),
+CLI_SNN_EVAL_FLAGS = ["--model", "snn-vae", "--checkpoint", str(EXPORTED / "MNIST" / "snn-vae"),
                       "--batch_size", "256", "--synthetic_train", "60000", "--synthetic_test",
                       "10240", "--ref_size", "8192", "--frozen_metrics", "on"]
 SNN_VAE_BRANCHES = {"layerwise": ("auto", "torch"), "bnlif": ("bnlif", "bnlif_torch")}
@@ -503,7 +509,6 @@ SNN_VAE_SAMPLE_ATOL = 1e-4
 # record of its eval on a TPU with the flags of scripts/flagship_r3.sh, the
 # CLI eval's flags here (sample_r3/<dataset>/snn-vq-vae/metrics.json,
 # sample_r5_f60 for FMNIST; quality, not speed, one draw: no FID bound)
-EXPORTED = Path(__file__).resolve().parent / "result_torch"  # <dataset>/<model>
 DATASET_CHANNELS = {"CIFAR10": 3, "CIFAR10-BW": 1, "FMNIST": 1, "KMNIST": 1, "Letters": 1}
 DATASET_RECORDS = {
     "CIFAR10": {"null_FID": 1.6337, "sha256": "f992769c089edcaf",
@@ -516,10 +521,8 @@ DATASET_RECORDS = {
     "Letters": {"null_FID": 16.9568, "sha256": "f5eda5f0f1f40222"},
 }
 DATASET_NULL_FID_ATOL = 1e-3
-# recon card against CPU: CIFAR10's (3 channels) over 1,024 images, the
-# others' (MNIST's shapes, held over 1,024 in phase trained_weights) over a
-# batch; the CPU's side in worker processes, a batch each, beside the card
-DATASET_RECON_IMAGES = {"CIFAR10": TRAINED_IMAGES}
+# recon card against CPU over TRAINED_IMAGES test images of each dataset;
+# the CPU's side in worker processes, a batch each, beside the card
 HOST_WORKERS = 4
 HOST_WAIT_S = 300  # the longest wait for a worker's result
 # the other datasets' CLI evals in the smoke: the record's flags, but a
@@ -2188,13 +2191,32 @@ def stage1_times(res: dict, key: str) -> dict:
 # --- phase 9: the committed trained weights ---------------------------------
 
 
-def load_trained(name: str, module: torch.nn.Module, device) -> torch.nn.Module:
-    """An exported state dict (``weights_only``) into a full-width module,
-    strictly, in eval mode on ``device``."""
-    sub = TRAINED / ("diff_result" if name == "diff_model" else "")
-    ckpt = torch.load(sub / f"{name}.pt", map_location=device, weights_only=True)
+def stage1_run_model(run: str, device, dtype=None, backend: str = "auto") -> torch.nn.Module:
+    """The stage-1 model of the export ``<dataset>/<model>`` under
+    ``result_torch/`` (``weights_only``), full width, on branch ``backend``,
+    loaded strictly, in eval mode on ``device``."""
+    dataset, model = run.split("/")
+    vcfg = VQVAEConfig(in_channels=DATASET_CHANNELS.get(dataset, 1))
+    if model == "vq-vae":
+        module = ANNVQVAE(vcfg)
+    elif model == "snn-vae":
+        module = SNNVAE(SNNVAEConfig(), vcfg, backend)
+    else:
+        module = SNNVQVAE(vcfg, lif_backend=backend, dtype=dtype)
+    ckpt = torch.load(EXPORTED / run / "model.pt", map_location=device, weights_only=True)
     module.load_state_dict(ckpt["model"], strict=True)
     return module.to(device).eval()
+
+
+def exported_denoiser(run: str, dtype=None, backend: str = "bnlif") -> SpikingDenoiser:
+    """The denoiser of the export ``<dataset>/<model>`` on the card, on
+    branch ``backend`` ('bnlif', as the CLI's eval builds it, by default),
+    loaded strictly, in eval mode."""
+    den = SpikingDenoiser(DiffusionConfig(), lif_backend=backend, dtype=dtype)
+    ckpt = torch.load(EXPORTED / run / "diff_result" / "diff_model.pt", map_location="cuda",
+                      weights_only=True)
+    den.load_state_dict(ckpt["model"], strict=True)
+    return den.cuda().eval()
 
 
 def cli_chunk(flags) -> int:
@@ -2302,9 +2324,9 @@ def phase_trained_weights(card: str) -> dict:
     """The trained weights on the card: recon and the encoder's codes card
     against CPU, and the samplers on one set of per-step noise, K2 against
     its plain version on their logits."""
-    dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
-    vq = load_trained("model", SNNVQVAE(vcfg), "cuda")
-    den = load_trained("diff_model", SpikingDenoiser(dcfg), "cuda")
+    dcfg = DiffusionConfig()
+    vq = stage1_run_model("MNIST/snn-vq-vae", "cuda")
+    den = exported_denoiser("MNIST/snn-vq-vae", backend="auto")
     ds = recon_set("MNIST/snn-vq-vae", TRAINED_IMAGES)
     recon = recon_against_cpu("MNIST/snn-vq-vae", TRAINED_IMAGES,
                               cpu_recon("MNIST/snn-vq-vae", TRAINED_IMAGES), card)
@@ -2329,8 +2351,7 @@ def phase_trained_weights(card: str) -> dict:
     # and a half-masked grid of the layerwise codes at t = 25, at batch 256
     # and at the chunk sizes of the CLI's sweeps (fp32 in its training run,
     # bf16 in its eval), on the eval's own denoiser ('bnlif', bf16)
-    den_eval = load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend="bnlif",
-                                                          dtype=torch.bfloat16), "cuda")
+    den_eval = exported_denoiser("MNIST/snn-vq-vae", torch.bfloat16)
     k2_err, logit_share = {}, {}
     for n in k2_trained_sizes():
         inputs = k2_probes(dcfg, n, codes["layerwise fp32"], gen)
@@ -2340,7 +2361,7 @@ def phase_trained_weights(card: str) -> dict:
             logit_share = fused_logit_share(den, dcfg, inputs)
 
     # K1 at the CLI eval's shapes (bf16 models, the eval's batch)
-    vq_eval = load_trained("model", SNNVQVAE(vcfg, dtype=torch.bfloat16), "cuda")
+    vq_eval = stage1_run_model("MNIST/snn-vq-vae", "cuda", torch.bfloat16)
     k1_err = k1_at_cli_eval("", vq_eval, codes["layerwise fp32"], ds.test_images,
                             CLI_EVAL_FLAGS)
     return {"recon": recon, "sampler_agree": agree, "k2_max_abs_err": k2_err,
@@ -2424,7 +2445,7 @@ def syops_checks(card: str) -> dict:
     both branches; ``generation_energy``; no hook left and the launches of
     a layerwise sample unchanged; the cost of counting (``benchmark``);
     ``trace`` names each branch's kernel."""
-    dcfg, vcfg = DiffusionConfig(), VQVAEConfig()
+    dcfg = DiffusionConfig()
     with open(SYOPS_RECORD) as f:
         record = json.load(f)
     args = cli.parse_args([])
@@ -2433,9 +2454,8 @@ def syops_checks(card: str) -> dict:
           "the JAX record's images are not the CLI's")
     images = syops_images(BATCH)
     branches = tuple(SYOPS_VQ_LAUNCHES)
-    vqs = {b: load_trained("model", SNNVQVAE(vcfg, lif_backend=b), "cuda") for b in branches}
-    dens = {b: load_trained("diff_model", SpikingDenoiser(dcfg, lif_backend=b), "cuda")
-            for b in branches}
+    vqs = {b: stage1_run_model("MNIST/snn-vq-vae", "cuda", backend=b) for b in branches}
+    dens = {b: exported_denoiser("MNIST/snn-vq-vae", backend=b) for b in branches}
     models = list(vqs.values()) + list(dens.values())
     check(all(hook_count(m) == 0 for m in models), "hooks on a model before profiling")
     steps = len(diffusion.schedule(dcfg)[0])
@@ -2469,7 +2489,7 @@ def syops_checks(card: str) -> dict:
         counts = launch_counts()
         add_counts(launches, counts)
         check(counts == SYOPS_VQ_LAUNCHES[branch], f"{branch}: profile launches {counts}")
-        vq_cpu = load_trained("model", SNNVQVAE(vcfg, lif_backend=branch), "cpu")
+        vq_cpu = stage1_run_model("MNIST/snn-vq-vae", "cpu", backend=branch)
         _, per_layer_cpu, total_cpu = syops.profile_apply(vq_cpu, images.cpu(), train=False)
         d_cpu = hold_counts(f"{branch} card against the CPU", per_layer, total, per_layer_cpu,
                             total_cpu)
@@ -2779,14 +2799,6 @@ def cli_launch_counts(runs: dict, idx: int) -> dict:
 # --- phases 12-14: the paper's baselines and the metrics' other modules ------
 
 
-def baseline_model(model: str, module: torch.nn.Module, device) -> torch.nn.Module:
-    """A baseline's exported stage-1 state dict (``weights_only``) into a
-    full-width module, strictly, in eval mode on ``device``."""
-    ckpt = torch.load(BASELINES / model / "model.pt", map_location=device, weights_only=True)
-    module.load_state_dict(ckpt["model"], strict=True)
-    return module.to(device).eval()
-
-
 def phase_cli_vq_vae(card: str) -> dict:
     """``--model vq-vae`` (the ANN VQ-VAE) through ``cli.main`` on the card:
     a short two-stage training run (exact K3 and K2 launches, no K1) with
@@ -2835,14 +2847,52 @@ def phase_cli_vq_vae(card: str) -> dict:
     k2_err = compare_k2_probes("vq-vae trained", den, dcfg, inputs)
     logit_share = fused_logit_share(den, dcfg, inputs)
     return {"train": train, "eval": evaluation,
-            "recon": recon, "k2_max_abs_err": k2_err, "fused_logits_within_1e-5": logit_share}
+            "recon": recon, "k2_max_abs_err": k2_err, "fused_logits_within_1e-5": logit_share,
+            "fid_1.0": vq_vae_gap(den, dcfg, card)}
+
+
+def vq_vae_gap(den, dcfg, card: str) -> dict:
+    """FID at 1.0 of the vq-vae baseline through the CLI's own evaluation
+    (``cli._eval_generation``, on the eval's data and frozen space) for
+    each of VQ_VAE_GAP_RUNS: whether its distance from the record follows
+    the kernel (fused against layerwise on one draw), the arithmetic
+    (bf16 against fp32) or the draw."""
+    base = cli.parse_args(CLI_VQ_EVAL_FLAGS)
+    ds = load_dataset(base.dataset_name, base.data_path,
+                      synthetic_size=(base.synthetic_train, base.synthetic_test))
+    vq = stage1_run_model("MNIST/vq-vae", "cuda")
+    dens = {False: den, True: exported_denoiser("MNIST/vq-vae", torch.bfloat16)}
+    rows = {}
+    for label, extra in VQ_VAE_GAP_RUNS:
+        args = cli.parse_args(CLI_VQ_EVAL_FLAGS[:-2] + ["--temperatures", "1.0"] + extra)
+        chunks = -(-args.sample_batches * 16 // cli_chunk(CLI_VQ_EVAL_FLAGS))
+        np.random.seed(args.seed)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root, contextlib.redirect_stdout(io.StringIO()):
+            out = cli._eval_generation(args, temperatures(args), vq, dcfg, dens[args.bf16],
+                                       ds, root, torch.device("cuda"))
+        seconds = time.perf_counter() - t0
+        counts, entry = launch_counts(), out[1.0]
+        log(f"  vq-vae FID at 1.0, {label}: {entry['FID']} (record "
+            f"{VQ_VAE_RECORD['1.0']['FID']}), IS {entry['IS']}, KID_x1e3 "
+            f"{entry['KID_x1e3']}, {entry['covered_modes']} modes; K2 {counts[4]}; "
+            f"{seconds:.1f} s [{card}]")
+        check(out["feature_space"]["stats_verified"], f"vq-vae {label}: stats not verified")
+        check(all(math.isfinite(v) for v in entry.values()), f"vq-vae {label}: {entry}")
+        fused = cli.FUSED[args.fused_sampler] is not False
+        check(counts[4] == (K2_STEP_LAUNCHES * chunks if fused else 0),
+              f"vq-vae {label}: {counts[4]} K2 launches")
+        rows[label] = {"FID": entry["FID"], "IS": entry["IS"], "KID_x1e3": entry["KID_x1e3"],
+                       "covered_modes": entry["covered_modes"], "launches": counts,
+                       "seconds": seconds}
+    return rows
 
 
 def snn_vae_model(backend: str, device) -> SNNVAE:
     """The exported SNN-VAE on ``device`` on branch ``backend``, in
     training mode."""
-    return baseline_model("snn-vae", SNNVAE(SNNVAEConfig(), VQVAEConfig(), backend),
-                          device).train()
+    return stage1_run_model("MNIST/snn-vae", device, backend=backend).train()
 
 
 def snn_vae_images(n: int) -> torch.Tensor:
@@ -3059,32 +3109,25 @@ def phase_metrics_extra(card: str) -> dict:
 # --- phase 15: every other committed dataset ----------------------------------
 
 
-def stage1_run_model(run: str, device, dtype=None) -> torch.nn.Module:
-    """The stage-1 model of the exported run ``<dataset>/<model>`` under
-    ``result_torch/`` (``weights_only``), strictly, in eval mode on
-    ``device``."""
-    dataset, model = run.split("/")
-    vcfg = VQVAEConfig(in_channels=DATASET_CHANNELS.get(dataset, 1))
-    module = ANNVQVAE(vcfg) if model == "vq-vae" else SNNVQVAE(vcfg, dtype=dtype)
-    ckpt = torch.load(EXPORTED / run / "model.pt", map_location=device, weights_only=True)
-    module.load_state_dict(ckpt["model"], strict=True)
-    return module.to(device).eval()
-
-
-def exported_denoiser(run: str, dtype=None) -> SpikingDenoiser:
-    """The denoiser of the exported run ``<dataset>/<model>`` as its eval
-    builds it ('bnlif' on the card, ``dtype`` None or bf16), in eval mode."""
-    den = SpikingDenoiser(DiffusionConfig(), lif_backend="bnlif", dtype=dtype)
-    ckpt = torch.load(EXPORTED / run / "diff_result" / "diff_model.pt", map_location="cuda",
-                      weights_only=True)
-    den.load_state_dict(ckpt["model"], strict=True)
-    return den.cuda().eval()
-
-
 def recon_set(run: str, n: int):
     """The first ``n`` synthetic test images of the dataset of ``run``
     (``<dataset>/<model>``), on which its recon is held card against CPU."""
     return load_dataset(run.split("/")[0], synthetic_size=(0, n))
+
+
+def eval_recon(model: torch.nn.Module, ds, device: str) -> tuple:
+    """The CLI's recon (``cli._eval_recon``) of ``ds``'s test images at
+    batch 256, and the codes its forward passes chose, (N, h, w) int32."""
+    codes = []
+    hook = model.register_forward_hook(lambda m, i, out: codes.append(out["indices"].cpu()))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            recon = cli._eval_recon(argparse.Namespace(batch_size=BATCH), model, ds,
+                                    torch.device(device))
+    finally:
+        hook.remove()
+    h = DiffusionConfig().latent_size
+    return recon, torch.cat(codes).reshape(-1, h, h).to(torch.int32)
 
 
 def cpu_recon(run: str, n: int, batch: int = None) -> dict:
@@ -3095,11 +3138,8 @@ def cpu_recon(run: str, n: int, batch: int = None) -> dict:
     model, ds = stage1_run_model(run, "cpu"), recon_set(run, n)
     if batch is not None:
         ds = dataclasses.replace(ds, test_images=ds.test_images[batch * BATCH:(batch + 1) * BATCH])
-    with contextlib.redirect_stdout(io.StringIO()):
-        recon = cli._eval_recon(argparse.Namespace(batch_size=BATCH), model, ds,
-                                torch.device("cpu"))
-    codes = model.encode_indices(torch.from_numpy(ds.test_images - 0.5)).numpy()
-    return {"recon": recon, "codes": codes, "seconds": time.perf_counter() - t0}
+    recon, codes = eval_recon(model, ds, "cpu")
+    return {"recon": recon, "codes": codes.numpy(), "seconds": time.perf_counter() - t0}
 
 
 def pooled_cpu_recon(run: str, n: int, batch: int) -> dict:
@@ -3124,12 +3164,9 @@ def recon_against_cpu(run: str, n: int, cpu: dict, card: str) -> dict:
     model, ds = stage1_run_model(run, "cuda"), recon_set(run, n)
     reset_launch_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        got = cli._eval_recon(argparse.Namespace(batch_size=BATCH), model, ds,
-                              torch.device("cuda"))
+    got, codes = eval_recon(model, ds, "cuda")
     seconds = time.perf_counter() - t0
     counts = launch_counts()
-    codes = model.encode_indices(torch.from_numpy(ds.test_images - 0.5).cuda()).cpu()
     d = [abs(a - b) for a, b in zip(got, cpu["recon"])]
     differing = int((codes != torch.from_numpy(cpu["codes"])).sum())
     log(f"  {run} recon of {n} images, fp32: card MSE {got[0]:.8f}, 1 - SSIM {got[1]:.8f} in "
@@ -3211,65 +3248,36 @@ def cifar10_runs(card: str) -> dict:
             "k1_max_abs_err": k1_err}
 
 
-def start_dataset_evals(root: str) -> dict:
-    """The CLI eval of each dataset's export but CIFAR10's, with its
-    record's flags and a sweep of one 16-image batch at 0.8, each in a
-    process of its own as a user runs it, all started at once: {name:
-    (process, log path)}."""
-    evals = {}
-    for name in DATASET_RECORDS:
-        if name == "CIFAR10":
-            continue
-        flags = dataset_eval_flags(name) + DATASET_EVAL_SWEEP + [
-            "--result_dir", os.path.join(root, "result"),
-            "--sample_dir", os.path.join(root, "sample")]
-        path = os.path.join(root, f"{name}.log")
-        with open(path, "w") as out:
-            evals[name] = (subprocess.Popen(
-                [sys.executable, "-m", "spiking_diffusion_tpu_torch.cli", *flags],
-                stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent),
-                path)
-    return evals
-
-
-def dataset_eval_result(name: str, process, path: str, root: str, card: str) -> dict:
-    """A dataset's CLI eval process, ended: the frozen stats verified, the
-    space's sha and the null FID the record's."""
-    t0 = time.perf_counter()
-    code = process.wait(timeout=HOST_WAIT_S)
-    with open(path) as f:
-        printed = f.read()
-    check(code == 0, f"{name} CLI eval exited {code}:\n{printed[-3000:]}")
-    with open(os.path.join(root, "sample", name, "snn-vq-vae", "metrics.json")) as f:
-        metrics = json.load(f)
-    check_space(f"{name} CLI eval, a process of its own (waited {time.perf_counter() - t0:.1f} s) "
-                f"[{card}]", metrics["feature_space"], metrics["null_FID"],
+def dataset_eval(name: str, card: str) -> dict:
+    """The CLI eval of dataset ``name``'s export in this process, after
+    every earlier phase, with its record's flags but a sweep of one
+    16-image batch: exact launches, frozen stats verified, the space's sha
+    and the null FID the record's."""
+    flags = dataset_eval_flags(name)[:-2] + DATASET_EVAL_SWEEP  # its own --temperatures
+    with tempfile.TemporaryDirectory() as root:
+        out, sample, _, counts, _ = cli_run(flags, root, card)
+        metrics = check_metrics(sample, flags)
+    check_space(f"{name} eval", metrics["feature_space"], metrics["null_FID"],
                 DATASET_RECORDS[name])
-    return {"null_FID": metrics["null_FID"], "feature_space": metrics["feature_space"],
-            "0.8": metrics["0.8"]}
+    return {"launches": counts, "seconds": out["seconds"],
+            "recon": [out["recon_mse"], out["recon_ssim_loss"]], "metrics": metrics}
 
 
 def phase_cli_datasets(card: str) -> dict:
-    """CIFAR10 through the CLI on the card, meanwhile every other dataset's
-    CLI eval in a process of its own and the CPU's side of every dataset's
-    recon in a pool of worker processes; then each recon card against CPU."""
-    images = {n: DATASET_RECON_IMAGES.get(n, BATCH) for n in DATASET_RECORDS}
-    with tempfile.TemporaryDirectory() as root, ProcessPoolExecutor(
-            HOST_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
-        evals = start_dataset_evals(root)
-        try:
-            cpu = {n: [pool.submit(pooled_cpu_recon, f"{n}/snn-vq-vae", k, b)
-                       for b in range(k // BATCH)] for n, k in images.items()}
-            cifar10 = cifar10_runs(card)
-            references = {n: dataset_eval_result(n, *evals[n], root, card) for n in evals}
-            recon = {n: recon_against_cpu(f"{n}/snn-vq-vae", k, merge_batches(
-                [job.result(HOST_WAIT_S) for job in cpu[n]]), card) for n, k in images.items()}
-        finally:
-            for process, _ in evals.values():
-                if process.poll() is None:
-                    process.kill()
-                    process.wait()
-    return {**cifar10, "references": references, "recon": recon}
+    """CIFAR10 through the CLI on the card, then every other dataset's CLI
+    eval, meanwhile the CPU's side of every dataset's recon in a pool of
+    worker processes; then each recon card against CPU."""
+    pool = ProcessPoolExecutor(HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu = {n: [pool.submit(pooled_cpu_recon, f"{n}/snn-vq-vae", TRAINED_IMAGES, b)
+                   for b in range(TRAINED_IMAGES // BATCH)] for n in DATASET_RECORDS}
+        cifar10 = cifar10_runs(card)
+        evals = {n: dataset_eval(n, card) for n in DATASET_RECORDS if n != "CIFAR10"}
+        recon = {n: recon_against_cpu(f"{n}/snn-vq-vae", TRAINED_IMAGES, merge_batches(
+            [job.result(HOST_WAIT_S) for job in jobs]), card) for n, jobs in cpu.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    return {**cifar10, "evals": evals, "recon": recon}
 
 
 def launches_of(runs: dict, idx: int) -> dict:
@@ -3380,6 +3388,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             datasets = phase_cli_datasets(smi)
             dataset_runs = {"cifar10_train": datasets["train"], "cifar10_eval": datasets["eval"],
+                            **{f"{n} eval": row for n, row in datasets["evals"].items()},
                             **{f"recon {n}": row for n, row in datasets["recon"].items()}}
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
@@ -3408,7 +3417,7 @@ def main() -> int:
         # step ('bnlif': 2), 3 a sample call
         "launches_cli_vq_vae": launches_of(vq_runs, 0),
         "launches_snn_vae": launches_of(snn_runs, 0),
-        # CIFAR10's CLI runs and each dataset's recon of 1,024 images
+        # the datasets' CLI runs and each dataset's recon of 1,024 images
         "launches_cli_datasets": launches_of(dataset_runs, 0),
         # the profiler's runs on the trained weights (phase syops)
         "launches_syops": profiled["launches"][0],
@@ -3442,10 +3451,11 @@ def main() -> int:
             # the ANN VQ-VAE's sweeps run fp32 K2 (no --bf16, as its record)
             "launches_cli_vq_vae": {run: n if name == "fp32" else 0
                                     for run, n in launches_of(vq_runs, 4).items()},
-            # CIFAR10's CLI runs: fp32 in the training run, bf16 in the eval
+            # the datasets' CLI runs: fp32 in CIFAR10's training run, bf16
+            # in every eval
             "launches_cli_datasets": {
-                run: dataset_runs[run]["launches"][4] if name == dname else 0
-                for run, dname in (("cifar10_train", "fp32"), ("cifar10_eval", "bf16"))},
+                run: row["launches"][4] if name == ("fp32" if run == "cifar10_train" else "bf16")
+                else 0 for run, row in dataset_runs.items() if not run.startswith("recon")},
             # on the vq-vae baseline's denoiser at its eval's chunk of 512
             "max_abs_err_trained_vq_vae": vq["k2_max_abs_err"][name],
             # on CIFAR10's denoiser at its eval's chunk of 512

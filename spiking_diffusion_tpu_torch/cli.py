@@ -212,7 +212,8 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
     _refuse(args)
     dev = resolve_device(device)
     if dev.type == "cuda":
-        # full fp32 convs and matmuls: the frozen-stats check needs them
+        # full fp32 convs and matmuls, not TF32: the arithmetic the port is
+        # held to against the JAX package
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     sweep = ([float(x) for x in args.temperatures.split(",")]

@@ -112,6 +112,9 @@ def _load_idx_dataset(data_path: str, name: str) -> Optional[Dataset]:
     )
 
 
+_SYNTHETIC_CHUNK = 4096  # images made at once by synthetic_dataset
+
+
 def synthetic_dataset(
     name: str = "MNIST",
     n_train: int = 2048,
@@ -142,17 +145,25 @@ def synthetic_dataset(
         protos.append((centers, radii))
 
     def make(n: int, rng: np.random.RandomState):
+        # one image at a time, each blob added in turn and then the image's
+        # noise, but over all images of a class at once: the same values
+        # and the same draws from ``rng`` in the same order
         labels = rng.randint(0, num_classes, size=n).astype(np.int32)
         imgs = np.zeros((n, h, w), np.float32)
         jitter = rng.uniform(-1.5, 1.5, size=(n, 2)).astype(np.float32)
-        for i in range(n):
-            centers, radii = protos[labels[i]]
-            acc = np.zeros((h, w), np.float32)
-            for (cy, cx), r in zip(centers, radii):
-                d2 = (yy - cy - jitter[i, 0]) ** 2 + (xx - cx - jitter[i, 1]) ** 2
-                acc += np.exp(-d2 / (2 * r * r))
-            acc += rng.normal(0, 0.05, size=(h, w)).astype(np.float32)
-            imgs[i] = np.clip(acc, 0.0, 1.0)
+        for start in range(0, n, _SYNTHETIC_CHUNK):
+            part = slice(start, min(start + _SYNTHETIC_CHUNK, n))
+            acc = imgs[part]
+            for c, (centers, radii) in enumerate(protos):
+                idx = np.flatnonzero(labels[part] == c)
+                jy, jx = (jitter[part][idx, k, None, None] for k in (0, 1))
+                blobs = np.zeros((len(idx), h, w), np.float32)
+                for (cy, cx), r in zip(centers, radii):
+                    d2 = (yy[:, :1] - cy - jy) ** 2 + (xx[:1] - cx - jx) ** 2
+                    blobs += np.exp(-d2 / (2 * r * r))
+                acc[idx] = blobs
+            acc += rng.normal(0, 0.05, size=acc.shape).astype(np.float32)
+            np.clip(acc, 0.0, 1.0, out=acc)
         return imgs[..., None], labels
 
     tri, trl = make(n_train, rng)

@@ -14,9 +14,11 @@ Parameters travel in the JAX package's flat flax layout, ``{"Conv_0/kernel":
 flax's NHWC does, so ``Dense_0``'s rows need no permutation.
 
 ``operand_dtype=torch.bfloat16`` rounds the operands of every conv and
-matrix product to bf16 and sums in fp32: the arithmetic of the JAX
-package's default precision on a TPU, in which the committed frozen
-spaces were made (``frozen.py``).
+matrix product to bf16, as the JAX package's default precision on a TPU
+does, in which the committed frozen spaces were made (``frozen.py``).
+The products are summed in fp64 and rounded once to fp32, before the
+fp32 bias: a sum with no order to speak of, so the features do not
+depend on which algorithm cuDNN or the CPU picks for the conv.
 """
 
 from __future__ import annotations
@@ -53,15 +55,22 @@ class LeNet(nn.Module):
         self.dense2 = nn.Linear(84, num_classes)
         self.operand_dtype = operand_dtype
 
-    def _round(self, x: torch.Tensor) -> torch.Tensor:
-        return x if self.operand_dtype is None else x.to(self.operand_dtype).float()
+    def _exact(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` rounded to the operand dtype, in fp64: the products are
+        exact, and their fp64 sum rounded to fp32 does not depend on the
+        order of summation but in rare ties."""
+        return x.to(self.operand_dtype).double()
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(self._round(x), self._round(conv.weight), conv.bias,
-                        padding=conv.padding)
+        if self.operand_dtype is None:
+            return F.conv2d(x, conv.weight, conv.bias, padding=conv.padding)
+        y = F.conv2d(self._exact(x), self._exact(conv.weight), padding=conv.padding)
+        return y.float() + conv.bias[:, None, None]
 
     def _dense(self, dense: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(self._round(x), self._round(dense.weight), dense.bias)
+        if self.operand_dtype is None:
+            return F.linear(x, dense.weight, dense.bias)
+        return F.linear(self._exact(x), self._exact(dense.weight)).float() + dense.bias
 
     def forward(self, x: torch.Tensor, return_features: bool = False):
         """Logits (N, classes), and with ``return_features`` also the 84

@@ -17,10 +17,17 @@ them (:func:`verify_stats`, which the CLI applies).
 
 The committed spaces were made by the JAX package on a TPU, whose
 default precision rounds the operands of every conv and matrix product
-to bf16 and sums in fp32. Their stats reproduce only in that arithmetic:
+to bf16 and sums in fp32. Their stats reproduce only with bf16 operands:
 on the canonical MNIST set, fp32 operands move the features' mean by up
-to 0.025 and miss the check, bf16 operands meet it (mean within 4.4e-6).
-So a frozen space runs with ``operand_dtype=FROZEN_OPERAND_DTYPE``; a
+to 0.025 and miss the check. How the products are summed matters too,
+because each layer rounds the last one's sums to bf16 again: summed in
+fp32 in the order of whichever algorithm cuDNN picks, Letters'
+covariance met the check in a fresh CLI process, missed it in a process
+that had run other work, and misses it with cuDNN's benchmark mode or
+without cuDNN. So a frozen space,
+``LeNet(operand_dtype=FROZEN_OPERAND_DTYPE)``, sums its bf16 products in
+fp64 and rounds once to fp32: the same features on the CPU and the card
+in any process, within the check on all six committed spaces. A
 retrained one (``mode="off"``) runs in fp32.
 
 The freeze protocol (:func:`freeze_feature_space`, the JAX package's

@@ -1,6 +1,8 @@
 """The port's ``data/extra_datasets.py`` against the JAX package's, byte for
 byte, on the same inputs.
 
+* ``synthetic_dataset``, which the port makes a class of images at a
+  time, at several sizes, seeds and image sizes.
 * Each loader's synthetic fallback (no data folder anywhere): CIFAR10 in
   RGB (the synthetic set repeated to 3 channels) and in BW, notMNIST,
   MNIST-C and CelebA, and ``load_dataset("CIFAR10")`` /
@@ -55,6 +57,17 @@ def assert_same(ours, theirs):
         a, b = getattr(ours, field), getattr(theirs, field)
         assert a.dtype == b.dtype and a.shape == b.shape, field
         assert np.array_equal(a, b), field
+
+
+# (name, n_train, n_test, classes, seed, image_size): both sides of the
+# port's chunk of 4,096 images, an empty set, another seed and size
+SYNTHETIC = [("MNIST", 4100, 7, 10, 0, 28), ("Letters", 300, 40, 26, 0, 28),
+             ("CIFAR10", 0, 9, 10, 3, 32), ("FMNIST", 1, 1, 10, 1, 28)]
+
+
+@pytest.mark.parametrize("args", SYNTHETIC, ids=lambda a: "-".join(map(str, a)))
+def test_synthetic_dataset_equals_jax(args):
+    assert_same(datasets.synthetic_dataset(*args), jax_datasets.synthetic_dataset(*args))
 
 
 FALLBACKS = {

@@ -12,7 +12,9 @@ numpy inputs.
   bf16 step, 2^-8 of it).
 * The 12 assets are byte copies with the JAX package's ``space_hash``;
   the committed MNIST stats verify on the canonical real set in bf16
-  operands (and miss in fp32), with the null FID of the JAX record.
+  operands (and miss in fp32), with the null FID of the JAX record; so do
+  the other five datasets' stats on their canonical sets, each with its
+  TPU record's null FID within 1e-3.
 * ``get_feature_space`` in 'auto', 'on' and 'off'.
 * ``train_lenet`` from the same initial parameters to ``optax.adam``'s
   parameters at 1e-5.
@@ -37,7 +39,7 @@ from spiking_diffusion_tpu.metrics import scores as jax_scores
 from spiking_diffusion_tpu.metrics.features import LeNet as JaxLeNet
 from spiking_diffusion_tpu.metrics.features import lenet_feature_fn as jax_lenet_feature_fn
 from spiking_diffusion_tpu.metrics.ssim import ssim as jax_ssim
-from spiking_diffusion_tpu_torch.data import synthetic_dataset
+from spiking_diffusion_tpu_torch.data import load_dataset, synthetic_dataset
 from spiking_diffusion_tpu_torch.metrics import frozen, mode_coverage, scores
 from spiking_diffusion_tpu_torch.metrics.features import (
     lenet_feature_fn,
@@ -55,6 +57,11 @@ ASSET_NAMES = ("MNIST", "FMNIST", "KMNIST", "Letters", "CIFAR10", "CIFAR10-BW")
 MNIST_SHA = "fa7286439409571c"
 RECORD_NULL_FID = 12.676  # sample_r5_e60/MNIST/snn-vq-vae/metrics.json
 NULL_FID_ATOL = 0.01
+# the other datasets' TPU records (sample_r3/<dataset>/snn-vq-vae/metrics.json,
+# sample_r5_f60 for FMNIST) of the canonical 60,000 + 10,240 synthetic sets
+DATASET_NULL_FIDS = {"FMNIST": 7.0819, "KMNIST": 7.32, "Letters": 16.9568,
+                     "CIFAR10": 1.6337, "CIFAR10-BW": 2.1342}
+DATASET_NULL_FID_ATOL = 1e-3
 
 
 @pytest.fixture(autouse=True)
@@ -165,6 +172,21 @@ def test_frozen_stats_verify_on_canonical_set():
     model.operand_dtype = None
     feats32, _ = lenet_feature_fn(model, device="cpu")(real)
     assert np.abs(np.mean(feats32, axis=0) - stats["mu"]).max() > 1e-2
+
+
+@pytest.mark.parametrize("name", sorted(DATASET_NULL_FIDS))
+def test_frozen_stats_verify_on_every_dataset(name, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # no dataset folder: the synthetic sets
+    monkeypatch.setenv("HOME", str(tmp_path))
+    ds = load_dataset(name, synthetic_size=(60000, 10240))
+    real, held = ds.test_images[:8192], ds.test_images[8192:]
+    fn, info = frozen.get_feature_space(name, ds.train_images, ds.train_labels, ds.num_classes,
+                                        mode="on", log_fn=None, device="cpu")
+    feats, _ = fn(real)
+    assert frozen.verify_stats(frozen.load_frozen_stats(name), real, feats) is True
+    held_feats, _ = fn(held)
+    null_fid = scores.fid_from_features(feats, held_feats)
+    assert abs(null_fid - DATASET_NULL_FIDS[name]) <= DATASET_NULL_FID_ATOL, null_fid
 
 
 def test_get_feature_space_modes(tmp_path):
