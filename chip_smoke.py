@@ -250,6 +250,33 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    1 - SSIM within 1e-4, the codes of its forward passes compared; the
    CPU's side runs in HOST_WORKERS worker processes, a batch each, while
    the card runs the CLI.
+16. data_parallel: two ranks on the one card over gloo (NCCL refuses two
+   ranks on a GPU), spawned by ``parallel.launch`` at the start of phase
+   cli_datasets, each holding a replica. Meanwhile each rank runs the
+   same steps in one process on the global batch (``make_train_step_*``,
+   no mesh): the references. After cli_datasets, on each rank, with the
+   launch counts reset just before: 4 fp32 stage-1 steps (layerwise, K1)
+   at a global batch of 256, 128 a rank (exactly 6 + 6 K1 a step); 4
+   stage-2 steps on 'bnlif' (K3) at 256 in fp32 and in bf16 (5 + 5 K3 a
+   step); the fused bf16 sampler (K2) on the trained weights at 256 (49
+   K2 calls); ``cli.main`` with ``--data_parallel 2`` and phase cli's
+   training flags (rank 0 exactly the launches of phase cli's run, rank
+   1 those of the training steps). The first DP step, from the
+   references' state, is held to theirs: loss, gradients and BN
+   statistics within stage 1's card-against-CPU bounds (STAGE1_CPU_*, at
+   most STAGE1_FLIP_SHARE of its spikes on the rank's rows differing) and
+   stage 2's 'bnlifconv' plain-on-card bounds (CONV_*; bf16 gradients at
+   DP_BF16_GRAD_TOL), the parameters after it within DP_PARAM_ATOL where
+   the gradient lies beyond twice the bound's atol and within 2 lr
+   elsewhere; the later losses are logged. The ranks' parameters and
+   buffers stay bitwise equal. The DP sampler's logits at t = 25 against
+   the single process's on the same rows at K2's bound, its codes'
+   agreement logged. The CLI run's artifact tree is phase cli's (the
+   per-class grids aside: one per class the draw yields) and its output
+   has the ``--syops`` report and the SyncBN backend line. ms per DP step
+   (CUDA events) and, in one more step with each collective timed, the
+   all-reduces' count, bytes and ms, labelled as two ranks sharing one
+   card. Then a world of one rank on NCCL all-reduces once on the card.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -275,13 +302,13 @@ import sys
 import tempfile
 import time
 import traceback
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from spiking_diffusion_tpu_torch import cli
+from spiking_diffusion_tpu_torch import cli, parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import data_variance, load_dataset, synthetic_dataset
 from spiking_diffusion_tpu_torch.generate import sample_codes
@@ -297,6 +324,8 @@ from spiking_diffusion_tpu_torch.ops import bn_lif as bnl
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as lif_op
 from spiking_diffusion_tpu_torch.ops import spike_conv as sc
+from spiking_diffusion_tpu_torch.parallel.launch import free_port
+from spiking_diffusion_tpu_torch.parallel.mesh import init_process_group
 from spiking_diffusion_tpu_torch.profiling import benchmark, monitor, syops, trace
 from spiking_diffusion_tpu_torch.snn import surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
@@ -468,6 +497,9 @@ SYOPS_SAMPLE_BATCH = 16  # the layerwise sample held before and after the profil
 SYOPS_MONITOR_S = 0.5
 # the trace names each branch's neuron kernel (bn_lif_fwd_kernel also
 # contains lif_fwd_kernel)
+# a trace that holds no kernel event at all is the profiler's failure (CUPTI
+# delivered nothing, in one smoke run of ten), not the path's: traced again
+TRACE_ATTEMPTS = 2
 TRACE_KERNELS = {"auto": re.compile(r"(?<!bn_)lif_fwd_kernel"),
                  "bnlif": re.compile(r"bn_lif_fwd_kernel")}
 # the paper's two baselines are the exports of the JAX package's round-3
@@ -522,8 +554,10 @@ DATASET_RECORDS = {
 }
 DATASET_NULL_FID_ATOL = 1e-3
 # recon card against CPU over TRAINED_IMAGES test images of each dataset;
-# the CPU's side in worker processes, a batch each, beside the card
-HOST_WORKERS = 4
+# the CPU's side in worker processes, a batch each, beside the card (its 20
+# batches of ~8.5 s of CPU time take 3 rounds on 7 of the host's 8 cores, 5
+# on 4)
+HOST_WORKERS = 7
 HOST_WAIT_S = 300  # the longest wait for a worker's result
 # the other datasets' CLI evals in the smoke: the record's flags, but a
 # sweep of one batch (their full sweeps run through the CLI on their own)
@@ -2571,11 +2605,16 @@ def syops_checks(card: str) -> dict:
     res["trace"] = {}
     with tempfile.TemporaryDirectory() as root:
         for branch, vq in vqs.items():
-            with trace(os.path.join(root, branch)) as log_dir:
-                vq(images, train=False)
-            with open(os.path.join(log_dir, "trace.json")) as f:
-                events = json.load(f)["traceEvents"]
-            names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+            for attempt in range(TRACE_ATTEMPTS):
+                with trace(os.path.join(root, f"{branch}{attempt}")) as log_dir:
+                    vq(images, train=False)
+                with open(os.path.join(log_dir, "trace.json")) as f:
+                    events = json.load(f)["traceEvents"]
+                names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+                if names:
+                    break
+                log(f"  trace of one {branch} forward: the profiler recorded no kernel at all "
+                    f"(attempt {attempt + 1} of {TRACE_ATTEMPTS})")
             hits = [n for n in names if TRACE_KERNELS[branch].search(n)]
             others = [n for b, pat in TRACE_KERNELS.items() if b != branch
                       for n in names if pat.search(n)]
@@ -2747,7 +2786,8 @@ def phase_cli(card: str) -> dict:
         log(f"  --syops: a report of {SYOPS_LAYERS} layers, {report[SYOPS_LAYERS + 2]!r}")
         check_two_stage_tree(result, sample, CLI_TRAIN_FLAGS)
         train = {"launches": train_counts, "seconds": out["seconds"],
-                 "recon": [out["recon_mse"], out["recon_ssim_loss"]], "syops": report[-6:]}
+                 "recon": [out["recon_mse"], out["recon_ssim_loss"]], "syops": report[-6:],
+                 "tree": file_tree(root)}
 
     with tempfile.TemporaryDirectory() as root:
         out, sample, _, eval_counts, _ = cli_run(CLI_EVAL_FLAGS, root, card)
@@ -3286,6 +3326,462 @@ def launches_of(runs: dict, idx: int) -> dict:
     return {run: row["launches"][idx] for run, row in runs.items()}
 
 
+# --- phase 16: data parallel, two ranks sharing the card -----------------------
+
+DP_RANKS = 2  # one card: the ranks share it over gloo (NCCL refuses two ranks on a GPU)
+DP_BATCH = BATCH  # the global batch of the DP steps and the sampler: 128 a rank
+DP_NOISE_SEED = 11
+DP_CLI_FLAGS = ["--data_parallel", str(DP_RANKS)] + CLI_TRAIN_FLAGS
+# The DP step is the single-process step on the global batch up to the order
+# of its sums (a BN moment is the mean of the ranks' means; a gradient the
+# mean of their sums). The first DP step, from the same state, is held to
+# the single process's: stage 1 at the bounds of its card-against-CPU check
+# (STAGE1_CPU_*, at most STAGE1_FLIP_SHARE of its spikes differing), stage 2
+# at those of its 'bnlifconv' plain-on-card check (CONV_*); the parameters
+# after its AdamW update within DP_PARAM_ATOL where the gradient element is
+# larger than twice the gradient bound's atol (within that bound its sign,
+# hence AdamW's first update, is then the same), within 2 lr elsewhere (an element at rounding
+# level takes either sign, which AdamW scales to +-lr). The later steps
+# start from states that differ by that much, and a spiking layer amplifies
+# it (a code assignment or a spike flips): their losses are logged.
+DP_PARAM_ATOL = 1e-6
+# A bf16 conv's weight and bias gradients are rounded to bf16 (the
+# parameters are cast to bf16 for the conv): once in one process, once on
+# each rank before the ranks' mean, half an ulp each, at most 2^-8 of the
+# value: 2^-7 between the two. The bf16 DP step's gradients are held at
+# that rtol, GRAD_TOL's atol.
+DP_BF16_GRAD_TOL = dict(rtol=2 ** -7, atol=GRAD_TOL["atol"])
+
+
+def pin_arithmetic() -> None:
+    """fp32 convs and matmuls without TF32, cuDNN deterministic: the kernel
+    and plain runs compute the same convolutions."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def rank_values(values, mesh) -> list:
+    """Every rank's list of numbers, rank by rank, on every rank."""
+    row = torch.tensor([[float(v) for v in values]], dtype=torch.float64, device=mesh.device)
+    return parallel.all_gather_rows(row, mesh).tolist()
+
+
+def first_step_spikes(model, run):
+    """(the first training step's spikes of the VQ-VAE's six LIF layers, as
+    ``spike_trains`` takes them, run())."""
+    mods = (*model.encoder.convs[1:], model.vq_layer, *model.decoder.deconvs)
+    seen = []
+
+    def hook(module, args):
+        if len(seen) < len(mods):
+            seen.append(args[0].detach())
+
+    handles = [m.register_forward_pre_hook(hook) for m in mods]
+    try:
+        return seen, run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def state_lr(state) -> float:
+    return state.optimizer.param_groups[0]["lr"]
+
+
+def timed_dp_step(mesh, step) -> tuple:
+    """One more DP step with every collective timed (the card synchronised
+    around each): (the step's host ms, its collectives' ms, their count,
+    their bytes)."""
+    stats = mesh.stats
+    calls, nbytes, seconds = stats.calls, stats.bytes, stats.seconds
+    stats.timed = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        stats.timed = False
+    return ms, (stats.seconds - seconds) * 1e3, stats.calls - calls, stats.bytes - nbytes
+
+
+def hold_dp_rank(what, mesh, dp, dp_state, launches) -> None:
+    """This rank's exact launches over the DP run, and the replicas bitwise
+    equal after it (a collective: every rank calls it)."""
+    check(dp["counts"] == tuple(k * len(dp["losses"]) for k in launches),
+          f"{what}: rank {mesh.rank} launches {dp['counts']}")
+    check(parallel.replicas_equal(dp_state.model, mesh), f"{what}: replicas differ")
+    log(f"  {what}: launches exact, replicas bitwise equal after {len(dp['losses'])} steps")
+
+
+def stepwise(state, step_fn, batches, corruptions=None, spikes=False) -> dict:
+    """``run_steps`` over the first batch, then over the others, the launch
+    counts reset before each and summed: the first step's record, the
+    parameters after it and (``spikes``: stage 1) its spike trains, every
+    loss, the later steps' ms, the launches, the peak memory."""
+    rest = corruptions[1:] if corruptions else None
+    first_run = lambda: run_steps(state, step_fn, batches[:1],  # noqa: E731
+                                  corruptions[:1] if corruptions else None)
+    seen, first = first_step_spikes(state.model, first_run) if spikes else ([], first_run())
+    params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    later = run_steps(state, step_fn, batches[1:], rest)
+    return {"record": first[2], "params": params, "spikes": seen,
+            "losses": first[1] + later[1], "ms": later[0],
+            "counts": tuple(a + b for a, b in zip(first[3], later[3])),
+            "peak": max(first[4], later[4])}
+
+
+def hold_dp_run(what, single, dp, lr, loss_atol, stats_tol, grad_tol) -> dict:
+    """The DP run ``dp`` against the single-process run ``single`` (each
+    ``stepwise``'s return) on the global batch: the first step's loss,
+    gradients and BN statistics within the bounds, the parameters after it
+    (AdamW at ``lr``) as DP_PARAM_ATOL says; the later losses logged."""
+    row = compare_steps(f"{what}, the single-process step on the global batch",
+                        dp["record"], single["record"], exact=False, loss_atol=loss_atol,
+                        stats_tol=stats_tol, grad_tol=grad_tol)
+    sure_d = loose_d = 0.0
+    loose = 0
+    for n, p in dp["params"].items():
+        d = (p - single["params"][n]).abs()
+        sure = single["record"][1][n].abs() > 2 * grad_tol["atol"]
+        sure_d = max(sure_d, float(d[sure].max()) if bool(sure.any()) else 0.0)
+        loose_d = max(loose_d, float(d.max()))
+        loose += int((d[~sure] > DP_PARAM_ATOL).sum())
+    check(sure_d <= DP_PARAM_ATOL, f"{what}: a parameter differs by {sure_d:.3g} after the "
+          "first step where its gradient is beyond the bound's atol")
+    check(loose_d <= 2 * lr + DP_PARAM_ATOL, f"{what}: a parameter differs by {loose_d:.3g}")
+    later = [abs(a - b) for a, b in zip(dp["losses"][1:], single["losses"][1:])]
+    log(f"  {what}: after the first step max |d parameter| {sure_d:.3g} where |gradient| > "
+        f"{2 * grad_tol['atol']:g}, {loose_d:.3g} elsewhere ({loose} elements beyond "
+        f"{DP_PARAM_ATOL:g}); losses {['%.6f' % x for x in dp['losses']]}, |d| from the "
+        f"single process's in steps 2-{len(later) + 1} {['%.3g' % x for x in later]}")
+    return {**row, "losses": dp["losses"], "single_losses": single["losses"],
+            "param_max_d": sure_d, "param_max_d_loose": loose_d, "later_loss_d": later,
+            "dp_ms": dp["ms"], "peak_bytes": dp["peak"]}
+
+
+def dp_timing(what, mesh, dp, timed, card) -> dict:
+    """Rank 0 logs each rank's ms per DP step and the collectives in one
+    more DP step."""
+    ranks = rank_values([statistics.median(dp["ms"])] + list(timed), mesh)
+    for r, (ms, step_ms, coll_ms, calls, nbytes) in enumerate(ranks):
+        log(f"  {what}, rank {r}: {ms:.2f} ms per DP step (median of steps 2-{TRAIN_STEPS}, "
+            f"CUDA events); a timed DP step {step_ms:.2f} ms (host clock), {int(calls)} "
+            f"all-reduces of {nbytes / 2**20:.2f} MiB in {coll_ms:.2f} ms [{DP_RANKS} ranks "
+            f"sharing one card over gloo, not a scaling figure; {card}]")
+    return {"ranks": [{"ms": r[0], "timed_step_ms": r[1], "all_reduce_ms": r[2],
+                       "all_reduces": int(r[3]), "all_reduce_bytes": int(r[4])}
+                      for r in ranks]}
+
+
+def stage1_setting(mesh, inp) -> tuple:
+    vcfg = VQVAEConfig()
+    images, var, sd = inp["stage1"]
+    return (vcfg, var, sd, stage1_batches(images, DP_BATCH))
+
+
+def stage2_setting(mesh, inp) -> tuple:
+    dcfg = DiffusionConfig()
+    variables = weights.init_denoiser_variables(dcfg, torch.Generator().manual_seed(3))
+    return (dcfg, variables) + train_batches(
+        dcfg, torch.from_numpy(inp["codes"]).to(mesh.device), DP_BATCH)
+
+
+def single_stage1(mesh, inp) -> dict:
+    """Stage 1's TRAIN_STEPS steps in one process on the global batch
+    (``stepwise``), the first step's spikes cut to this rank's rows."""
+    vcfg, var, sd, batches = stage1_setting(mesh, inp)
+    single = stepwise(create_train_state(stage1_model(vcfg, sd, "auto", mesh.device)),
+                      stage1.make_train_step_vqvae(var), batches, spikes=True)
+    single["spikes"] = [rank_rows(x, mesh).clone() for x in single["spikes"]]
+    return single
+
+
+def single_stage2(mesh, inp, dtype) -> dict:
+    """Stage 2's TRAIN_STEPS steps on 'bnlif' in ``dtype`` in one process on
+    the global batch (``stepwise``)."""
+    dcfg, variables, batches, corruptions = stage2_setting(mesh, inp)
+    return stepwise(train_state(variables, dcfg, "bnlif", mesh.device, dtype),
+                    stage2.make_train_step_diffusion(dcfg), batches, corruptions)
+
+
+def single_sampler(mesh) -> dict:
+    """The fused bf16 sampler at DP_BATCH in one process on the trained
+    weights and seeded noise, and its logits on the t = 25 probe of its
+    codes."""
+    dcfg = DiffusionConfig()
+    den = exported_denoiser("MNIST/snn-vq-vae", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(DP_NOISE_SEED)
+    noise = list(diffusion.draw_noise(dcfg, DP_BATCH, dcfg.num_timesteps, gen, "cuda"))
+    codes = sample_codes(den, dcfg, DP_BATCH, noise=noise, device="cuda", fused=True,
+                         dtype=torch.bfloat16)
+    probe = k2_probes(dcfg, DP_BATCH, codes, gen)[1][1]
+    logits = fd.make_fused_denoise_fn(den, dcfg, torch.bfloat16)(*probe)
+    return {"den": den, "noise": noise, "codes": codes, "probe": probe, "logits": logits}
+
+
+def rank_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a time-folded (T*N, ...) tensor of the global
+    batch, as (T, N / W, ...)."""
+    x = x.reshape((T, -1) + tuple(x.shape[1:]))
+    per = x.shape[1] // mesh.world_size
+    return x[:, mesh.rank * per:(mesh.rank + 1) * per]
+
+
+def dp_stage1(mesh, inp, single, card) -> dict:
+    """Stage 1, layerwise (K1), fp32, TRAIN_STEPS steps at DP_BATCH over the
+    ranks against the same steps in one process on this rank (``single``)."""
+    vcfg, var, sd, batches = stage1_setting(mesh, inp)
+    state = create_train_state(parallel.replicate(parallel.sync_batchnorm(
+        stage1_model(vcfg, sd, "auto", mesh.device), mesh), mesh))
+    step = stage1.make_train_step_vqvae_dp(var, mesh)
+    dp = stepwise(state, step, batches, spikes=True)
+    pairs = list(zip(single.pop("spikes"), dp.pop("spikes")))
+    differ = sum(int((a != b.reshape(a.shape)).sum()) for a, b in pairs)
+    total = sum(a.numel() for a, _ in pairs)
+    del pairs
+    flips = rank_values([differ, total], mesh)
+    log("  stage 1, the first step's spikes differing from the single process's on the "
+        "rank's rows: " + ", ".join(f"rank {r} {int(d)} of {int(n)}"
+                                   for r, (d, n) in enumerate(flips)))
+    check(differ <= STAGE1_FLIP_SHARE * total, f"stage 1: {differ} of {total} spikes differ")
+    hold_dp_rank("stage 1, layerwise fp32", mesh, dp, state, STAGE1_STEP_LAUNCHES["layerwise"])
+    row = hold_dp_run("stage 1, layerwise fp32", single, dp, state_lr(state),
+                      STAGE1_CPU_LOSS_ATOL, STATS_TOL, STAGE1_CPU_GRAD_TOL)
+    timed = timed_dp_step(mesh, lambda: step(state, batches[0]))
+    counts = rank_values(dp["counts"], mesh)
+    return {**row, "launches": counts, "spike_flips": flips,
+            **dp_timing("stage 1, layerwise fp32 at 256", mesh, dp, timed, card)}
+
+
+def dp_stage2(mesh, inp, dtype, single, card) -> dict:
+    """Stage 2 on 'bnlif' (K3) in ``dtype``, TRAIN_STEPS steps at DP_BATCH
+    over the ranks against the same steps in one process on this rank
+    (``single``)."""
+    dcfg, variables, batches, corruptions = stage2_setting(mesh, inp)
+    state = create_train_state(parallel.replicate(parallel.sync_batchnorm(weights.load_denoiser(
+        *variables, dcfg, device=mesh.device, lif_backend="bnlif", train=True, dtype=dtype),
+        mesh), mesh))
+    step = stage2.make_train_step_diffusion_dp(dcfg, mesh)
+    dp = stepwise(state, step, batches, corruptions)
+    name = "fp32" if dtype is None else "bf16"
+    hold_dp_rank(f"stage 2, 'bnlif' {name}", mesh, dp, state, STEP_LAUNCHES["bnlif"])
+    row = hold_dp_run(f"stage 2, 'bnlif' {name}", single, dp, state_lr(state), CONV_LOSS_ATOL,
+                      CONV_STATS_TOL, GRAD_TOL if dtype is None else DP_BF16_GRAD_TOL)
+    timed = timed_dp_step(mesh, lambda: step(state, batches[0], corruption=corruptions[0]))
+    counts = rank_values(dp["counts"], mesh)
+    return {**row, "launches": counts,
+            **dp_timing(f"stage 2, 'bnlif' {name} at 256", mesh, dp, timed, card)}
+
+
+def dp_sampler(mesh, single, card) -> dict:
+    """The fused bf16 sampler (K2) at DP_BATCH over the ranks on the trained
+    weights, against the single process on the same noise (``single``):
+    codes agreement logged; the logits at t = 25 on the same rows at K2's
+    bound."""
+    dcfg, den = DiffusionConfig(), single["den"]
+    reset_launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    codes = sample_codes(den, dcfg, DP_BATCH, noise=single["noise"], device="cuda", fused=True,
+                         dtype=torch.bfloat16, data_parallel=DP_RANKS)
+    ev[1].record()
+    ev[1].synchronize()
+    counts = launch_counts()
+    check(counts == (0, 0, 0, 0, K2_STEP_LAUNCHES, 0, 0),
+          f"DP sampler: rank {mesh.rank} launches {counts}")
+    check(codes.shape == (DP_BATCH, 7, 7) and int(codes.max()) < dcfg.num_embeddings,
+          "DP sampler codes")
+    agree = float((codes == single["codes"]).float().mean())
+    tokens, t = single["probe"]
+    fn = fd.make_fused_denoise_fn(den, dcfg, torch.bfloat16)
+    rows = parallel.all_gather_rows(fn(parallel.shard_batch(tokens, mesh),
+                                       parallel.shard_batch(t, mesh)), mesh)
+    diff = (rows - single["logits"]).abs()
+    near, max_d = float((diff <= K2_NEAR).float().mean()), float(diff.max())
+    ms = rank_values([ev[0].elapsed_time(ev[1])], mesh)
+    log(f"  DP fused bf16 sampler at {DP_BATCH}: codes equal to the single process's "
+        f"{agree:.6f}; logits at t = 25 within {K2_NEAR:g} of the single process's on the "
+        f"same rows {near:.6f} (bound {K2_NEAR_SHARE}), max |d| {max_d:.3g}; "
+        + ", ".join(f"rank {r} {v[0]:.1f} ms" for r, v in enumerate(ms))
+        + f" (CUDA events, {DP_RANKS} ranks sharing one card) [{card}]")
+    check(near >= K2_NEAR_SHARE, f"DP sampler logits: {near:.4f} within {K2_NEAR:g}")
+    return {"codes_agree": agree, "logits_near": near, "logits_max_d": max_d,
+            "ms": [v[0] for v in ms], "launches": rank_values(counts, mesh)}
+
+
+def dp_cli_launches(args, rank: int) -> tuple:
+    """A rank's launches in a ``--data_parallel`` CLI run: rank 0 runs what
+    the single-card run does (``cli_launches``); the others the training
+    steps alone (6 + 6 K1 a stage-1 step, 5 + 5 K3 a stage-2 step)."""
+    if rank == 0:
+        return cli_launches(args)
+    steps1 = args.epochs * (args.synthetic_train // args.batch_size)
+    return (6 * steps1, 6 * steps1, K3_PER_STEP * 2 * steps1, K3_PER_STEP * 2 * steps1,
+            0, 0, 0)
+
+
+def file_tree(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def dp_cli(mesh, inp, card) -> dict:
+    """``cli.main(DP_CLI_FLAGS)`` on this rank, with the launches reset just
+    before; rank 0 holds the artifact tree to phase cli's and the output
+    to the CLI's lines."""
+    root = inp["cli_root"]
+    dirs = ["--result_dir", os.path.join(root, "result"),
+            "--sample_dir", os.path.join(root, "sample")]
+    args = cli.parse_args(DP_CLI_FLAGS)
+    reset_launch_counts()
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        out = cli.main(DP_CLI_FLAGS + dirs, device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    want = dp_cli_launches(args, mesh.rank)
+    check(counts == want, f"DP CLI: rank {mesh.rank} launches {counts}, expected {want}")
+    ranks = rank_values(counts + (seconds,), mesh)
+    if mesh.rank > 0:
+        check(out is None, "a rank other than 0 returned a result")
+        return {}
+    printed = tee.copy.getvalue()
+    model_dir = os.path.join(args.dataset_name, args.model)
+    check_two_stage_tree(os.path.join(root, "result", model_dir),
+                         os.path.join(root, "sample", model_dir), DP_CLI_FLAGS, "DP CLI: ")
+    check_syops_report(printed)
+    check(f"denoiser backend: bnlif + SyncBN DP over {DP_RANKS} ranks (gloo)" in printed,
+          "DP CLI: no SyncBN backend line")
+    # the per-class grids are one per class that the sweep's images fall in,
+    # which the draw decides: the rest of the tree must be phase cli's
+    tree, want = file_tree(root), inp["cli_tree"]
+    check([f for f in tree if "/classes/" not in f] == [f for f in want if "/classes/" not in f],
+          f"DP CLI tree {tree} is not phase cli's {want}")
+    classes = [len([f for f in t if "/classes/" in f]) for t in (tree, want)]
+    log(f"  cli.main {' '.join(DP_CLI_FLAGS)}: stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in out["seconds"].items())
+        + f"; recon MSE {out['recon_mse']:.6f}; the tree of phase cli's run ({len(tree)} "
+        f"files; class grids {classes[0]}, phase cli's {classes[1]}); "
+        + "; ".join(f"rank {r} {format_counts([int(x) for x in v[:7]])}, {v[7]:.1f} s"
+                    for r, v in enumerate(ranks)) + f" [{card}]")
+    return {"launches": [[int(x) for x in v[:7]] for v in ranks],
+            "seconds": [v[7] for v in ranks], "stages": out["seconds"]}
+
+
+def dp_rank(inp: dict) -> dict:
+    """One rank of phase data_parallel (``parallel.launch`` runs it on each
+    rank); rank 0's return is the phase's. The rank first runs the
+    single-process references (no launch counted, nothing printed), then
+    waits for ``inp["go"]``: the main process sets it after phase
+    cli_datasets, or with ``inp["abort"]`` to stop. Only rank 0 prints."""
+    pin_arithmetic()
+    mesh = parallel.make_mesh(DP_RANKS)
+    seconds = {"start": time.time() - inp["launched"]}
+    t0 = time.perf_counter()
+    single = {"stage1": single_stage1(mesh, inp),
+              **{name: single_stage2(mesh, inp, dtype)
+                 for name, dtype in (("fp32", None), ("bf16", torch.bfloat16))},
+              "sampler": single_sampler(mesh)}
+    torch.cuda.empty_cache()
+    seconds["references"] = time.perf_counter() - t0
+    inp["go"].wait()
+    if inp["abort"].is_set():
+        return {}
+    quiet = open(os.devnull, "w") if mesh.rank else None
+    card = inp["card"]
+    with contextlib.redirect_stdout(quiet) if quiet else contextlib.nullcontext():
+        try:
+            out = {"backend": mesh.backend}
+            for part, run in (
+                    ("stage1", lambda: dp_stage1(mesh, inp, single["stage1"], card)),
+                    ("stage2", lambda: {name: dp_stage2(mesh, inp, dtype, single[name], card)
+                                        for name, dtype in (("fp32", None),
+                                                            ("bf16", torch.bfloat16))}),
+                    ("sampler", lambda: dp_sampler(mesh, single["sampler"], card)),
+                    ("cli", lambda: dp_cli(mesh, inp, card))):
+                t0 = time.perf_counter()
+                out[part] = run()
+                torch.cuda.empty_cache()
+                seconds[part] = time.perf_counter() - t0
+            log(f"  rank 0: running {seconds['start']:.1f} s after the launch, the "
+                f"references {seconds['references']:.1f} s (both during phase cli_datasets); "
+                "after the cue " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()
+                                             if k not in ("start", "references")))
+        finally:
+            if quiet:
+                quiet.close()
+    return {**out, "seconds": seconds}
+
+
+def dp_launches(dp: dict, idx: int) -> dict:
+    """A kernel's launches (index ``idx`` of ``launch_counts()``) on each
+    rank in each run of phase data_parallel that launched it."""
+    runs = {"stage1": dp["stage1"]["launches"], "sampler": dp["sampler"]["launches"],
+            "cli": dp["cli"]["launches"],
+            **{f"stage2_{d}": row["launches"] for d, row in dp["stage2"].items()}}
+    return {run: [int(r[idx]) for r in ranks] for run, ranks in runs.items()
+            if any(r[idx] for r in ranks)}
+
+
+def nccl_probe(card: str) -> dict:
+    """A world of one rank on NCCL on the card, one all-reduce: the backend
+    a machine with a card per rank takes."""
+    init_process_group(0, 1, free_port(), backend="nccl", device="cuda")
+    try:
+        mesh = parallel.make_mesh(1, backend="nccl")
+        x = torch.arange(4.0, device=mesh.device)
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(x, group=mesh.group)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(mesh.backend == "nccl" and torch.equal(x.cpu(), torch.arange(4.0)),
+              "NCCL all-reduce")
+        log(f"  NCCL: a world of 1 on {mesh.device}, backend {mesh.backend}, all_reduce of 4 "
+            f"floats in {ms:.2f} ms (host clock, the first call) [{card}]")
+    finally:
+        torch.distributed.destroy_process_group()
+    return {"backend": "nccl", "first_all_reduce_ms": ms}
+
+
+class DataParallelRun:
+    """Phase data_parallel's two ranks on the card over gloo
+    (``parallel.launch`` in a thread of this process), started before
+    phase cli_datasets: they start up and run their single-process
+    references meanwhile, and run the DP steps, the DP sampler and the
+    CLI after ``finish``'s cue. ``close`` stops ranks that never had it."""
+
+    def __init__(self, codes: np.ndarray, cli_tree: list, card: str):
+        images, var, sd = stage1_setup(VQVAEConfig())
+        ctx = multiprocessing.get_context("spawn")
+        self.go, self.abort = ctx.Event(), ctx.Event()
+        self.root = tempfile.TemporaryDirectory()
+        inp = {"stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
+               "cli_root": self.root.name, "cli_tree": cli_tree, "card": card,
+               "launched": time.time(), "go": self.go, "abort": self.abort}
+        self.pool = ThreadPoolExecutor(1)
+        self.ranks = self.pool.submit(parallel.launch, dp_rank, DP_RANKS, args=(inp,),
+                                      device="cuda")
+
+    def finish(self, card: str) -> dict:
+        """Cue the ranks; their result and the NCCL probe's."""
+        self.go.set()
+        out = self.ranks.result()
+        check(out["backend"] == "gloo", f"ranks sharing the card on {out['backend']}")
+        return {**out, "nccl": nccl_probe(card)}
+
+    def close(self) -> None:
+        if not self.go.is_set():
+            self.abort.set()
+            self.go.set()
+        self.pool.shutdown(wait=True)
+        self.root.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -3293,15 +3789,13 @@ def main() -> int:
     signal.signal(signal.SIGALRM, over_budget)
     signal.alarm(BUDGET_S)
     t_start = time.perf_counter()
+    dp_run = None
     try:
         with Phase("device"):
             smi = nvidia_smi()
             kind = torch.cuda.get_device_name(0)
             log(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
-            torch.backends.cudnn.benchmark = False
+            pin_arithmetic()
             log("  cudnn.allow_tf32=False cuda.matmul.allow_tf32=False "
                 "cudnn.deterministic=True cudnn.benchmark=False")
         with Phase("build"):
@@ -3362,6 +3856,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             # stage 2 trains on the codes that stage 1's extract_code_indices made
             codes = torch.from_numpy(train1["layerwise"].pop("codes_array")[:BATCH]).cuda()
+            dp_codes = codes.cpu().numpy()
             train1["bnlif"].pop("codes_array")
             train = phase_train(dcfg, codes, smi)
         with Phase("trained_weights"):
@@ -3386,16 +3881,22 @@ def main() -> int:
             phase_metrics_extra(smi)
         with Phase("cli_datasets"):
             torch.cuda.empty_cache()
+            # phase data_parallel's ranks start up and run their references meanwhile
+            dp_run = DataParallelRun(dp_codes, cli_runs["train"]["tree"], smi)
             datasets = phase_cli_datasets(smi)
             dataset_runs = {"cifar10_train": datasets["train"], "cifar10_eval": datasets["eval"],
                             **{f"{n} eval": row for n, row in datasets["evals"].items()},
                             **{f"recon {n}": row for n, row in datasets["recon"].items()}}
+        with Phase("data_parallel"):
+            dp = dp_run.finish(smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
     finally:
         signal.alarm(0)
+        if dp_run is not None:
+            dp_run.close()
     kernels = [{
         "name": "K1 lif_fwd", "route": "cuda",
         "source": "spiking_diffusion_tpu_torch/csrc/lif_fwd.cu",
@@ -3421,6 +3922,8 @@ def main() -> int:
         "launches_cli_datasets": launches_of(dataset_runs, 0),
         # the profiler's runs on the trained weights (phase syops)
         "launches_syops": profiled["launches"][0],
+        # phase data_parallel, per rank: 6 a DP stage-1 step; the CLI run
+        "launches_data_parallel": dp_launches(dp, 0),
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -3433,6 +3936,7 @@ def main() -> int:
         "launches_cli": cli_launch_counts(cli_runs, 1),
         "launches_snn_vae": launches_of(snn_runs, 1),
         "launches_cli_datasets": launches_of(dataset_runs, 1),
+        "launches_data_parallel": dp_launches(dp, 1),
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
@@ -3456,6 +3960,11 @@ def main() -> int:
             "launches_cli_datasets": {
                 run: row["launches"][4] if name == ("fp32" if run == "cifar10_train" else "bf16")
                 else 0 for run, row in dataset_runs.items() if not run.startswith("recon")},
+            # phase data_parallel, per rank: the bf16 sampler's 49; the CLI
+            # run's fp32 sweep on rank 0
+            "launches_data_parallel": {run: n for run, n in dp_launches(dp, 4).items()
+                                       if (run == "sampler") == (name == "bf16")
+                                       and (run == "cli") <= (name == "fp32")},
             # on the vq-vae baseline's denoiser at its eval's chunk of 512
             "max_abs_err_trained_vq_vae": vq["k2_max_abs_err"][name],
             # on CIFAR10's denoiser at its eval's chunk of 512
@@ -3479,6 +3988,8 @@ def main() -> int:
             "launches_snn_vae": launches_of(snn_runs, idx),
             "launches_cli_datasets": launches_of(dataset_runs, idx),
             "launches_syops": profiled["launches"][idx],
+            # phase data_parallel, per rank: 5 a DP stage-2 step; the CLI run
+            "launches_data_parallel": dp_launches(dp, idx),
             "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
             "ms": k3["fp32"][f"{key}_ms"], "plain_ms": k3["fp32"][f"{key}_plain_ms"],

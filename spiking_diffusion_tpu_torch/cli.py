@@ -37,8 +37,15 @@ What the port maps or refuses:
   * ``--syops`` prints the spike-aware op/energy report of the stage-1
     model after stage 1, as the JAX CLI does (``profiling/syops.py``; the
     ANN VQ-VAE has no counted layer).
-  * ``--data_parallel`` above 1 (ROADMAP.md queue 1, item 1) raises
-    ``NotImplementedError``.
+  * ``--data_parallel N`` above 1 trains both stages over N ranks, one
+    process each (``parallel``): launched by ``main`` itself (``spawn``),
+    or by ``torchrun``. Each rank holds a replica, runs its rows of every
+    batch with SyncBN and averages its gradients with the others (NCCL
+    with a card per rank; gloo where ranks share a card, and on the CPU).
+    Rank 0 alone writes files, runs the epoch callbacks, ``--syops`` and
+    the evaluation, and its result is ``main``'s; the artifact tree is a
+    single-card run's. ``--model snn-vae`` trains on one device, as the
+    JAX CLI's does.
 
 Every dataset of ``--dataset_name`` runs: CIFAR10 at 3 input channels
 (stage 1's first conv and last deconv, RGB PNGs, SSIM and the frozen
@@ -55,19 +62,25 @@ Usage:
         --frozen_metrics on
     python -m spiking_diffusion_tpu_torch.cli --model snn-vae \\
         --checkpoint result_torch/MNIST/snn-vae --batch_size 256
+    python -m spiking_diffusion_tpu_torch.cli --data_parallel 2 --epochs 100
+    torchrun --nproc_per_node 8 -m spiking_diffusion_tpu_torch.cli \\
+        --data_parallel 8 --batch_size 256
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import sys
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from spiking_diffusion_tpu_torch import parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import batch_iterator, data_variance, load_dataset
 from spiking_diffusion_tpu_torch.device import resolve_device
@@ -135,7 +148,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--result_dir", default="./result")
     p.add_argument("--sample_dir", default="./sample")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="above 1 raises: one card only")
+                   help="train both stages over n ranks, one process "
+                        "each")
     p.add_argument("--synthetic_train", type=int, default=2048,
                    help="synthetic-fallback train set size (no IDX files)")
     p.add_argument("--synthetic_test", type=int, default=512,
@@ -190,13 +204,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _refuse(args: argparse.Namespace) -> None:
-    """Raise for the choices the port does not run."""
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1: the port trains on one card (ROADMAP.md queue 1, item 1)")
-
-
 def _clock(dev: torch.device) -> float:
     """Host seconds after the card's queued work has finished."""
     if dev.type == "cuda":
@@ -204,13 +211,34 @@ def _clock(dev: torch.device) -> float:
     return time.perf_counter()
 
 
-def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
+def main(argv: Optional[List[str]] = None, device="cuda") -> Optional[Dict[str, object]]:
     """Run the CLI; returns the recon means, the metrics.json contents and
     the seconds of each stage (host clock, the card synchronised), or for
-    ``--model snn-vae`` what ``_run_snn_vae`` returns."""
+    ``--model snn-vae`` what ``_run_snn_vae`` returns.
+
+    ``--data_parallel N`` above 1 in a process that is no rank starts N
+    ranks (``parallel.launch``), each running ``main`` with the same flags,
+    and returns rank 0's result; a rank returns None but on rank 0, and
+    prints nothing but on rank 0.
+    """
     args = parse_args(argv)
-    _refuse(args)
-    dev = resolve_device(device)
+    data_parallel = args.data_parallel > 1 and args.model != "snn-vae"
+    if data_parallel and not parallel.in_process_group():
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return parallel.launch(main, args.data_parallel, args=(argv,),
+                               kwargs={"device": device}, device=device)
+    if not data_parallel:
+        return _main(args, resolve_device(device), None)
+    mesh = parallel.make_mesh(args.data_parallel, device=device)
+    if mesh.rank == 0:
+        return _main(args, mesh.device, mesh)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return _main(args, mesh.device, mesh)
+
+
+def _main(args: argparse.Namespace, dev: torch.device,
+          mesh: Optional[parallel.Mesh]) -> Optional[Dict[str, object]]:
+    lead = mesh is None or mesh.rank == 0
     if dev.type == "cuda":
         # full fp32 convs and matmuls, not TF32: the arithmetic the port is
         # held to against the JAX package
@@ -221,9 +249,10 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
     np.random.seed(args.seed)
 
     save_path = os.path.join(args.result_dir, args.dataset_name, args.model)
-    os.makedirs(save_path, exist_ok=True)
     sample_path = os.path.join(args.sample_dir, args.dataset_name, args.model)
-    os.makedirs(sample_path, exist_ok=True)
+    if lead:
+        os.makedirs(save_path, exist_ok=True)
+        os.makedirs(sample_path, exist_ok=True)
 
     ds = load_dataset(args.dataset_name, args.data_path,
                       synthetic_size=(args.synthetic_train, args.synthetic_test))
@@ -254,6 +283,9 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
                                    device=dev, lif_backend="auto", train=True, dtype=dtype)
     print("The model is ready!")
     if args.model == "snn-vae":
+        if args.data_parallel > 1:
+            print(f"--model snn-vae trains on one device (--data_parallel "
+                  f"{args.data_parallel} not used)")
         return _run_snn_vae(args, model, ds, save_path, sample_path, dev)
     t0 = _clock(dev)
     if args.checkpoint or args.ready:
@@ -268,16 +300,18 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
             save_checkpoint(st, save_path, "model")
 
         train_vqvae(model, ds.train_images, variance, epochs=args.epochs,
-                    batch_size=args.batch_size, seed=args.seed, epoch_callback=epoch_cb,
+                    batch_size=args.batch_size, seed=args.seed,
+                    epoch_callback=epoch_cb if lead else None,
                     data_parallel=args.data_parallel, device=dev)
     seconds["stage1"] = _clock(dev) - t0
-    if args.syops:
+    if args.syops and lead:
         _print_syops(args, model, ds, dev)
 
     # ---- stage 2: diffusion prior ---------------------------------------
     print("prepare data for train diffusion...")
     t0 = _clock(dev)
-    indices = extract_code_indices(model, ds.train_images, device=dev)
+    indices = extract_code_indices(model, ds.train_images, device=dev,
+                                   data_parallel=args.data_parallel)
     seconds["codes"] = _clock(dev) - t0
     mask_id = diffusion.pick_mask_id(args.mask, args.codebook_size,
                                      torch.from_numpy(indices[:args.batch_size]))
@@ -285,12 +319,14 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
     d_cfg = DiffusionConfig(num_embeddings=args.codebook_size, mask_id=mask_id,
                             num_steps=args.num_steps)
     d_backend = "bnlif" if args.lif_backend == "auto" and dev.type == "cuda" else "auto"
-    print(f"denoiser backend: {d_backend}")
+    print(f"denoiser backend: {d_backend}"
+          + (f" + SyncBN DP over {mesh.world_size} ranks ({mesh.backend})" if mesh else ""))
     denoiser = weights.load_denoiser(
         *weights.init_denoiser_variables(d_cfg, torch.Generator().manual_seed(args.seed)),
         d_cfg, device=dev, lif_backend=d_backend, train=True, dtype=dtype)
     diff_path = os.path.join(save_path, "diff_result")
-    os.makedirs(diff_path, exist_ok=True)
+    if lead:
+        os.makedirs(diff_path, exist_ok=True)
     t0 = _clock(dev)
     if args.checkpoint:
         restore_checkpoint(create_train_state(denoiser),
@@ -308,10 +344,13 @@ def main(argv: Optional[List[str]] = None, device="cuda") -> Dict[str, object]:
 
         dstate = train_diffusion(denoiser, d_cfg, indices, epochs=args.epochs * 2,
                                  batch_size=args.batch_size, seed=args.seed,
-                                 epoch_callback=diff_cb, data_parallel=args.data_parallel,
-                                 device=dev)
-        save_checkpoint(dstate, diff_path, "diff_model")
+                                 epoch_callback=diff_cb if lead else None,
+                                 data_parallel=args.data_parallel, device=dev)
+        if lead:
+            save_checkpoint(dstate, diff_path, "diff_model")
     seconds["stage2"] = _clock(dev) - t0
+    if not lead:
+        return None
 
     # ---- evaluation ------------------------------------------------------
     t0 = _clock(dev)

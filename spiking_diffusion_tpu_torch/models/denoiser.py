@@ -29,6 +29,11 @@ package's ``SpikingDenoiser(dtype=)``: the input is cast after the concat
 with the timestep map, the convs run in it, BN computes in fp32 and
 casts its output, spikes are in it; the firing-rate sum over T is taken
 on the stack in it, and the logits are cast to fp32.
+
+``bn_mesh`` (a ``parallel.Mesh``) has the meaning of the JAX package's
+``bn_axis_name``: the BN statistics are synced over it (SyncBN,
+``parallel.sync_batchnorm``), and a data-parallel trainer refuses a mesh
+of another process group.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from torch import nn
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models.layers import LIF, SeqBatchNorm, SeqConv
 from spiking_diffusion_tpu_torch.ops.bn_lif import bn_lif
+from spiking_diffusion_tpu_torch.parallel.mesh import Mesh
 from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.snn.encoding import direct_encode
 from spiking_diffusion_tpu_torch.snn.neuron import BACKENDS
@@ -55,7 +61,8 @@ class SpikingDenoiser(nn.Module):
     """(N, h, w) tokens + (N,) timesteps -> (N, h, w, K) logits."""
 
     def __init__(self, cfg: DiffusionConfig = DiffusionConfig(),
-                 lif_backend: str = "auto", dtype: Optional[torch.dtype] = None):
+                 lif_backend: str = "auto", dtype: Optional[torch.dtype] = None,
+                 bn_mesh: Optional[Mesh] = None):
         super().__init__()
         if lif_backend not in BACKENDS + tuple(BNLIF_BACKENDS):
             raise ValueError(f"unknown denoiser backend {lif_backend!r}; have "
@@ -75,7 +82,7 @@ class SpikingDenoiser(nn.Module):
         self.convs = nn.ModuleList(
             [SeqConv(cin, cout, 3, padding=1, **conv)
              for cin, cout in zip((2,) + chans[:-1], chans)])
-        self.bns = nn.ModuleList([SeqBatchNorm(c, dtype=dtype) for c in chans])
+        self.bns = nn.ModuleList([SeqBatchNorm(c, dtype=dtype, mesh=bn_mesh) for c in chans])
         self.lifs = nn.ModuleList(
             [LIF(params, cfg.num_steps, lif_backend) for _ in chans])
         self.readout = SeqConv(chans[-1] + chans[0], cfg.num_embeddings, 3,

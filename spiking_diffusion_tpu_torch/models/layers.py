@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spiking_diffusion_tpu_torch.ops.spike_conv import spike_conv3x3
+from spiking_diffusion_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams, lif_multi_step
 
 
@@ -117,15 +118,23 @@ class SeqBatchNorm(nn.Module):
     ``ops/spike_conv.py``): mean = s1 / count, E[x^2] = s2 / count, kept in
     the autograd graph so that their gradients reach the producer. With
     ``dtype`` the normalised output is cast to it.
+
+    SyncBN: with ``mesh`` (a ``parallel.Mesh``, set by
+    ``parallel.sync_batchnorm``) the training-mode mean and E[x^2] are
+    averaged over the ranks (``parallel.all_reduce_mean``, differentiable)
+    before the variance is formed, as the JAX ``BatchNorm``'s ``axis_name``
+    pmeans them: over equal shards these are the global batch's
+    statistics, and the running statistics move alike on every rank.
     """
 
     momentum = 0.9  # flax's convention: running = momentum * running + (1 - momentum) * batch
 
     def __init__(self, channels: int, eps: float = 1e-5,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh: Optional[Mesh] = None):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.mesh = mesh
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
@@ -143,6 +152,8 @@ class SeqBatchNorm(nn.Module):
             dims = [d for d in range(x.ndim) if d != 1]
             mean = xf.mean(dims)
             msq = torch.mean(xf * xf, dims)
+        if self.mesh is not None:
+            mean, msq = all_reduce_mean(torch.stack([mean, msq]), self.mesh).unbind()
         var = torch.clamp(msq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum

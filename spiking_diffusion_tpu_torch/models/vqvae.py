@@ -44,6 +44,7 @@ from spiking_diffusion_tpu_torch.models.layers import (
     SeqConvTranspose,
 )
 from spiking_diffusion_tpu_torch.ops.bn_lif import bn_lif
+from spiking_diffusion_tpu_torch.parallel.mesh import all_reduce_mean
 from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.snn.encoding import direct_encode
 from spiking_diffusion_tpu_torch.snn.neuron import BACKENDS
@@ -125,12 +126,18 @@ class VectorQuantizer(nn.Module):
     """Hybrid time-collapse readout, L2-nearest codebook lookup,
     straight-through estimator, the analog and PSP commitment losses, and
     the adaptive spike generator (Conv1x1 + BN + LIF) that re-spikes the
-    quantized vectors."""
+    quantized vectors.
+
+    Under data parallelism (``mesh``, set by ``parallel.sync_batchnorm``)
+    the batch mean of the soft codebook usage of ``usage_loss_weight`` is
+    averaged over the ranks before its log; the other terms are means
+    over equal shards, which the gradient all-reduce averages."""
 
     def __init__(self, cfg: VQVAEConfig, lif_backend: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.backend = lif_backend
+        self.mesh = None
         d = cfg.embedding_dim
         self.embeddings = nn.Parameter(torch.zeros(cfg.num_embeddings, d))
         self.alpha = nn.Parameter(torch.tensor(0.5))
@@ -188,6 +195,7 @@ class VectorQuantizer(nn.Module):
         if c.usage_loss_weight > 0.0:
             # KL(soft codebook usage over the batch || uniform)
             usage = torch.mean(torch.softmax(-self._distances(flat), dim=1), dim=0)
+            usage = all_reduce_mean(usage, self.mesh)
             kl_uniform = torch.sum(
                 usage * (torch.log(usage + 1e-12) + math.log(c.num_embeddings)))
             loss_1 = loss_1 + c.usage_loss_weight * kl_uniform

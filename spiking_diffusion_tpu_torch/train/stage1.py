@@ -13,7 +13,15 @@ which has ``encode_indices``: the spiking ``SNNVQVAE`` (``--model
 snn-vq-vae``) and the ANN ``ANNVQVAE`` (``--model vq-vae``, no kernel).
 On the card the spiking model's layerwise branch ('auto') runs every
 LIF layer on K1 forward and backward, six of each per step; 'bnlif' runs
-every BN-apply + LIF on K3, six forward and six backward. Single device.
+every BN-apply + LIF on K3, six forward and six backward.
+
+Data parallel (``make_train_step_vqvae_dp``, ``train_vqvae(data_parallel=
+n)``; JAX ``train/stage1.py:141-215``): one process per rank
+(``parallel``), each with a full replica; a step takes the global batch,
+runs this rank's rows with SyncBN (and the codebook-usage mean of
+``snn-vq-vae-uni`` synced), and averages the loss and the gradients over
+the ranks before AdamW, so every rank takes the same update: the
+single-device step on the global batch, up to the order of its sums.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from spiking_diffusion_tpu_torch import parallel
 from spiking_diffusion_tpu_torch.device import resolve_device
 from spiking_diffusion_tpu_torch.train.state import TrainState, create_train_state
 
@@ -36,19 +45,35 @@ def make_train_step_vqvae(data_variance: float) -> TrainStep:
     "vq_loss", "recon_loss", "real_recon_loss"}`` that updates ``state``
     in place. The gradients stay in the parameters' ``.grad`` until the
     next step."""
+    return _make_step(data_variance, None)
 
+
+def make_train_step_vqvae_dp(data_variance: float, mesh: parallel.Mesh) -> TrainStep:
+    """:func:`make_train_step_vqvae` over ``mesh``'s ranks: each rank
+    passes the same global batch and runs its rows of it; the metrics and
+    the gradients are averaged over the ranks. The model must be a replica
+    (``parallel.replicate``) with its statistics synced
+    (``parallel.sync_batchnorm``)."""
+    return _make_step(data_variance, mesh)
+
+
+def _make_step(data_variance: float, mesh: Optional[parallel.Mesh]) -> TrainStep:
     def train_step(state: TrainState, images: torch.Tensor):
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            images = parallel.shard_batch(images, mesh)
         out = model(images, data_variance=data_variance)
         loss = out["vq_loss"] + out["recon_loss"]
         loss.backward()
+        metrics = (loss, out["vq_loss"], out["recon_loss"], out["real_recon_loss"])
+        if mesh is not None:
+            metrics = parallel.all_reduce_gradients(model.parameters(), mesh, *metrics)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "vq_loss": out["vq_loss"].detach(),
-                "recon_loss": out["recon_loss"].detach(),
-                "real_recon_loss": out["real_recon_loss"].detach()}
+        return dict(zip(("loss", "vq_loss", "recon_loss", "real_recon_loss"),
+                        (m.detach() for m in metrics)))
 
     return train_step
 
@@ -60,21 +85,27 @@ def eval_step_vqvae(model: nn.Module, images: torch.Tensor) -> Tuple[torch.Tenso
 
 
 def extract_code_indices(model: nn.Module, images: np.ndarray, batch_size: int = 256,
-                         device="cuda") -> np.ndarray:
+                         device="cuda", data_parallel: int = 1) -> np.ndarray:
     """(N, h, w) int32 code grids of raw [0, 1] images (N, H, W, C) for
     stage-2 training, the remainder batch included.
 
     Runs on the card unless ``device="cpu"`` is passed; the model is moved
     there and runs in eval mode (each row is independent, so the JAX
-    loop's zero padding of the remainder batch changes nothing).
+    loop's zero padding of the remainder batch changes nothing). With
+    ``data_parallel > 1`` rank 0 computes the codes and broadcasts them,
+    so that every rank trains stage 2 on the same grids.
     """
-    dev = resolve_device(device)
-    model.to(dev)
-    chunks = []
-    for i in range(0, images.shape[0], batch_size):
-        batch = torch.as_tensor(images[i:i + batch_size], dtype=torch.float32).to(dev)
-        chunks.append(model.encode_indices(batch - 0.5).cpu().numpy())
-    return np.concatenate(chunks, axis=0).astype(np.int32)
+    mesh = parallel.make_mesh(data_parallel, device=device) if data_parallel > 1 else None
+    codes = None
+    if mesh is None or mesh.rank == 0:
+        dev = mesh.device if mesh else resolve_device(device)
+        model.to(dev)
+        chunks = []
+        for i in range(0, images.shape[0], batch_size):
+            batch = torch.as_tensor(images[i:i + batch_size], dtype=torch.float32).to(dev)
+            chunks.append(model.encode_indices(batch - 0.5).cpu().numpy())
+        codes = np.concatenate(chunks, axis=0).astype(np.int32)
+    return codes if mesh is None else parallel.broadcast_object(codes, mesh)
 
 
 def train_vqvae(
@@ -98,15 +129,27 @@ def train_vqvae(
     Runs on the card unless ``device="cpu"`` is passed. The images stay on
     the device, each batch is gathered there and shifted by -0.5; the
     epoch's order is ``np.random.RandomState(seed * 100003 + epoch)``'s
-    shuffle, as in the JAX loop, and the remainder is dropped.
-    ``epoch_callback(epoch, state)`` runs after each epoch. One card only:
-    ``data_parallel > 1`` raises.
+    shuffle, as in the JAX loop (its ``batch_iterator``), and the
+    remainder is dropped. ``epoch_callback(epoch, state)`` runs after each
+    epoch, on every rank that passes one.
+
+    ``data_parallel > 1``: this process is one of that many ranks
+    (``parallel.launch`` or ``torchrun``); the model is replicated from
+    rank 0 and synced (``parallel.sync_batchnorm``), and each step is
+    :func:`make_train_step_vqvae_dp` on the global batch. ``batch_size``
+    must divide by ``data_parallel``.
     """
     if data_parallel > 1:
-        raise NotImplementedError("stage-1 data parallel is not ported; train on one card")
-    dev = resolve_device(device)
+        if batch_size % data_parallel:
+            raise ValueError("batch_size must divide by data_parallel")
+        mesh = parallel.make_mesh(data_parallel, device=device)
+        dev = mesh.device
+        parallel.replicate(parallel.sync_batchnorm(model.to(dev), mesh), mesh)
+        step_fn = make_train_step_vqvae_dp(data_variance, mesh)
+    else:
+        dev = resolve_device(device)
+        step_fn = make_train_step_vqvae(data_variance)
     state = create_train_state(model.to(dev), learning_rate, weight_decay)
-    step_fn = make_train_step_vqvae(data_variance)
     data = torch.as_tensor(images, dtype=torch.float32).to(dev)
     n = data.shape[0]
     steps_per_epoch = n // batch_size

@@ -7,8 +7,18 @@ per-sample loss (reweighted ELBO by default), backpropagates through
 time and applies AdamW; the forward moves the BN running statistics.
 On the card the denoiser's LIF layers run K1 forward and backward
 ('auto'), its BN-apply + LIF blocks run K3 ('bnlif'), or its convs also
-run K4 ('bnlifconv'); a bf16 denoiser trains the same way. Single device;
-randomness from an explicit ``torch.Generator`` on the run's device.
+run K4 ('bnlifconv'); a bf16 denoiser trains the same way. Randomness
+comes from an explicit ``torch.Generator`` on the run's device.
+
+Data parallel (``make_train_step_diffusion_dp``, ``train_diffusion(
+data_parallel=n)``; JAX ``train/stage2.py:60-125``, ``:160-187``): one
+process per rank (``parallel``), each with a full replica. The corruption
+is drawn on the global batch from a generator seeded alike on every rank,
+as JAX draws it outside its ``shard_map``, then sliced; each rank runs its
+rows with SyncBN on every branch (its kernels on its shard), and the loss
+and the gradients are averaged over the ranks before AdamW: the
+single-device step on the global batch, draw for draw, up to the order of
+its sums.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from spiking_diffusion_tpu_torch import parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.device import resolve_device
 from spiking_diffusion_tpu_torch.models import diffusion
@@ -35,15 +46,36 @@ def make_train_step_diffusion(cfg: DiffusionConfig) -> TrainStep:
     drawn ``(x_t, t, pt, x_0_ignore)`` is given. The gradients stay in the
     parameters' ``.grad`` until the next step.
     """
+    return _make_step(cfg, None)
 
+
+def make_train_step_diffusion_dp(cfg: DiffusionConfig, mesh: parallel.Mesh) -> TrainStep:
+    """:func:`make_train_step_diffusion` over ``mesh``'s ranks: each rank
+    passes the same global batch and the same generator state (or the
+    same drawn corruption of the global batch), runs its rows, and the
+    loss and the gradients are averaged over the ranks. The denoiser must
+    be a replica (``parallel.replicate``) with its BN synced
+    (``parallel.sync_batchnorm``)."""
+    return _make_step(cfg, mesh)
+
+
+def _make_step(cfg: DiffusionConfig, mesh: Optional[parallel.Mesh]) -> TrainStep:
     def train_step(state: TrainState, x0: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
                    corruption: Optional[diffusion.Corruption] = None):
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        if mesh is not None:
+            if corruption is None:
+                if generator is None:
+                    raise ValueError("pass a torch.Generator or a drawn corruption")
+                corruption = diffusion.corrupt(x0, cfg, generator)
+            corruption = tuple(parallel.shard_batch(c, mesh) for c in corruption)
         loss = diffusion.train_loss(model, x0, cfg, generator, corruption)
         loss.backward()
+        if mesh is not None:
+            (loss,) = parallel.all_reduce_gradients(model.parameters(), mesh, loss)
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach()}
@@ -74,13 +106,27 @@ def train_diffusion(
     order is ``np.random.RandomState(seed * 7919 + epoch)``'s shuffle, as
     in the JAX loop, and the corruption comes from a ``torch.Generator``
     seeded with ``seed``. ``epoch_callback(epoch, state)`` runs after each
-    epoch. One card only: ``data_parallel > 1`` raises.
+    epoch, on every rank that passes one.
+
+    ``data_parallel > 1``: this process is one of that many ranks
+    (``parallel.launch`` or ``torchrun``); the denoiser is replicated from
+    rank 0 and its BN synced (a denoiser synced over another process
+    group raises ``ValueError``), and each step is
+    :func:`make_train_step_diffusion_dp` on the global batch, the
+    generator seeded alike on every rank. ``batch_size`` must divide by
+    ``data_parallel``.
     """
     if data_parallel > 1:
-        raise NotImplementedError("stage-2 data parallel is not ported; train on one card")
-    dev = resolve_device(device)
+        if batch_size % data_parallel:
+            raise ValueError("batch_size must divide by data_parallel")
+        mesh = parallel.make_mesh(data_parallel, device=device)
+        dev = mesh.device
+        parallel.replicate(parallel.sync_batchnorm(denoiser.to(dev), mesh), mesh)
+        step_fn = make_train_step_diffusion_dp(cfg, mesh)
+    else:
+        dev = resolve_device(device)
+        step_fn = make_train_step_diffusion(cfg)
     state = create_train_state(denoiser.to(dev), learning_rate, weight_decay)
-    step_fn = make_train_step_diffusion(cfg)
     generator = torch.Generator(device=dev).manual_seed(seed)
     data = torch.as_tensor(indices, dtype=torch.int32).to(dev)
     n = data.shape[0]

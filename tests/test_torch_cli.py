@@ -3,8 +3,10 @@
 * The parser: every flag of ``spiking_diffusion_tpu.cli.parse_args`` with
   the same option strings, default, choices, type and action, and no
   other flag.
-* The choice the port does not run raises: ``--data_parallel`` above 1
-  on every model.
+* ``--data_parallel 2``: a tiny two-stage run over two ranks (the CLI
+  spawns them; gloo on the CPU) writes the artifact tree of the same run
+  on one process; ``--model snn-vae --data_parallel 2`` trains on one
+  device, as the JAX CLI's does, and says so.
 * A tiny ``--model vq-vae`` run (the ANN VQ-VAE, the flags of
   ``tests/test_cli_variants.py``) writes the two-stage artifact tree and
   prints the ``--syops`` report the JAX CLI prints for that model (no
@@ -26,13 +28,15 @@
   same loop run with the JAX package's ``SNNVQVAE`` and ``metrics.ssim``
   on the orbax tree, within 1e-5.
 * ``train_diffusion``'s ``epoch_callback`` runs once per epoch with the
-  state; ``data_parallel > 1`` raises.
+  state.
 """
 
 import argparse
 import functools
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -74,6 +78,7 @@ CKPT_FLAGS = ["--sample_steps", "1", "--sample_batches", "1", "--temperatures", 
 # the JAX CLI's artifact tree of a two-stage run, the orbax directories as .pt files
 RESULT_TREE = ["diff_result/diff_model.pt", "diff_result/epoch=0_test.png", "epoch=0_test.png",
                "model.pt"]
+DP_RUN_TIMEOUT_S = 300
 
 
 def _actions(parser: argparse.ArgumentParser):
@@ -121,16 +126,6 @@ def test_parser_flag_equals_jax(dest):
     assert ours.type == theirs.type
     assert type(ours) is type(theirs)
     assert vars(cli.parse_args([]))[dest] == vars(jax_cli.parse_args([]))[dest]
-
-
-@pytest.mark.parametrize("flags,error", [
-    (["--model", "snn-vae", "--data_parallel", "2"], NotImplementedError),
-    (["--model", "vq-vae", "--data_parallel", "2"], NotImplementedError),
-    (["--data_parallel", "2"], NotImplementedError),
-])
-def test_refusals_raise(tmp_path, flags, error):
-    with pytest.raises(error):
-        cli.main(flags + _dirs(tmp_path), device="cpu")
 
 
 def _tree(root):
@@ -252,6 +247,44 @@ def test_tiny_snn_vae_run_and_its_checkpoint(tmp_path, capsys):
     assert "loaded stage-1 checkpoint" in capsys.readouterr().out
 
 
+def test_tiny_data_parallel_run_writes_the_single_process_tree(tmp_path, monkeypatch):
+    """``--data_parallel 2`` from a process that is no rank: the CLI spawns
+    two ranks (``tests/torch_cli_dp.py`` narrows the denoiser in them as
+    this test does in its own process), trains both stages over them with
+    SyncBN, and rank 0 writes the tree the single-process run writes."""
+    single, dp = tmp_path / "single", tmp_path / "dp"
+    monkeypatch.setattr(cli, "DiffusionConfig",
+                        functools.partial(DiffusionConfig, denoiser_channels=TINY_CHANNELS))
+    cli.main(TINY_FLAGS + _dirs(single), device="cpu")
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE")}
+    env["PYTHONPATH"] = REPO
+    run = subprocess.run([sys.executable, os.path.join(REPO, "tests", "torch_cli_dp.py"),
+                          *TINY_FLAGS, "--data_parallel", "2", *_dirs(dp)], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True, timeout=DP_RUN_TIMEOUT_S)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert "data parallel: 2 ranks, backend gloo (on the CPU)" in run.stdout
+    assert "denoiser backend: auto + SyncBN DP over 2 ranks (gloo)" in run.stdout
+    assert run.stdout.count("load data: MNIST!") == 1  # rank 1 prints nothing
+    out = json.loads(run.stdout.split("RESULT ", 1)[1])
+    for part in ("result", "sample"):
+        assert _tree(dp / part) == _tree(single / part)
+    assert _tree(dp / "result" / "MNIST" / "snn-vq-vae") == RESULT_TREE
+    assert np.isfinite(out["recon_mse"]) and set(out["metrics"]) == {
+        "0.5", "1.0", "null_FID", "feature_space"}
+
+
+def test_snn_vae_trains_on_one_device_under_data_parallel(tmp_path, capsys):
+    flags = ["--model", "snn-vae", "--data_parallel", "2", "--epochs", "1", "--num_steps", "2",
+             "--batch_size", "8", "--synthetic_train", "16", "--synthetic_test", "32",
+             "--ref_size", "32", "--frozen_metrics", "on"] + _dirs(tmp_path)
+    out = cli.main(flags, device="cpu")
+    assert not torch.distributed.is_initialized()
+    assert "--model snn-vae trains on one device (--data_parallel 2 not used)" in \
+        capsys.readouterr().out
+    assert _tree(tmp_path / "result" / "MNIST" / "snn-vae") == ["model.pt"]
+    assert out["n_samples"] == 40 * 8 and np.isfinite(out["FID"])
+
+
 def test_tiny_cifar10_run_writes_the_jax_artifact_tree(tmp_path, monkeypatch):
     """CIFAR10 at 3 input channels through both stages: the JAX CLI's tree,
     RGB PNGs, a 3-channel stage 1 and CIFAR10's frozen LeNet space."""
@@ -318,5 +351,3 @@ def test_train_diffusion_epoch_callback():
                                    device="cpu")
     assert [(e, s) for e, _, s in calls] == [(0, 2), (1, 4), (2, 6)]
     assert all(st is state for _, st, _ in calls)
-    with pytest.raises(NotImplementedError):
-        stage2.train_diffusion(den, cfg, codes, batch_size=8, data_parallel=2, device="cpu")

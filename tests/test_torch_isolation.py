@@ -8,6 +8,9 @@
   ``extract_code_indices``'s, the CLI's ``main``, the LeNet feature
   space's, the baselines' loaders, InceptionV3's, clean-fid's and the
   freeze's too): with no card they raise instead of running on the CPU.
+  So do ``parallel.make_mesh`` and ``parallel.launch``: a rank runs on
+  the card unless the CPU is named (the DP trainers and sampler on a rank:
+  tests/test_torch_parallel.py).
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -21,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from spiking_diffusion_tpu_torch import cli, generate
+from spiking_diffusion_tpu_torch import cli, generate, parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.metrics import cleanfid, features, frozen, inception
 from spiking_diffusion_tpu_torch.models import diffusion, weights
@@ -39,7 +42,8 @@ import chip_smoke
 for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage",
              "metrics.scores", "metrics.ssim", "utils.grids", "profiling.syops",
              "profiling.timing", "profiling.monitor", "models.ann_vqvae", "models.snn_vae",
-             "metrics.inception", "metrics.cleanfid", "data.extra_datasets"):
+             "metrics.inception", "metrics.cleanfid", "data.extra_datasets",
+             "parallel.mesh", "parallel.launch"):
     assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
@@ -104,6 +108,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
         stage1.train_vqvae(vq, images, 0.1, batch_size=2, log_fn=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage1.extract_code_indices(vq, images)
+
+
+def _rank_of_cuda_world():
+    """A rank of ``parallel.launch``'s default device (never reached
+    without a card)."""
+    return parallel.make_mesh(2)
+
+
+def test_parallel_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # the spawned ranks' view too
+    for n in (None, 1):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parallel.make_mesh(n)
+    with pytest.raises(Exception, match="no CUDA device"):
+        parallel.launch(_rank_of_cuda_world, 2)
 
 
 def test_cli_and_metrics_default_to_cuda(monkeypatch, tmp_path):

@@ -491,8 +491,6 @@ def test_train_vqvae_follows_jax_order_and_lowers_the_loss(problem, monkeypatch)
     assert len(losses) == 4 and np.isfinite(losses).all()
     after = fixed_loss(state.model)
     assert np.isfinite(after) and after < before, (before, after)
-    with pytest.raises(NotImplementedError, match="data parallel"):
-        stage1.train_vqvae(vq, raw, var, data_parallel=2, device="cpu")
 
 
 def test_checkpoint_round_trip(problem, tmp_path):
