@@ -277,6 +277,27 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    (CUDA events) and, in one more step with each collective timed, the
    all-reduces' count, bytes and ms, labelled as two ranks sharing one
    card. Then a world of one rank on NCCL all-reduces once on the card.
+17. tensor_parallel: four ranks on the one card over gloo forming a 2 x 2
+   (data x model) mesh (``parallel.make_mesh_2d``), spawned at the start
+   of phase cli_datasets beside phase data_parallel's; each runs the
+   single-process references meanwhile. After data_parallel, at the
+   full-width flagship and a global batch of 64 (32 rows a data row: gloo
+   copies every gather of a block's spike train through the host), each
+   from a replica synced over the data group and sharded over the model
+   group (``parallel.shard_state_tp``: every conv's output channels, its
+   BN and neuron, the codebook's rows, AdamW's moments), with the launch
+   counts reset just before: 4 TP stage-1 steps (layerwise fp32, exactly
+   6 + 6 K1 a step on each rank's channels), 4 stage-2 steps on 'bnlif'
+   in fp32 and in bf16 (5 + 5 K3) and 4 on 'bnlifconv' in fp32 (6 + 6 K4
+   and 5 + 5 K3). The first TP step, its gradients, statistics and
+   parameters gathered whole, is held to the references' at phase
+   data_parallel's bounds (``hold_dp_run``; stage 1's spikes on the
+   rank's rows at most STAGE1_FLIP_SHARE differing); after each run every
+   tensor is bitwise equal over the data group and every replicated one
+   over the model group. ms per TP step (CUDA events) beside one
+   process's, and in one more step with each collective timed the
+   collectives' count, bytes and ms by group, labelled as four ranks
+   sharing one card: the process model's cost, not scaling.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -3477,23 +3498,23 @@ def dp_timing(what, mesh, dp, timed, card) -> dict:
                       for r in ranks]}
 
 
-def stage1_setting(mesh, inp) -> tuple:
+def stage1_setting(inp, batch: int = DP_BATCH) -> tuple:
     vcfg = VQVAEConfig()
     images, var, sd = inp["stage1"]
-    return (vcfg, var, sd, stage1_batches(images, DP_BATCH))
+    return (vcfg, var, sd, stage1_batches(images, batch))
 
 
-def stage2_setting(mesh, inp) -> tuple:
+def stage2_setting(mesh, inp, batch: int = DP_BATCH) -> tuple:
     dcfg = DiffusionConfig()
     variables = weights.init_denoiser_variables(dcfg, torch.Generator().manual_seed(3))
     return (dcfg, variables) + train_batches(
-        dcfg, torch.from_numpy(inp["codes"]).to(mesh.device), DP_BATCH)
+        dcfg, torch.from_numpy(inp["codes"]).to(mesh.device), batch)
 
 
 def single_stage1(mesh, inp) -> dict:
     """Stage 1's TRAIN_STEPS steps in one process on the global batch
     (``stepwise``), the first step's spikes cut to this rank's rows."""
-    vcfg, var, sd, batches = stage1_setting(mesh, inp)
+    vcfg, var, sd, batches = stage1_setting(inp)
     single = stepwise(create_train_state(stage1_model(vcfg, sd, "auto", mesh.device)),
                       stage1.make_train_step_vqvae(var), batches, spikes=True)
     single["spikes"] = [rank_rows(x, mesh).clone() for x in single["spikes"]]
@@ -3534,7 +3555,7 @@ def rank_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 def dp_stage1(mesh, inp, single, card) -> dict:
     """Stage 1, layerwise (K1), fp32, TRAIN_STEPS steps at DP_BATCH over the
     ranks against the same steps in one process on this rank (``single``)."""
-    vcfg, var, sd, batches = stage1_setting(mesh, inp)
+    vcfg, var, sd, batches = stage1_setting(inp)
     state = create_train_state(parallel.replicate(parallel.sync_batchnorm(
         stage1_model(vcfg, sd, "auto", mesh.device), mesh), mesh))
     step = stage1.make_train_step_vqvae_dp(var, mesh)
@@ -3748,38 +3769,268 @@ def nccl_probe(card: str) -> dict:
     return {"backend": "nccl", "first_all_reduce_ms": ms}
 
 
-class DataParallelRun:
-    """Phase data_parallel's two ranks on the card over gloo
-    (``parallel.launch`` in a thread of this process), started before
-    phase cli_datasets: they start up and run their single-process
-    references meanwhile, and run the DP steps, the DP sampler and the
-    CLI after ``finish``'s cue. ``close`` stops ranks that never had it."""
+class RanksRun:
+    """A phase's ranks on the card over gloo (``fn`` through ``parallel.launch``
+    in a thread of this process), started at the start of phase
+    cli_datasets: they start up and run their single-process references
+    meanwhile, and run the phase after ``finish``'s cue. ``close`` stops
+    ranks that never had it."""
 
-    def __init__(self, codes: np.ndarray, cli_tree: list, card: str):
-        images, var, sd = stage1_setup(VQVAEConfig())
+    def __init__(self, fn, ranks: int, inp: dict):
         ctx = multiprocessing.get_context("spawn")
         self.go, self.abort = ctx.Event(), ctx.Event()
-        self.root = tempfile.TemporaryDirectory()
-        inp = {"stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
-               "cli_root": self.root.name, "cli_tree": cli_tree, "card": card,
-               "launched": time.time(), "go": self.go, "abort": self.abort}
+        inp = {**inp, "launched": time.time(), "go": self.go, "abort": self.abort}
         self.pool = ThreadPoolExecutor(1)
-        self.ranks = self.pool.submit(parallel.launch, dp_rank, DP_RANKS, args=(inp,),
-                                      device="cuda")
+        self.ranks = self.pool.submit(parallel.launch, fn, ranks, args=(inp,), device="cuda")
 
-    def finish(self, card: str) -> dict:
-        """Cue the ranks; their result and the NCCL probe's."""
+    def finish(self) -> dict:
+        """Cue the ranks; rank 0's result."""
         self.go.set()
         out = self.ranks.result()
         check(out["backend"] == "gloo", f"ranks sharing the card on {out['backend']}")
-        return {**out, "nccl": nccl_probe(card)}
+        return out
 
     def close(self) -> None:
         if not self.go.is_set():
             self.abort.set()
             self.go.set()
         self.pool.shutdown(wait=True)
+
+
+class DataParallelRun(RanksRun):
+    """Phase data_parallel's two ranks (``dp_rank``)."""
+
+    def __init__(self, stage1_inputs: tuple, codes: np.ndarray, cli_tree: list, card: str):
+        self.root = tempfile.TemporaryDirectory()
+        images, var, sd = stage1_inputs
+        super().__init__(dp_rank, DP_RANKS, {
+            "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
+            "cli_root": self.root.name, "cli_tree": cli_tree, "card": card})
+
+    def finish(self, card: str) -> dict:
+        """Cue the ranks; their result and the NCCL probe's."""
+        return {**super().finish(), "nccl": nccl_probe(card)}
+
+    def close(self) -> None:
+        super().close()
         self.root.cleanup()
+
+
+# --- phase 17: tensor parallel, a 2 x 2 mesh of four ranks sharing the card ------
+
+TP_MESH = (2, 2)  # data x model; one card: the ranks share it over gloo
+TP_RANKS = TP_MESH[0] * TP_MESH[1]
+# the global batch of the TP steps, 32 rows a data row: full width, a
+# smaller batch, since gloo copies every gather and gradient sum of a
+# block's spike train through the host
+TP_BATCH = 64
+# the runs: (branch, dtype, what they launch per step)
+TP_RUNS = {"stage1": ("auto", None, STAGE1_STEP_LAUNCHES["layerwise"]),
+           "bnlif_fp32": ("bnlif", None, STEP_LAUNCHES["bnlif"]),
+           "bnlif_bf16": ("bnlif", torch.bfloat16, STEP_LAUNCHES["bnlif"]),
+           "bnlifconv_fp32": ("bnlifconv", None, STEP_LAUNCHES["bnlifconv"])}
+TP_NAMES = {"stage1": "stage 1, layerwise fp32", "bnlif_fp32": "stage 2, 'bnlif' fp32",
+            "bnlif_bf16": "stage 2, 'bnlif' bf16", "bnlifconv_fp32": "stage 2, 'bnlifconv' fp32"}
+# The TP step is the single-process step on the global batch up to the
+# order of its sums: a sharded conv's input gradient is the sum of the
+# model ranks' partial products, a BN moment the mean of the data rows'
+# means, a gradient the mean of their sums; cuDNN may also take another
+# algorithm for a conv of half the output channels. The first TP step is
+# held at the DP bounds of phase data_parallel (hold_dp_run).
+
+
+def tp_single(mesh, inp, name: str) -> dict:
+    """The run ``name``'s TRAIN_STEPS steps in one process on the global
+    batch (``stepwise``); stage 1's first-step spikes cut to this rank's
+    data row."""
+    backend, dtype, _ = TP_RUNS[name]
+    if name == "stage1":
+        vcfg, var, sd, batches = stage1_setting(inp, TP_BATCH)
+        single = stepwise(create_train_state(stage1_model(vcfg, sd, backend, mesh.device)),
+                          stage1.make_train_step_vqvae(var), batches, spikes=True)
+        single["spikes"] = [rank_rows(x, mesh.data).clone() for x in single["spikes"]]
+        return single
+    dcfg, variables, batches, corruptions = stage2_setting(mesh, inp, TP_BATCH)
+    return stepwise(train_state(variables, dcfg, backend, mesh.device, dtype),
+                    stage2.make_train_step_diffusion(dcfg), batches, corruptions)
+
+
+def tp_state(model, mesh):
+    """A train state of ``model`` replicated over the world, synced over the
+    data group and sharded over the model group."""
+    model = parallel.replicate(parallel.sync_batchnorm(model, mesh.data), mesh.world)
+    return parallel.shard_state_tp(create_train_state(model), mesh)
+
+
+def timed_tp_step(mesh, step) -> tuple:
+    """One more TP step with every collective timed (the card synchronised
+    around each): (its host ms; then for the model group and the data
+    group: the collectives' ms, count and bytes)."""
+    groups = (mesh.model.stats, mesh.data.stats)
+    before = [(g.seconds, g.calls, g.bytes) for g in groups]
+    for g in groups:
+        g.timed = True
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out = [(time.perf_counter() - t0) * 1e3]
+    finally:
+        for g in groups:
+            g.timed = False
+    for g, (seconds, calls, nbytes) in zip(groups, before):
+        out += [(g.seconds - seconds) * 1e3, g.calls - calls, g.bytes - nbytes]
+    return tuple(out)
+
+
+def tp_timing(what, mesh, run, single_ms, timed, card) -> dict:
+    """Rank 0 logs each rank's ms per TP step beside its single process's
+    (``single_ms``) and the collectives of one more TP step by group."""
+    ranks = rank_values([statistics.median(run["ms"]), single_ms] + list(timed), mesh.world)
+    for r, (ms, one, step_ms, m_ms, m_calls, m_bytes, d_ms, d_calls, d_bytes) in enumerate(ranks):
+        log(f"  {what}, rank {r}: {ms:.2f} ms per TP step (one process on the card at the "
+            f"global batch: {one:.2f}; medians of steps 2-{TRAIN_STEPS}, CUDA events); a "
+            f"timed TP step {step_ms:.2f} ms (host clock): model group "
+            f"{int(m_calls)} collectives of {m_bytes / 2**20:.2f} MiB in {m_ms:.2f} ms, data "
+            f"group {int(d_calls)} of {d_bytes / 2**20:.2f} MiB in {d_ms:.2f} ms [{TP_RANKS} "
+            f"ranks sharing one card over gloo: the process model's cost, not scaling; {card}]")
+    keys = ("ms", "single_ms", "timed_step_ms", "model_ms", "model_collectives",
+            "model_bytes", "data_ms", "data_collectives", "data_bytes")
+    return {"ranks": [dict(zip(keys, r)) for r in ranks]}
+
+
+def unshard_run(run: dict, state, mesh) -> None:
+    """A ``stepwise`` run of a sharded state with its first step's record
+    and parameters whole (a collective over the model group)."""
+    plan = state.model.tp_plan
+    loss, grads, stats = run["record"]
+    run["record"] = (loss, parallel.unshard_tensors(grads, plan, mesh),
+                     parallel.unshard_tensors(stats, plan, mesh))
+    run["params"] = parallel.unshard_tensors(run["params"], plan, mesh)
+
+
+def hold_tp_rank(what, mesh, run, state, launches) -> None:
+    """This rank's exact launches over the TP run, and the replicas bitwise
+    equal after it: every tensor over the data group, every replicated
+    one over the model group (collectives: every rank calls it)."""
+    check(run["counts"] == tuple(k * len(run["losses"]) for k in launches),
+          f"{what}: rank {mesh.world.rank} launches {run['counts']}")
+    check(parallel.replicas_equal_tp(state.model, mesh), f"{what}: replicas differ")
+    log(f"  {what}: launches exact, every tensor bitwise equal over the data group and every "
+        f"replicated one over the model group after {len(run['losses'])} steps")
+
+
+def tp_run(mesh, inp, name: str, single: dict, card: str) -> dict:
+    """The run ``name``: TRAIN_STEPS steps at TP_BATCH over the mesh, its
+    first step, unsharded, against the same steps in one process on this
+    rank (``single``); exact launches on each rank, replicas bitwise equal
+    over the data group and replicated tensors over the model group."""
+    backend, dtype, launches = TP_RUNS[name]
+    what = TP_NAMES[name]
+    if name == "stage1":
+        vcfg, var, sd, batches = stage1_setting(inp, TP_BATCH)
+        state = tp_state(stage1_model(vcfg, sd, backend, mesh.device), mesh)
+        step = stage1.make_train_step_vqvae_tp(var, mesh)
+        run = stepwise(state, step, batches, spikes=True)
+        bounds = (STAGE1_CPU_LOSS_ATOL, STATS_TOL, STAGE1_CPU_GRAD_TOL)
+        again = lambda: step(state, batches[0])  # noqa: E731
+    else:
+        dcfg, variables, batches, corruptions = stage2_setting(mesh, inp, TP_BATCH)
+        state = tp_state(weights.load_denoiser(*variables, dcfg, device=mesh.device,
+                                               lif_backend=backend, train=True, dtype=dtype),
+                         mesh)
+        step = stage2.make_train_step_diffusion_tp(dcfg, mesh)
+        run = stepwise(state, step, batches, corruptions)
+        bounds = (CONV_LOSS_ATOL, CONV_STATS_TOL,
+                  GRAD_TOL if dtype is None else DP_BF16_GRAD_TOL)
+        again = lambda: step(state, batches[0], corruption=corruptions[0])  # noqa: E731
+    unshard_run(run, state, mesh)
+    row = {}
+    if name == "stage1":
+        pairs = list(zip(single.pop("spikes"), run.pop("spikes")))
+        differ = sum(int((a != b.reshape(a.shape)).sum()) for a, b in pairs)
+        total = sum(a.numel() for a, _ in pairs)
+        del pairs
+        row["spike_flips"] = rank_values([differ, total], mesh.world)
+        log(f"  {what}: the first step's spikes differing from the single process's on the "
+            "rank's rows: " + ", ".join(f"rank {r} {int(d)} of {int(n)}"
+                                       for r, (d, n) in enumerate(row["spike_flips"])))
+        check(differ <= STAGE1_FLIP_SHARE * total, f"{what}: {differ} of {total} spikes differ")
+    hold_tp_rank(what, mesh, run, state, launches)
+    row.update(hold_dp_run(what, single, run, state_lr(state), *bounds))
+    timed = timed_tp_step(mesh, again)
+    return {**row, "launches": rank_values(run["counts"], mesh.world),
+            **tp_timing(f"{what} at {TP_BATCH}", mesh, run, statistics.median(single["ms"]),
+                        timed, card)}
+
+
+def tp_rank(inp: dict) -> dict:
+    """One rank of phase tensor_parallel (``parallel.launch`` runs it on each
+    rank); rank 0's return is the phase's. The rank first runs the
+    single-process references (no launch counted, nothing printed), then
+    waits for ``inp["go"]``: the main process sets it after phase
+    data_parallel, or with ``inp["abort"]`` to stop. Only rank 0 prints."""
+    pin_arithmetic()
+    mesh = parallel.make_mesh_2d(*TP_MESH)
+    seconds = {"start": time.time() - inp["launched"]}
+    t0 = time.perf_counter()
+    single = {name: tp_single(mesh, inp, name) for name in TP_RUNS}
+    torch.cuda.empty_cache()
+    seconds["references"] = time.perf_counter() - t0
+    inp["go"].wait()
+    if inp["abort"].is_set():
+        return {}
+    quiet = open(os.devnull, "w") if mesh.world.rank else None
+    with contextlib.redirect_stdout(quiet) if quiet else contextlib.nullcontext():
+        try:
+            out = {"backend": mesh.world.backend}
+            log(f"  a {TP_MESH[0]} x {TP_MESH[1]} (data x model) mesh, {TP_RANKS} ranks over "
+                f"{mesh.world.backend}, a global batch of {TP_BATCH}: "
+                + ", ".join(f"{n} {d}" for n, d in state_plan_summary().items()))
+            for name in TP_RUNS:
+                t0 = time.perf_counter()
+                out[name] = tp_run(mesh, inp, name, single.pop(name), inp["card"])
+                torch.cuda.empty_cache()
+                seconds[name] = time.perf_counter() - t0
+            log(f"  rank 0: running {seconds['start']:.1f} s after the launch, the "
+                f"references {seconds['references']:.1f} s (during phases cli_datasets and "
+                "data_parallel); after the cue " + ", ".join(
+                    f"{k} {v:.1f} s" for k, v in seconds.items()
+                    if k not in ("start", "references")))
+        finally:
+            if quiet:
+                quiet.close()
+    return {**out, "seconds": seconds}
+
+
+def state_plan_summary() -> dict:
+    """Sharded and replicated tensors of each model's plan at the mesh's tp."""
+    out = {}
+    for name, model in (("VQ-VAE", SNNVQVAE(VQVAEConfig())),
+                        ("denoiser", SpikingDenoiser(DiffusionConfig()))):
+        plan = parallel.shard_plan(model, TP_MESH[1])
+        whole = [n for n, d in plan.items() if d is None]
+        out[name] = (f"{len(plan) - len(whole)} of {len(plan)} tensors sharded"
+                     + (f" ({', '.join(whole)} whole)" if whole else ""))
+    return out
+
+
+def tp_launches(tp: dict, idx: int) -> dict:
+    """A kernel's launches (index ``idx`` of ``launch_counts()``) on each
+    rank in each run of phase tensor_parallel that launched it."""
+    return {run: [int(r[idx]) for r in tp[run]["launches"]] for run in TP_RUNS
+            if any(r[idx] for r in tp[run]["launches"])}
+
+
+class TensorParallelRun(RanksRun):
+    """Phase tensor_parallel's four ranks (``tp_rank``)."""
+
+    def __init__(self, stage1_inputs: tuple, codes: np.ndarray, card: str):
+        images, var, sd = stage1_inputs
+        super().__init__(tp_rank, TP_RANKS, {
+            "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
+            "card": card})
 
 
 def main() -> int:
@@ -3789,7 +4040,7 @@ def main() -> int:
     signal.signal(signal.SIGALRM, over_budget)
     signal.alarm(BUDGET_S)
     t_start = time.perf_counter()
-    dp_run = None
+    dp_run = tp_run = None
     try:
         with Phase("device"):
             smi = nvidia_smi()
@@ -3881,22 +4132,29 @@ def main() -> int:
             phase_metrics_extra(smi)
         with Phase("cli_datasets"):
             torch.cuda.empty_cache()
-            # phase data_parallel's ranks start up and run their references meanwhile
-            dp_run = DataParallelRun(dp_codes, cli_runs["train"]["tree"], smi)
+            # phases data_parallel's and tensor_parallel's ranks start up and run
+            # their references meanwhile
+            stage1_inputs = stage1_setup(VQVAEConfig())
+            dp_run = DataParallelRun(stage1_inputs, dp_codes, cli_runs["train"]["tree"], smi)
+            tp_run = TensorParallelRun(stage1_inputs, dp_codes, smi)
+            del stage1_inputs
             datasets = phase_cli_datasets(smi)
             dataset_runs = {"cifar10_train": datasets["train"], "cifar10_eval": datasets["eval"],
                             **{f"{n} eval": row for n, row in datasets["evals"].items()},
                             **{f"recon {n}": row for n, row in datasets["recon"].items()}}
         with Phase("data_parallel"):
             dp = dp_run.finish(smi)
+        with Phase("tensor_parallel"):
+            tp = tp_run.finish()
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
     finally:
         signal.alarm(0)
-        if dp_run is not None:
-            dp_run.close()
+        for ranks in (dp_run, tp_run):
+            if ranks is not None:
+                ranks.close()
     kernels = [{
         "name": "K1 lif_fwd", "route": "cuda",
         "source": "spiking_diffusion_tpu_torch/csrc/lif_fwd.cu",
@@ -3924,6 +4182,8 @@ def main() -> int:
         "launches_syops": profiled["launches"][0],
         # phase data_parallel, per rank: 6 a DP stage-1 step; the CLI run
         "launches_data_parallel": dp_launches(dp, 0),
+        # phase tensor_parallel, per rank: 6 a TP stage-1 step
+        "launches_tensor_parallel": tp_launches(tp, 0),
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -3937,6 +4197,7 @@ def main() -> int:
         "launches_snn_vae": launches_of(snn_runs, 1),
         "launches_cli_datasets": launches_of(dataset_runs, 1),
         "launches_data_parallel": dp_launches(dp, 1),
+        "launches_tensor_parallel": tp_launches(tp, 1),
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
@@ -3990,6 +4251,9 @@ def main() -> int:
             "launches_syops": profiled["launches"][idx],
             # phase data_parallel, per rank: 5 a DP stage-2 step; the CLI run
             "launches_data_parallel": dp_launches(dp, idx),
+            # phase tensor_parallel, per rank: 5 a TP stage-2 step on 'bnlif'
+            # (fp32 and bf16) and on 'bnlifconv'
+            "launches_tensor_parallel": tp_launches(tp, idx),
             "max_abs_err": max(k3["fp32"][f"{key}_err"], k3_s1["fp32"][f"{key}_err"]),
             # fp32 times of the 5 launches of one 'bnlif' training step at batch 256
             "ms": k3["fp32"][f"{key}_ms"], "plain_ms": k3["fp32"][f"{key}_plain_ms"],
@@ -4024,6 +4288,8 @@ def main() -> int:
             "launches_cli": cli_launch_counts(cli_runs, idx),
             "launches_cli_datasets": launches_of(dataset_runs, idx),
             "launches_generation": conv_gen["launches"][idx],
+            # phase tensor_parallel, per rank: 6 a TP 'bnlifconv' step
+            "launches_tensor_parallel": tp_launches(tp, idx),
             **({"generation_requests": conv_gen["requests"]} if key == "fwd" else {}),
             # fwd: the fp32 route (tensor cores for an x exact in bf16, bound
             # at three bf16 products per product) and the CUDA-core route's

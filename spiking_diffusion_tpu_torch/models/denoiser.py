@@ -34,6 +34,12 @@ on the stack in it, and the logits are cast to fp32.
 ``bn_axis_name``: the BN statistics are synced over it (SyncBN,
 ``parallel.sync_batchnorm``), and a data-parallel trainer refuses a mesh
 of another process group.
+
+Tensor parallel (``parallel.shard_state_tp``): each sharded conv computes
+this rank's output channels, its BN and neuron (K1, K3, K4's moments) run
+on them, and the block's spikes are gathered from every rank; the skip
+concatenation takes the gathered trains, and the readout's logits (sharded
+on K) are gathered after the firing-rate mean.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from spiking_diffusion_tpu_torch.config import DiffusionConfig
 from spiking_diffusion_tpu_torch.models.layers import LIF, SeqBatchNorm, SeqConv
 from spiking_diffusion_tpu_torch.ops.bn_lif import bn_lif
 from spiking_diffusion_tpu_torch.parallel.mesh import Mesh
+from spiking_diffusion_tpu_torch.parallel.tp import gather_channels
 from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.snn.encoding import direct_encode
 from spiking_diffusion_tpu_torch.snn.neuron import BACKENDS
@@ -122,9 +129,10 @@ class SpikingDenoiser(nn.Module):
                 if i == 0:
                     h = direct_encode(h, t_steps).reshape((-1,) + tuple(h.shape[1:]))
                 h = lif(h)
+            h = gather_channels(h, conv.model_mesh)
             feats.append(h)
         h = torch.cat([feats[-1], feats[0]], dim=1)
         h = self.readout(h, with_moments=False)[0] if self.fused_conv else self.readout(h)
         h = h.reshape((t_steps, -1) + tuple(h.shape[1:]))
         logits = (torch.sum(h, dim=0) / t_steps).float()  # (N, K, h, w)
-        return logits.permute(0, 2, 3, 1)
+        return gather_channels(logits, self.readout.model_mesh).permute(0, 2, 3, 1)

@@ -26,6 +26,7 @@ from torch import nn
 
 from spiking_diffusion_tpu_torch.ops.spike_conv import spike_conv3x3
 from spiking_diffusion_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
+from spiking_diffusion_tpu_torch.parallel.tp import copy_to_model
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams, lif_multi_step
 
 
@@ -39,6 +40,11 @@ class SeqConv(nn.Module):
     ``reference``) and returns ``(y, s1, s2)``, the per-channel BN moments
     of y, for ``SeqBatchNorm(moments=...)``; the parameters are the same
     under the same names, so a state dict serves either path.
+
+    Tensor parallel: with ``model_mesh`` (the model group, set by
+    ``parallel.shard_state_tp`` when it shards the weight's output
+    channels) the input enters through ``parallel.copy_to_model`` and the
+    conv computes this rank's channels.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
@@ -53,11 +59,13 @@ class SeqConv(nn.Module):
         self.dtype = dtype
         self.fused_train = fused_train
         self.reference = reference
+        self.model_mesh: Optional[Mesh] = None
         self.weight = nn.Parameter(
             torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor, with_moments: bool = True):
+        x = copy_to_model(x, self.model_mesh)
         if self.dtype is not None:
             x = x.to(self.dtype)
         if self.fused_train:
@@ -75,8 +83,10 @@ class SeqConvTranspose(nn.Module):
     Output size (H - 1) * stride - 2 * padding + kernel + output_padding.
     With ``dtype`` the input, weight and bias are cast to it and the bias
     is added to the rounded output, as flax's ``nn.ConvTranspose(dtype=)``
-    does.
+    does. Tensor parallel as ``SeqConv``, on the weight's dim 1.
     """
+
+    transposed = True  # the weight's layout, for parallel.shard_plan
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, output_padding: int = 0,
@@ -86,11 +96,13 @@ class SeqConvTranspose(nn.Module):
         self.padding = padding
         self.output_padding = output_padding
         self.dtype = dtype
+        self.model_mesh: Optional[Mesh] = None
         self.weight = nn.Parameter(
             torch.zeros(in_ch, out_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_model(x, self.model_mesh)
         if self.dtype is None:
             return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
                                       self.padding, self.output_padding)

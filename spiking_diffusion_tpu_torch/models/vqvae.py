@@ -44,7 +44,8 @@ from spiking_diffusion_tpu_torch.models.layers import (
     SeqConvTranspose,
 )
 from spiking_diffusion_tpu_torch.ops.bn_lif import bn_lif
-from spiking_diffusion_tpu_torch.parallel.mesh import all_reduce_mean
+from spiking_diffusion_tpu_torch.parallel.mesh import Mesh, all_reduce_mean
+from spiking_diffusion_tpu_torch.parallel.tp import gather_channels, gather_rows
 from spiking_diffusion_tpu_torch.profiling import syops
 from spiking_diffusion_tpu_torch.snn.encoding import direct_encode
 from spiking_diffusion_tpu_torch.snn.neuron import BACKENDS
@@ -62,11 +63,13 @@ def _lif_backend(backend: str) -> str:
 
 
 def bn_spikes(y: torch.Tensor, bn: SeqBatchNorm, lif: LIF, t_in: int,
-              backend: str) -> torch.Tensor:
+              backend: str, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """BN then LIF of a conv output (t_in*N, C, H, W) -> spikes (T*N, C, H,
     W); with t_in = 1 the normalised input is repeated over the T steps.
     On the fused branches K3 applies BN's affine inside the recurrence, and
-    a profile counting ``lif`` counts that neuron layer here."""
+    a profile counting ``lif`` counts that neuron layer here. Tensor
+    parallel (``mesh``, the conv's ``model_mesh``): y holds this rank's
+    channels, and the spikes of every rank's are returned."""
     t_steps = lif.num_steps
     if backend in BNLIF_BACKENDS:
         scale, shift = bn(y, return_affine=True)
@@ -74,11 +77,11 @@ def bn_spikes(y: torch.Tensor, bn: SeqBatchNorm, lif: LIF, t_in: int,
         s = bn_lif(y_seq, scale, shift, lif.params, t_out=t_steps,
                    reference=backend == "bnlif_torch")
         syops.record_fused(lif, s)
-        return s.reshape((-1,) + tuple(y.shape[1:]))
+        return gather_channels(s.reshape((-1,) + tuple(y.shape[1:])), mesh)
     h = bn(y)
     if t_in == 1:
         h = direct_encode(h, t_steps).reshape((-1,) + tuple(h.shape[1:]))
-    return lif(h)
+    return gather_channels(lif(h), mesh)
 
 
 @contextlib.contextmanager
@@ -117,7 +120,7 @@ class Encoder(nn.Module):
         h = image if self.dtype is None else image.to(self.dtype)
         t_in = 1
         for conv, bn, lif in zip(self.convs, self.bns, self.lifs):
-            h = bn_spikes(conv(h), bn, lif, t_in, self.backend)
+            h = bn_spikes(conv(h), bn, lif, t_in, self.backend, conv.model_mesh)
             t_in = lif.num_steps
         return h
 
@@ -131,13 +134,18 @@ class VectorQuantizer(nn.Module):
     Under data parallelism (``mesh``, set by ``parallel.sync_batchnorm``)
     the batch mean of the soft codebook usage of ``usage_loss_weight`` is
     averaged over the ranks before its log; the other terms are means
-    over equal shards, which the gradient all-reduce averages."""
+    over equal shards, which the gradient all-reduce averages. Tensor
+    parallel (``model_mesh``, set by ``parallel.shard_state_tp``): each
+    rank holds rows of the codebook, and the distances, the argmin and the
+    lookup run on the whole codebook gathered from every rank, so that the
+    codes are one process's."""
 
     def __init__(self, cfg: VQVAEConfig, lif_backend: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.backend = lif_backend
         self.mesh = None
+        self.model_mesh: Optional[Mesh] = None
         d = cfg.embedding_dim
         self.embeddings = nn.Parameter(torch.zeros(cfg.num_embeddings, d))
         self.alpha = nn.Parameter(torch.tensor(0.5))
@@ -156,25 +164,30 @@ class VectorQuantizer(nn.Module):
         memout = membrane_output(z, self.cfg.memout_decay)
         return (1.0 - self.alpha) * memout.float() + self.alpha * rate.float()
 
-    def _distances(self, flat_x: torch.Tensor) -> torch.Tensor:
-        e = self.embeddings
+    def codebook(self) -> torch.Tensor:
+        """The whole (K, D) codebook."""
+        return gather_rows(self.embeddings, self.model_mesh)
+
+    @staticmethod
+    def _distances(flat_x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         return (torch.sum(flat_x ** 2, dim=1, keepdim=True) + torch.sum(e ** 2, dim=1)
                 - 2.0 * (flat_x @ e.T))
 
-    def get_code_indices(self, flat_x: torch.Tensor) -> torch.Tensor:
+    def get_code_indices(self, flat_x: torch.Tensor,
+                         e: Optional[torch.Tensor] = None) -> torch.Tensor:
         """L2-nearest codebook entry of each row of (M, D); the first index
-        among ties."""
-        return torch.argmin(self._distances(flat_x), dim=1)
+        among ties. ``e``: the codebook, if the caller has it."""
+        return torch.argmin(self._distances(flat_x, self.codebook() if e is None else e), dim=1)
 
-    def quantize(self, indices: torch.Tensor) -> torch.Tensor:
+    def quantize(self, indices: torch.Tensor, e: Optional[torch.Tensor] = None) -> torch.Tensor:
         """indices (...,) -> codebook vectors (..., D)."""
-        return self.embeddings[indices]
+        return (self.codebook() if e is None else e)[indices]
 
     def respike(self, q: torch.Tensor) -> torch.Tensor:
         """Analog (N, D, h, w) -> spikes (T*N, D, h, w): Conv1x1 + BN once
         on the N rows, repeated over the T steps into the LIF (or K3)."""
         return bn_spikes(self.poisson_conv(q), self.poisson_bn, self.poisson_lif, 1,
-                         self.backend)
+                         self.backend, self.poisson_conv.model_mesh)
 
     def forward(self, z_seq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encoder spikes (T*N, D, h, w) -> (re-spiked quantized train, the
@@ -183,8 +196,9 @@ class VectorQuantizer(nn.Module):
         x_bar = self.readout(z_seq)  # (N, D, h, w)
         n, d, h, w = x_bar.shape
         flat = x_bar.permute(0, 2, 3, 1).reshape(-1, d)
-        indices = self.get_code_indices(flat)
-        quantized = self.quantize(indices).reshape(n, h, w, d).permute(0, 3, 1, 2)
+        e = self.codebook()
+        indices = self.get_code_indices(flat, e)
+        quantized = self.quantize(indices, e).reshape(n, h, w, d).permute(0, 3, 1, 2)
         if not self.training:
             return self.respike(quantized), indices
 
@@ -194,7 +208,7 @@ class VectorQuantizer(nn.Module):
         loss_1 = q_latent + c.commitment_cost * e_latent
         if c.usage_loss_weight > 0.0:
             # KL(soft codebook usage over the batch || uniform)
-            usage = torch.mean(torch.softmax(-self._distances(flat), dim=1), dim=0)
+            usage = torch.mean(torch.softmax(-self._distances(flat, e), dim=1), dim=0)
             usage = all_reduce_mean(usage, self.mesh)
             kl_uniform = torch.sum(
                 usage * (torch.log(usage + 1e-12) + math.log(c.num_embeddings)))
@@ -240,8 +254,9 @@ class Decoder(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         for deconv, bn, lif in zip(self.deconvs, self.bns, self.lifs):
-            x = bn_spikes(deconv(x), bn, lif, lif.num_steps, self.backend)
-        return self.deconvs[-1](x).float()
+            x = bn_spikes(deconv(x), bn, lif, lif.num_steps, self.backend, deconv.model_mesh)
+        last = self.deconvs[-1]
+        return gather_channels(last(x), last.model_mesh).float()
 
 
 class SNNVQVAE(nn.Module):

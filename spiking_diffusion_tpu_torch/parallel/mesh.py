@@ -227,32 +227,47 @@ def all_gather_rows(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _all_reduce(out, mesh)
 
 
+def first_rank(mesh: Mesh) -> int:
+    """The global rank of the group's first rank: ``torch.distributed``
+    reads a ``src`` as a global rank, also on a group without rank 0."""
+    return dist.get_global_rank(mesh.group, 0)
+
+
 def broadcast_object(obj, mesh: Mesh):
-    """Rank 0's ``obj`` (any picklable value) on every rank."""
+    """The group's first rank's ``obj`` (any picklable value) on every rank."""
     if mesh.world_size == 1:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group,
+    dist.broadcast_object_list(box, src=first_rank(mesh), group=mesh.group,
                                device=mesh.device if mesh.backend == "nccl" else None)
     return box[0]
 
 
 def replicate(module: nn.Module, mesh: Mesh) -> nn.Module:
-    """Broadcast ``module``'s parameters and buffers from rank 0, in place."""
+    """Broadcast ``module``'s parameters and buffers from the group's first
+    rank, in place."""
     if mesh.world_size > 1:
+        src = first_rank(mesh)
         with torch.no_grad():
             for t in list(module.parameters()) + list(module.buffers()):
-                dist.broadcast(t.data, src=0, group=mesh.group)
+                dist.broadcast(t.data, src=src, group=mesh.group)
     return module
 
 
-def replicas_equal(module: nn.Module, mesh: Mesh) -> bool:
-    """Whether every rank holds bitwise the same parameters and buffers."""
-    tensors = list(module.parameters()) + list(module.buffers())
+def tensors_equal(tensors: List[torch.Tensor], mesh: Mesh) -> bool:
+    """Whether every rank holds bitwise the same ``tensors`` (a collective:
+    every rank calls it)."""
+    if mesh.world_size == 1 or not tensors:
+        return True
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     high = _all_reduce(flat.clone(), mesh, dist.ReduceOp.MAX)
     low = _all_reduce(flat.clone(), mesh, dist.ReduceOp.MIN)
     return bool(torch.equal(high, low))
+
+
+def replicas_equal(module: nn.Module, mesh: Mesh) -> bool:
+    """Whether every rank holds bitwise the same parameters and buffers."""
+    return tensors_equal(list(module.parameters()) + list(module.buffers()), mesh)
 
 
 def sync_batchnorm(module: nn.Module, mesh: Mesh) -> nn.Module:

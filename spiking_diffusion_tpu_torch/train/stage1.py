@@ -22,6 +22,11 @@ runs this rank's rows with SyncBN (and the codebook-usage mean of
 ``snn-vq-vae-uni`` synced), and averages the loss and the gradients over
 the ranks before AdamW, so every rank takes the same update: the
 single-device step on the global batch, up to the order of its sums.
+
+Tensor parallel (``make_train_step_vqvae_tp``; JAX ``parallel/tp.py`` with
+``make_train_step_vqvae``): over a ``parallel.Mesh2D`` the model holds this
+rank's output channels (``parallel.shard_state_tp``) and gathers them
+itself; the step is the data-parallel step over the mesh's data group.
 """
 
 from __future__ import annotations
@@ -55,6 +60,19 @@ def make_train_step_vqvae_dp(data_variance: float, mesh: parallel.Mesh) -> Train
     (``parallel.replicate``) with its statistics synced
     (``parallel.sync_batchnorm``)."""
     return _make_step(data_variance, mesh)
+
+
+def make_train_step_vqvae_tp(data_variance: float, mesh: parallel.Mesh2D,
+                              device="cuda") -> TrainStep:
+    """:func:`make_train_step_vqvae` over ``mesh``'s (data x model) ranks:
+    each rank passes the same global batch and runs its data row's rows of
+    it on its channels; the metrics and the gradients are averaged over the
+    data group. The model must be a replica (``parallel.replicate`` over
+    ``mesh.world``) synced over ``mesh.data`` (``parallel.sync_batchnorm``)
+    in a state sharded by ``parallel.shard_state_tp``. Runs on the card
+    unless ``device="cpu"`` is passed (the mesh's device)."""
+    parallel.tp.check_device(mesh, device)
+    return _make_step(data_variance, mesh.data if mesh.dp > 1 else None)
 
 
 def _make_step(data_variance: float, mesh: Optional[parallel.Mesh]) -> TrainStep:

@@ -19,6 +19,13 @@ rows with SyncBN on every branch (its kernels on its shard), and the loss
 and the gradients are averaged over the ranks before AdamW: the
 single-device step on the global batch, draw for draw, up to the order of
 its sums.
+
+Tensor parallel (``make_train_step_diffusion_tp``; JAX ``parallel/tp.py``
+with ``make_train_step_diffusion``): over a ``parallel.Mesh2D`` the
+denoiser holds this rank's output channels (``parallel.shard_state_tp``),
+its logits sharded on K and gathered by the model; the corruption is drawn
+on the global batch and sliced by data row, and the step is the
+data-parallel step over the mesh's data group.
 """
 
 from __future__ import annotations
@@ -57,6 +64,20 @@ def make_train_step_diffusion_dp(cfg: DiffusionConfig, mesh: parallel.Mesh) -> T
     be a replica (``parallel.replicate``) with its BN synced
     (``parallel.sync_batchnorm``)."""
     return _make_step(cfg, mesh)
+
+
+def make_train_step_diffusion_tp(cfg: DiffusionConfig, mesh: parallel.Mesh2D,
+                                  device="cuda") -> TrainStep:
+    """:func:`make_train_step_diffusion` over ``mesh``'s (data x model)
+    ranks: each rank passes the same global batch and generator state (or
+    drawn corruption) and runs its data row's rows on its channels; the
+    loss and the gradients are averaged over the data group. The denoiser
+    must be a replica (``parallel.replicate`` over ``mesh.world``) with its
+    BN synced over ``mesh.data`` (``parallel.sync_batchnorm``) in a state
+    sharded by ``parallel.shard_state_tp``. Runs on the card unless
+    ``device="cpu"`` is passed (the mesh's device)."""
+    parallel.tp.check_device(mesh, device)
+    return _make_step(cfg, mesh.data if mesh.dp > 1 else None)
 
 
 def _make_step(cfg: DiffusionConfig, mesh: Optional[parallel.Mesh]) -> TrainStep:

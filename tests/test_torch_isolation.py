@@ -8,9 +8,10 @@
   ``extract_code_indices``'s, the CLI's ``main``, the LeNet feature
   space's, the baselines' loaders, InceptionV3's, clean-fid's and the
   freeze's too): with no card they raise instead of running on the CPU.
-  So do ``parallel.make_mesh`` and ``parallel.launch``: a rank runs on
-  the card unless the CPU is named (the DP trainers and sampler on a rank:
-  tests/test_torch_parallel.py).
+  So do ``parallel.make_mesh``, ``parallel.make_mesh_2d`` and
+  ``parallel.launch``: a rank runs on the card unless the CPU is named (the
+  DP trainers and sampler on a rank: tests/test_torch_parallel.py; the TP
+  step builders: tests/test_torch_tensor_parallel.py).
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -43,7 +44,7 @@ for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage
              "metrics.scores", "metrics.ssim", "utils.grids", "profiling.syops",
              "profiling.timing", "profiling.monitor", "models.ann_vqvae", "models.snn_vae",
              "metrics.inception", "metrics.cleanfid", "data.extra_datasets",
-             "parallel.mesh", "parallel.launch"):
+             "parallel.mesh", "parallel.launch", "parallel.tp"):
     assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
@@ -124,6 +125,19 @@ def test_parallel_defaults_to_cuda(monkeypatch):
             parallel.make_mesh(n)
     with pytest.raises(Exception, match="no CUDA device"):
         parallel.launch(_rank_of_cuda_world, 2)
+
+
+def test_tensor_parallel_defaults_to_cuda(monkeypatch):
+    """``make_mesh_2d`` without a device raises on a process with no card,
+    as ``make_mesh`` does (the TP step builders on a rank:
+    tests/test_torch_tensor_parallel.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh_2d(1, 1)
+    mesh = parallel.make_mesh_2d(1, 1, device="cpu")
+    assert (mesh.dp, mesh.tp, mesh.world.world_size, str(mesh.device)) == (1, 1, 1, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage2.make_train_step_diffusion_tp(DiffusionConfig(), mesh)
 
 
 def test_cli_and_metrics_default_to_cuda(monkeypatch, tmp_path):
