@@ -37,7 +37,16 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    per product) and bf16, over the int8 rate for int8, with the CUDA-core
    and bf16-rate bounds logged beside; one call split by kernel
    (``torch.profiler``, the weight packing included), the host's time per
-   call and per reverse step, and the peak memory of a call. K1 backward at the five LIF shapes of the
+   call and per reverse step, and the peak memory of a call. Then on the
+   e60 weights (``result_torch/MNIST/snn-vq-vae``) at batch 256, the int8
+   sampler with per-row scales and with each of JAX's options set through
+   its environment variable (``SD_INT8_SCALES=cout``,
+   ``SD_INT8_CLIP_PCT=99.9``, ``SD_INT8_LOGITS=bf16``) and each roofline
+   ablation (``SD_FUSED_ABLATE=nolif|noshift|matmul``): one K2 launch
+   through the sampler's entry point (``make_denoise_fn``) whose logits are
+   a direct call's, K2 against its plain version in the same mode (bitwise
+   but for the bf16 readout, held at the bf16 bound), ms per call and its
+   share of the per-row int8 call's. K1 backward at the five LIF shapes of the
    training step: bitwise with atan; with sigmoid within rtol 1e-5, atol
    1e-6 (``expf`` against PyTorch's exp); other neuron settings bitwise.
    K3 forward and backward at the five block shapes (block 0 with T_in =
@@ -83,7 +92,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    batch, valid codes and images; in int8 the same requests through K2's
    plain version give identical codes and equal images. The share of codes
    that agree with the layerwise fp32 run is reported, not bounded (BN
-   folding moves the logits by one fp32 rounding).
+   folding moves the logits by one fp32 rounding). Then request 0 with
+   JAX's ``SD_INT8_LOGITS=bf16`` set in the process: the variable reaches
+   the entry point (a bf16 readout), 49 K2 launches, valid codes and
+   images, and K2's plain version in the same mode gives the same codes.
 6. generation_bnlifconv: layerwise-sampler requests at batch 16 and 256
    through a 'bnlifconv' denoiser with the models' weights, in eval mode:
    exactly 6 K4-forward and 5 K3-forward launches per reverse step, no
@@ -242,7 +254,7 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    version at the eval's chunk of 512 (first step and t = 25, every
    dtype) and every K1 launch of the eval's decode, recon and remainder
    batch bitwise. Then the CLI eval of CIFAR10-BW, FMNIST, KMNIST and
-   Letters in this process, after every earlier phase, with the record's
+   Letters in the side lane's process, after its earlier phases, with the record's
    flags but a sweep of one 16-image batch: exact launches, frozen stats
    verified, the space's sha and the null FID within 1e-3 of the
    record's. The CLI's recon of all five on the card (exactly 6 K1
@@ -251,10 +263,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    CPU's side runs in HOST_WORKERS worker processes, a batch each, while
    the card runs the CLI.
 16. data_parallel: two ranks on the one card over gloo (NCCL refuses two
-   ranks on a GPU), spawned by ``parallel.launch`` at the start of phase
-   cli_datasets, each holding a replica. Meanwhile each rank runs the
+   ranks on a GPU), spawned by ``parallel.launch`` once phase
+   tensor_parallel's ranks have run their references, each holding a replica. Meanwhile each rank runs the
    same steps in one process on the global batch (``make_train_step_*``,
-   no mesh): the references. After cli_datasets, on each rank, with the
+   no mesh): the references. After the side lane's join, on each rank, with the
    launch counts reset just before: 4 fp32 stage-1 steps (layerwise, K1)
    at a global batch of 256, 128 a rank (exactly 6 + 6 K1 a step); 4
    stage-2 steps on 'bnlif' (K3) at 256 in fp32 and in bf16 (5 + 5 K3 a
@@ -278,9 +290,9 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    all-reduces' count, bytes and ms, labelled as two ranks sharing one
    card. Then a world of one rank on NCCL all-reduces once on the card.
 17. tensor_parallel: four ranks on the one card over gloo forming a 2 x 2
-   (data x model) mesh (``parallel.make_mesh_2d``), spawned at the start
-   of phase cli_datasets beside phase data_parallel's; each runs the
-   single-process references meanwhile. After data_parallel, at the
+   (data x model) mesh (``parallel.make_mesh_2d``), spawned after phase
+   kernels; each runs the single-process references once phase
+   train_stage1 has made the codes. After data_parallel, at the
    full-width flagship and a global batch of 64 (32 rows a data row: gloo
    copies every gather of a block's spike train through the host), each
    from a replica synced over the data group and sharded over the model
@@ -289,7 +301,13 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    counts reset just before: 4 TP stage-1 steps (layerwise fp32, exactly
    6 + 6 K1 a step on each rank's channels), 4 stage-2 steps on 'bnlif'
    in fp32 and in bf16 (5 + 5 K3) and 4 on 'bnlifconv' in fp32 (6 + 6 K4
-   and 5 + 5 K3). The first TP step, its gradients, statistics and
+   and 5 + 5 K3); and the baselines at full width with seeded weights: 4
+   stage-1 steps of the ANN VQ-VAE (its convs' output channels and its
+   codebook's rows sharded; no kernel, cuDNN) and 4 steps of the SNN-VAE
+   (``cli.make_train_step_snn_vae_tp``: its heads' and cells' Linears
+   column-parallel, exactly 7 + 7 K1 a step on each rank's features; every
+   rank draws the step's draws whole from one seeded generator). The first
+   TP step, its gradients, statistics and
    parameters gathered whole, is held to the references' at phase
    data_parallel's bounds (``hold_dp_run``; stage 1's spikes on the
    rank's rows at most STAGE1_FLIP_SHARE differing); after each run every
@@ -298,6 +316,20 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    process's, and in one more step with each collective timed the
    collectives' count, bytes and ms by group, labelled as four ranks
    sharing one card: the process model's cost, not scaling.
+
+Two lanes share the card and the host after phase kernels, so that the run
+keeps under five minutes: phases metrics_extra, cli_vq_vae and
+cli_datasets (which share no state with the rest) run in a spawned
+process of their own (``SideLane``), its log printed whole where the main
+sequence joins it (phase side_lane, after cli_snn_vae); the CPU's side of
+the datasets' recon runs from the lane's start in HOST_WORKERS worker
+processes at a lower priority. Phase tensor_parallel's ranks start with
+the side lane and run their references once phase train_stage1 has made
+the stage-2 codes; phase data_parallel's ranks start when those are done
+(the card then holds one set of references at a time; phase cli's
+artifact tree reaches them with their cue). The timings of phases
+generation to cli_snn_vae are therefore taken beside the side lane's
+work; phase kernels' are the card's alone.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -325,6 +357,7 @@ import time
 import traceback
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -382,6 +415,15 @@ K1_DECODE_LAUNCHES = 3
 K2_NEAR = 1e-4  # fp32/bf16: at least K2_NEAR_SHARE of logits within this
 K2_NEAR_SHARE = 0.99
 K2_MEDIAN = 1e-6
+# the int8 sampler's options (JAX's environment variables) and roofline
+# ablations, held and timed at batch 256 on the e60 weights
+K2_OPTIONS = {"int8 cout": {"SD_INT8_SCALES": "cout"},
+              "int8 clip 99.9": {"SD_INT8_CLIP_PCT": "99.9"},
+              "int8 bf16 logits": {"SD_INT8_LOGITS": "bf16"}}
+K2_ABLATIONS = ("nolif", "noshift", "matmul")
+K2_OPTION_ENV = ("SD_INT8_SCALES", "SD_INT8_CLIP_PCT", "SD_INT8_LOGITS", "SD_FUSED_ABLATE")
+E60 = "MNIST/snn-vq-vae"  # the export of the JAX package's result_r5_e60
+K2_OPTIONS_SEED = 21
 SPIN_CYCLES = 2_000_000  # ~1 ms of device time at the H100's clock
 LIF_LAUNCHES_PER_BATCH = 5 * 49 + 3  # 5 LIF layers x 49 steps + 3 in decode
 K1_REPLACES = "spiking_diffusion_tpu/ops/pallas_lif.py:129"
@@ -575,10 +617,12 @@ DATASET_RECORDS = {
 }
 DATASET_NULL_FID_ATOL = 1e-3
 # recon card against CPU over TRAINED_IMAGES test images of each dataset;
-# the CPU's side in worker processes, a batch each, beside the card (its 20
-# batches of ~8.5 s of CPU time take 3 rounds on 7 of the host's 8 cores, 5
-# on 4)
-HOST_WORKERS = 7
+# the CPU's side in worker processes, a batch each, started with the side
+# lane and at a lower priority than the card's processes (its 20 batches of
+# ~8.5 s of CPU time alone take 5 rounds on 4 workers): the host's 8 cores
+# also run the main sequence, the side lane and, later, the ranks
+HOST_WORKERS = 4
+HOST_NICE = 10
 HOST_WAIT_S = 300  # the longest wait for a worker's result
 # the other datasets' CLI evals in the smoke: the record's flags, but a
 # sweep of one batch (their full sweeps run through the CLI on their own)
@@ -799,10 +843,12 @@ def k2_inputs(den, dcfg, dtype, n, gen):
     return folded, fd.first_preactivation(tokens, t, folded.k1, folded.b1)
 
 
-def compare_k2(name, folded, a1, dcfg) -> float:
-    """K2 against its plain version on the same inputs; max |d logits|."""
-    out = fd.fused_denoise(a1, folded, dcfg)
-    ref = fd.fused_denoise_reference(a1, folded, dcfg)
+def compare_k2(name, folded, a1, dcfg, ablate: str = "") -> float:
+    """K2 against its plain version on the same inputs (``ablate``: both in
+    that roofline mode); max |d logits|. Bitwise where every weight is
+    int8, else at the bf16 and fp32 samplers' bound."""
+    out = fd.fused_denoise(a1, folded, dcfg, ablate)
+    ref = fd.fused_denoise_reference(a1, folded, dcfg, ablate)
     torch.cuda.synchronize()
     diff = (out - ref).abs()
     max_d, med = float(diff.max()), float(diff.median())
@@ -812,7 +858,7 @@ def compare_k2(name, folded, a1, dcfg) -> float:
         f"{float(ref.std()):.4f}")
     check(bool(torch.isfinite(out).all()), "K2 logits not finite")
     check(float(ref.std()) > 0.01, "constant reference logits")
-    if folded.dtype == torch.int8:
+    if all(w.dtype == torch.int8 for w in folded.weights):
         check(max_d == 0.0, "K2 int8 logits differ from the plain version")
     else:
         check(near >= K2_NEAR_SHARE,
@@ -832,6 +878,21 @@ def wall_ms(fn, reps: int = 5) -> float:
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def environment(values: dict):
+    """The process's environment with ``values`` set, restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def k2_split(den, dcfg, dtype, a1, folded, gen) -> dict:
@@ -921,6 +982,67 @@ def phase_k2(den, dcfg, gen: torch.Generator, flush: torch.Tensor, card: str) ->
             f"step's denoise function to its end {split['step_ms']:.3f} ms; peak memory of "
             f"a K2 call {split['peak_mib']:.1f} MiB")
     return rows
+
+
+def k2_option_arm(den, dcfg, name, env, tokens, t, flush, base_ms) -> dict:
+    """One int8 arm of phase k2 on the e60 weights: the sampler's entry
+    point (``make_denoise_fn``) built with ``env`` set runs K2 once on the
+    token map (the launch counted; its logits those of a direct call); K2
+    against its plain version in the same mode; its ms per call."""
+    ablate = env.get("SD_FUSED_ABLATE", "")
+    with environment(env):
+        fn = fd.make_denoise_fn(den, dcfg, fused=True, dtype=torch.int8)
+        fd.LAUNCHES = 0
+        logits = fn(tokens, t)
+        launches = fd.LAUNCHES
+        folded = fd.fold_denoiser_weights(den, torch.int8)
+    check(launches == 1, f"K2 {name}: {launches} launches through the sampler's entry point")
+    a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
+    direct = fd.fused_denoise(a1, folded, dcfg, ablate)
+    check(torch.equal(logits.reshape(direct.shape), direct),
+          f"K2 {name}: the entry point's logits are not the direct call's")
+    err = compare_k2(name, folded, a1, dcfg, ablate)
+    ms = cuda_ms(lambda: fd.fused_denoise(a1, folded, dcfg, ablate), flush, K2_TIMING_REPS)
+    row = {"launches": launches, "max_abs_err": err, "ms": ms,
+           "readout": str(folded.weights[-1].dtype).replace("torch.", ""),
+           "bias_rows": folded.biases[0].shape[0]}
+    if base_ms is not None:
+        row["share_of_int8_row"] = ms / base_ms
+    return row
+
+
+def phase_k2_options(flush: torch.Tensor, card: str) -> dict:
+    """K2's int8 options (per-cout scales, a 99.9 percentile clip, a bf16
+    readout) and roofline ablations at batch 256 on the e60 weights, each
+    chosen through JAX's environment variable: {"options", "ablations"},
+    each arm's launches through the entry point, its error against the
+    plain version (int8 bitwise; the bf16 readout at the bf16 sampler's
+    bound) and ms per call beside the default int8 call's."""
+    dcfg = DiffusionConfig()
+    den = exported_denoiser(E60)
+    h = dcfg.latent_size
+    # a generator of its own: the other kernels' random inputs stay as they were
+    gen = torch.Generator(device="cuda").manual_seed(K2_OPTIONS_SEED)
+    tokens = torch.randint(0, dcfg.num_embeddings + 1, (BATCH, h, h), generator=gen,
+                           device="cuda")
+    t = torch.randint(1, dcfg.num_timesteps + 1, (BATCH,), generator=gen, device="cuda")
+    check(not any(os.environ.get(k) for k in K2_OPTION_ENV),
+          "an int8 option is set in the environment")
+    base = k2_option_arm(den, dcfg, "int8 row e60", {}, tokens, t, flush, None)
+    options = {name: k2_option_arm(den, dcfg, f"{name} e60", env, tokens, t, flush, base["ms"])
+               for name, env in K2_OPTIONS.items()}
+    ablations = {a: k2_option_arm(den, dcfg, f"int8 row, {a}, e60", {"SD_FUSED_ABLATE": a},
+                                  tokens, t, flush, base["ms"]) for a in K2_ABLATIONS}
+    log(f"  K2 int8 at batch {BATCH} on the e60 weights, one call (CUDA events, median of "
+        f"{K2_TIMING_REPS}), through the entry point with JAX's variables: row scales "
+        f"{base['ms']:.3f} ms; " + "; ".join(
+            f"{n} {r['ms']:.3f} ms ({r['share_of_int8_row']:.1%})" for n, r in options.items())
+        + f" [{card}]")
+    log("  K2 roofline ablations, each against the plain version of its mode, as a share of "
+        "the int8 call (row scales) on the same inputs: " + "; ".join(
+            f"{a} {r['ms']:.3f} ms = {r['share_of_int8_row']:.1%}" for a, r in ablations.items())
+        + f" [{card}]")
+    return {"int8 row": base, "options": options, "ablations": ablations}
 
 
 def train_lif_shapes():
@@ -1710,7 +1832,38 @@ def phase_generation_fused(models, dcfg, layerwise, card: str) -> dict:
                 check(torch.equal(codes, codes_p), "int8 codes differ from the plain version")
                 check(d_img == 0.0, "int8 images differ from the plain version")
         launches[name] = (k2_total, k1_total)
+    launches["int8 bf16 logits"] = bf16_logits_request(den, vq, dcfg, steps, card)
     return launches
+
+
+def bf16_logits_request(den, vq, dcfg, steps: int, card: str) -> tuple:
+    """Request 0 through ``sample_codes`` (fused, int8) with JAX's
+    ``SD_INT8_LOGITS=bf16`` in the process: the variable reaches the entry
+    point (the readout folds to bf16), 49 K2 launches, valid codes and
+    images, the codes of K2's plain version in the same mode. (K2 launches,
+    K1 launches)."""
+    n = REQUESTS[0]
+    noise = request_noise(dcfg, 0, steps)
+    with environment({"SD_INT8_LOGITS": "bf16"}):
+        check(fd.fold_denoiser_weights(den, torch.int8).weights[-1].dtype == torch.bfloat16,
+              "SD_INT8_LOGITS=bf16 did not reach the folding")
+        lif_op.LAUNCHES = 0
+        fd.LAUNCHES = 0
+        codes, images, sample_ms, decode_ms = run_request(den, vq, dcfg, n, noise, fused=True,
+                                                          dtype=torch.int8)
+        k2, k1 = fd.LAUNCHES, lif_op.LAUNCHES
+        codes_p, _, plain_ms, _ = run_request(
+            den, vq, dcfg, n, noise, sample=plain_fused_sampler(den, dcfg, torch.int8, n, noise))
+    check(fd.LAUNCHES == k2, "the plain fused run launched K2")
+    log(f"  fused int8 with SD_INT8_LOGITS=bf16, request 0 batch {n}: K2 launches {k2}, K1 "
+        f"launches {k1}, sampler {sample_ms:.1f} ms ({sample_ms / steps:.3f} ms/step), decode "
+        f"{decode_ms:.2f} ms; K2's plain version: sampler {plain_ms:.1f} ms, codes identical "
+        f"{bool(torch.equal(codes, codes_p))} [{card}]")
+    check(k2 == K2_STEP_LAUNCHES, f"{k2} K2 launches, expected {K2_STEP_LAUNCHES}")
+    check(k1 == K1_DECODE_LAUNCHES, f"{k1} K1 launches, expected {K1_DECODE_LAUNCHES}")
+    check_outputs(codes, images, n, dcfg)
+    check(torch.equal(codes, codes_p), "bf16-logits codes differ from the plain version")
+    return k2, k1
 
 
 def phase_generation_bnlifconv(models, dcfg, layerwise, card: str) -> dict:
@@ -1799,10 +1952,11 @@ def compare_steps(what, got, want, exact: bool, loss_atol: float = LOSS_ATOL,
         """max |d| over the tensors, the elements outside ``tol``, and the
         least atol that would hold them all at tol's rtol."""
         pairs = [(g[n], w[n].to(g[n].device)) for n in g]
-        return (max(float((a - b).abs().max()) for a, b in pairs),
+        return (max((float((a - b).abs().max()) for a, b in pairs), default=0.0),
                 sum(int((~torch.isclose(a, b, **tol)).sum()) for a, b in pairs),
                 sum(a.numel() for a, _ in pairs),
-                max(float(((a - b).abs() - tol["rtol"] * b.abs()).max()) for a, b in pairs))
+                max((float(((a - b).abs() - tol["rtol"] * b.abs()).max()) for a, b in pairs),
+                    default=0.0))
 
     loss_d = abs(got[0] - want[0])
     grad_d, grad_out, grad_n, grad_atol = diff(got[1], want[1], GRAD_TOL)
@@ -3310,8 +3464,8 @@ def cifar10_runs(card: str) -> dict:
 
 
 def dataset_eval(name: str, card: str) -> dict:
-    """The CLI eval of dataset ``name``'s export in this process, after
-    every earlier phase, with its record's flags but a sweep of one
+    """The CLI eval of dataset ``name``'s export in the side lane's process,
+    after its earlier phases, with its record's flags but a sweep of one
     16-image batch: exact launches, frozen stats verified, the space's sha
     and the null FID the record's."""
     flags = dataset_eval_flags(name)[:-2] + DATASET_EVAL_SWEEP  # its own --temperatures
@@ -3324,21 +3478,96 @@ def dataset_eval(name: str, card: str) -> dict:
             "recon": [out["recon_mse"], out["recon_ssim_loss"]], "metrics": metrics}
 
 
-def phase_cli_datasets(card: str) -> dict:
+def submit_cpu_recon(pool) -> dict:
+    """The CPU's side of every dataset's recon (``pooled_cpu_recon``), a
+    batch a job: {dataset: [future]}."""
+    return {n: [pool.submit(pooled_cpu_recon, f"{n}/snn-vq-vae", TRAINED_IMAGES, b)
+                for b in range(TRAINED_IMAGES // BATCH)] for n in DATASET_RECORDS}
+
+
+def phase_cli_datasets(card: str, cpu: dict) -> dict:
     """CIFAR10 through the CLI on the card, then every other dataset's CLI
-    eval, meanwhile the CPU's side of every dataset's recon in a pool of
-    worker processes; then each recon card against CPU."""
-    pool = ProcessPoolExecutor(HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
-    try:
-        cpu = {n: [pool.submit(pooled_cpu_recon, f"{n}/snn-vq-vae", TRAINED_IMAGES, b)
-                   for b in range(TRAINED_IMAGES // BATCH)] for n in DATASET_RECORDS}
-        cifar10 = cifar10_runs(card)
-        evals = {n: dataset_eval(n, card) for n in DATASET_RECORDS if n != "CIFAR10"}
-        recon = {n: recon_against_cpu(f"{n}/snn-vq-vae", TRAINED_IMAGES, merge_batches(
-            [job.result(HOST_WAIT_S) for job in jobs]), card) for n, jobs in cpu.items()}
-    finally:
-        pool.shutdown(cancel_futures=True)
+    eval; then each recon card against CPU, the CPU's side from ``cpu``
+    (``submit_cpu_recon``'s jobs)."""
+    cifar10 = cifar10_runs(card)
+    evals = {n: dataset_eval(n, card) for n in DATASET_RECORDS if n != "CIFAR10"}
+    recon = {n: recon_against_cpu(f"{n}/snn-vq-vae", TRAINED_IMAGES, merge_batches(
+        [job.result(HOST_WAIT_S) for job in jobs]), card) for n, jobs in cpu.items()}
+    for row in recon.values():
+        row.pop("codes")
     return {**cifar10, "evals": evals, "recon": recon}
+
+
+# --- the side lane: phases metrics_extra, cli_vq_vae, cli_datasets -----------
+
+
+def side_lane(card: str, conn) -> None:
+    """Phases metrics_extra, cli_vq_vae and cli_datasets, which share no
+    state with the main sequence, in a process of their own beside it; the
+    CPU's side of the datasets' recon runs in its pool from the start.
+    Sends {"log": all it printed, "results", "error": a traceback or None}
+    through ``conn``; the main process prints the log when it joins, so
+    that each phase's lines stay together."""
+    buf = io.StringIO()
+    out = {"results": None, "error": None}
+    with contextlib.redirect_stdout(buf):
+        pool = None
+        try:
+            pin_arithmetic()
+            pool = ProcessPoolExecutor(HOST_WORKERS, initializer=os.nice, initargs=(HOST_NICE,),
+                                       mp_context=multiprocessing.get_context("spawn"))
+            cpu = submit_cpu_recon(pool)
+            results = {}
+            with Phase("metrics_extra"):
+                phase_metrics_extra(card)
+            with Phase("cli_vq_vae"):
+                torch.cuda.empty_cache()
+                results["vq"] = phase_cli_vq_vae(card)
+                results["vq"]["recon"].pop("codes")
+            with Phase("cli_datasets"):
+                torch.cuda.empty_cache()
+                results["datasets"] = phase_cli_datasets(card, cpu)
+            out["results"] = results
+        except Exception:
+            out["error"] = traceback.format_exc()
+        finally:
+            if pool is not None:
+                pool.shutdown(cancel_futures=True)
+    out["log"] = buf.getvalue()
+    conn.send(out)
+    conn.close()
+
+
+class SideLane:
+    """``side_lane`` in a spawned process, started after phase kernels (whose
+    timings are then the card's alone): the later phases of the main
+    sequence share the card and the host with it."""
+
+    def __init__(self, card: str):
+        ctx = multiprocessing.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=side_lane, args=(card, child))
+        self.t0 = time.perf_counter()
+        self.proc.start()
+        child.close()
+
+    def finish(self) -> dict:
+        """Wait for the lane; print its log; its results, or raise."""
+        t0 = time.perf_counter()
+        out = self.conn.recv()
+        self.proc.join()
+        sys.stdout.write(out["log"])
+        log(f"  side lane: started {t0 - self.t0:.1f} s before this join, waited for "
+            f"{time.perf_counter() - t0:.1f} s")
+        if out["error"] is not None:
+            raise RuntimeError(f"the side lane failed:\n{out['error']}")
+        return out["results"]
+
+    def close(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        self.conn.close()
 
 
 def launches_of(runs: dict, idx: int) -> dict:
@@ -3698,8 +3927,8 @@ def dp_rank(inp: dict) -> dict:
     """One rank of phase data_parallel (``parallel.launch`` runs it on each
     rank); rank 0's return is the phase's. The rank first runs the
     single-process references (no launch counted, nothing printed), then
-    waits for ``inp["go"]``: the main process sets it after phase
-    cli_datasets, or with ``inp["abort"]`` to stop. Only rank 0 prints."""
+    waits for ``inp["go"]``: the main process sets it after the side lane's
+    join, or with ``inp["abort"]`` to stop. Only rank 0 prints."""
     pin_arithmetic()
     mesh = parallel.make_mesh(DP_RANKS)
     seconds = {"start": time.time() - inp["launched"]}
@@ -3708,11 +3937,11 @@ def dp_rank(inp: dict) -> dict:
               **{name: single_stage2(mesh, inp, dtype)
                  for name, dtype in (("fp32", None), ("bf16", torch.bfloat16))},
               "sampler": single_sampler(mesh)}
-    torch.cuda.empty_cache()
-    seconds["references"] = time.perf_counter() - t0
+    references_done(inp, seconds, t0)
     inp["go"].wait()
     if inp["abort"].is_set():
         return {}
+    inp.update(inp["late"].get())
     quiet = open(os.devnull, "w") if mesh.rank else None
     card = inp["card"]
     with contextlib.redirect_stdout(quiet) if quiet else contextlib.nullcontext():
@@ -3730,7 +3959,7 @@ def dp_rank(inp: dict) -> dict:
                 torch.cuda.empty_cache()
                 seconds[part] = time.perf_counter() - t0
             log(f"  rank 0: running {seconds['start']:.1f} s after the launch, the "
-                f"references {seconds['references']:.1f} s (both during phase cli_datasets); "
+                f"references {seconds['references']:.1f} s (both before the cue); "
                 "after the cue " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()
                                              if k not in ("start", "references")))
         finally:
@@ -3771,17 +4000,36 @@ def nccl_probe(card: str) -> dict:
 
 class RanksRun:
     """A phase's ranks on the card over gloo (``fn`` through ``parallel.launch``
-    in a thread of this process), started at the start of phase
-    cli_datasets: they start up and run their single-process references
-    meanwhile, and run the phase after ``finish``'s cue. ``close`` stops
-    ranks that never had it."""
+    in a thread of this process), started some phases before their own:
+    they start up and run their single-process references meanwhile, and
+    run the phase after ``finish``'s cue. ``send`` hands them inputs made
+    after they started (each rank takes one ``inp["late"].get()``);
+    ``ready`` is set once every rank has run its references. With
+    ``after`` (another run) the ranks start once that run's ranks are
+    ready, so that the card holds one set of references at a time.
+    ``close`` stops ranks that never had the cue."""
 
-    def __init__(self, fn, ranks: int, inp: dict):
+    def __init__(self, fn, ranks: int, inp: dict, after: Optional["RanksRun"] = None):
         ctx = multiprocessing.get_context("spawn")
-        self.go, self.abort = ctx.Event(), ctx.Event()
-        inp = {**inp, "launched": time.time(), "go": self.go, "abort": self.abort}
+        self.go, self.abort, self.ready = ctx.Event(), ctx.Event(), ctx.Event()
+        self.n_ranks, self.late = ranks, ctx.Queue()
+        inp = {**inp, "go": self.go, "abort": self.abort, "ready": self.ready,
+               "late": self.late}
         self.pool = ThreadPoolExecutor(1)
-        self.ranks = self.pool.submit(parallel.launch, fn, ranks, args=(inp,), device="cuda")
+        self.ranks = self.pool.submit(self._launch, fn, inp, after)
+
+    def _launch(self, fn, inp: dict, after: Optional["RanksRun"]):
+        while after is not None and not after.ready.wait(1.0):
+            if after.ranks.done() or self.abort.is_set():
+                break
+        if self.abort.is_set():
+            return {}
+        inp["launched"] = time.time()
+        return parallel.launch(fn, self.n_ranks, args=(inp,), device="cuda")
+
+    def send(self, values: dict) -> None:
+        for _ in range(self.n_ranks):
+            self.late.put(values)
 
     def finish(self) -> dict:
         """Cue the ranks; rank 0's result."""
@@ -3793,22 +4041,37 @@ class RanksRun:
     def close(self) -> None:
         if not self.go.is_set():
             self.abort.set()
+            self.send({})  # for a rank still waiting on its late inputs
             self.go.set()
         self.pool.shutdown(wait=True)
+        self.late.cancel_join_thread()
+
+
+def references_done(inp: dict, seconds: dict, t0: float) -> None:
+    """After a rank's references: free the card's cache; once every rank is
+    here, rank 0 sets ``ready``."""
+    torch.cuda.empty_cache()
+    seconds["references"] = time.perf_counter() - t0
+    torch.distributed.barrier()
+    if torch.distributed.get_rank() == 0:
+        inp["ready"].set()
 
 
 class DataParallelRun(RanksRun):
     """Phase data_parallel's two ranks (``dp_rank``)."""
 
-    def __init__(self, stage1_inputs: tuple, codes: np.ndarray, cli_tree: list, card: str):
+    def __init__(self, stage1_inputs: tuple, codes: np.ndarray, card: str,
+                 after: Optional[RanksRun] = None):
         self.root = tempfile.TemporaryDirectory()
         images, var, sd = stage1_inputs
         super().__init__(dp_rank, DP_RANKS, {
             "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
-            "cli_root": self.root.name, "cli_tree": cli_tree, "card": card})
+            "cli_root": self.root.name, "card": card}, after)
 
-    def finish(self, card: str) -> dict:
-        """Cue the ranks; their result and the NCCL probe's."""
+    def finish(self, card: str, cli_tree: list) -> dict:
+        """Cue the ranks with phase cli's artifact tree; their result and the
+        NCCL probe's."""
+        self.send({"cli_tree": cli_tree})
         return {**super().finish(), "nccl": nccl_probe(card)}
 
     def close(self) -> None:
@@ -3828,9 +4091,16 @@ TP_BATCH = 64
 TP_RUNS = {"stage1": ("auto", None, STAGE1_STEP_LAUNCHES["layerwise"]),
            "bnlif_fp32": ("bnlif", None, STEP_LAUNCHES["bnlif"]),
            "bnlif_bf16": ("bnlif", torch.bfloat16, STEP_LAUNCHES["bnlif"]),
-           "bnlifconv_fp32": ("bnlifconv", None, STEP_LAUNCHES["bnlifconv"])}
+           "bnlifconv_fp32": ("bnlifconv", None, STEP_LAUNCHES["bnlifconv"]),
+           # the baselines: the ANN VQ-VAE launches no kernel (cuDNN), the
+           # SNN-VAE K1 on each rank's features
+           "ann_vqvae": (None, None, (0, 0, 0, 0, 0, 0, 0)),
+           "snn_vae": ("auto", None, SNN_VAE_STEP_LAUNCHES["layerwise"])}
 TP_NAMES = {"stage1": "stage 1, layerwise fp32", "bnlif_fp32": "stage 2, 'bnlif' fp32",
-            "bnlif_bf16": "stage 2, 'bnlif' bf16", "bnlifconv_fp32": "stage 2, 'bnlifconv' fp32"}
+            "bnlif_bf16": "stage 2, 'bnlif' bf16", "bnlifconv_fp32": "stage 2, 'bnlifconv' fp32",
+            "ann_vqvae": "the ANN VQ-VAE, stage 1 fp32", "snn_vae": "the SNN-VAE, layerwise fp32"}
+TP_BASELINE_SEED = 12  # the baselines' seeded weights and the SNN-VAE's draws
+TP_SNN_VAE_P = 0.2  # the SNN-VAE steps' scheduled-sampling p (phase cli_snn_vae's)
 # The TP step is the single-process step on the global batch up to the
 # order of its sums: a sharded conv's input gradient is the sum of the
 # model ranks' partial products, a BN moment the mean of the data rows'
@@ -3839,11 +4109,43 @@ TP_NAMES = {"stage1": "stage 1, layerwise fp32", "bnlif_fp32": "stage 2, 'bnlif'
 # held at the DP bounds of phase data_parallel (hold_dp_run).
 
 
+def tp_baseline(inp, name: str, device) -> tuple:
+    """(a train state of the baseline ``name`` with seeded full-width
+    weights on ``device``, its single-process step, its TP step builder
+    over a mesh, the TRAIN_STEPS batches at TP_BATCH). The SNN-VAE's steps
+    take their draws from a generator seeded alike in every process."""
+    images, var, _ = inp["stage1"]
+    vcfg = VQVAEConfig()
+    gen = torch.Generator().manual_seed(TP_BASELINE_SEED)
+    if name == "ann_vqvae":
+        model = weights.load_ann_vqvae(weights.init_ann_vqvae_variables(vcfg, gen), vcfg,
+                                       device=device, train=True)
+        single = stage1.make_train_step_vqvae(var)
+        return (create_train_state(model), single,
+                lambda mesh: stage1.make_train_step_vqvae_tp(var, mesh),
+                stage1_batches(images, TP_BATCH))
+    cfg = SNNVAEConfig()
+    model = weights.load_snn_vae(*weights.init_snn_vae_variables(cfg, vcfg, gen), cfg, vcfg,
+                                 device=device, lif_backend="auto", train=True)
+    draws = torch.Generator(device=device).manual_seed(TP_BASELINE_SEED)
+    one = cli.make_train_step_snn_vae()
+
+    def wrap(step):
+        return lambda state, x: step(state, x, draws, TP_SNN_VAE_P)
+
+    return (create_train_state(model), wrap(one),
+            lambda mesh: wrap(cli.make_train_step_snn_vae_tp(mesh)),
+            stage1_batches(images, TP_BATCH))
+
+
 def tp_single(mesh, inp, name: str) -> dict:
     """The run ``name``'s TRAIN_STEPS steps in one process on the global
     batch (``stepwise``); stage 1's first-step spikes cut to this rank's
     data row."""
     backend, dtype, _ = TP_RUNS[name]
+    if name in ("ann_vqvae", "snn_vae"):
+        state, step, _, batches = tp_baseline(inp, name, mesh.device)
+        return stepwise(state, step, batches)
     if name == "stage1":
         vcfg, var, sd, batches = stage1_setting(inp, TP_BATCH)
         single = stepwise(create_train_state(stage1_model(vcfg, sd, backend, mesh.device)),
@@ -3928,7 +4230,14 @@ def tp_run(mesh, inp, name: str, single: dict, card: str) -> dict:
     over the data group and replicated tensors over the model group."""
     backend, dtype, launches = TP_RUNS[name]
     what = TP_NAMES[name]
-    if name == "stage1":
+    if name in ("ann_vqvae", "snn_vae"):
+        state, _, make_step, batches = tp_baseline(inp, name, mesh.device)
+        state = tp_state(state.model, mesh)
+        step = make_step(mesh)
+        run = stepwise(state, step, batches)
+        bounds = (STAGE1_CPU_LOSS_ATOL, STATS_TOL, STAGE1_CPU_GRAD_TOL)
+        again = lambda: step(state, batches[0])  # noqa: E731
+    elif name == "stage1":
         vcfg, var, sd, batches = stage1_setting(inp, TP_BATCH)
         state = tp_state(stage1_model(vcfg, sd, backend, mesh.device), mesh)
         step = stage1.make_train_step_vqvae_tp(var, mesh)
@@ -3967,17 +4276,21 @@ def tp_run(mesh, inp, name: str, single: dict, card: str) -> dict:
 
 def tp_rank(inp: dict) -> dict:
     """One rank of phase tensor_parallel (``parallel.launch`` runs it on each
-    rank); rank 0's return is the phase's. The rank first runs the
-    single-process references (no launch counted, nothing printed), then
-    waits for ``inp["go"]``: the main process sets it after phase
-    data_parallel, or with ``inp["abort"]`` to stop. Only rank 0 prints."""
+    rank); rank 0's return is the phase's. The rank takes the stage-2 codes
+    when the main process sends them, runs the single-process references
+    (no launch counted, nothing printed), then waits for ``inp["go"]``: the
+    main process sets it after phase data_parallel, or with
+    ``inp["abort"]`` to stop. Only rank 0 prints."""
     pin_arithmetic()
     mesh = parallel.make_mesh_2d(*TP_MESH)
     seconds = {"start": time.time() - inp["launched"]}
+    inp.update(inp["late"].get())  # the codes, once phase train_stage1 has made them
+    if inp["abort"].is_set():
+        return {}
+    seconds["codes"] = time.time() - inp["launched"]
     t0 = time.perf_counter()
     single = {name: tp_single(mesh, inp, name) for name in TP_RUNS}
-    torch.cuda.empty_cache()
-    seconds["references"] = time.perf_counter() - t0
+    references_done(inp, seconds, t0)
     inp["go"].wait()
     if inp["abort"].is_set():
         return {}
@@ -3993,11 +4306,11 @@ def tp_rank(inp: dict) -> dict:
                 out[name] = tp_run(mesh, inp, name, single.pop(name), inp["card"])
                 torch.cuda.empty_cache()
                 seconds[name] = time.perf_counter() - t0
-            log(f"  rank 0: running {seconds['start']:.1f} s after the launch, the "
-                f"references {seconds['references']:.1f} s (during phases cli_datasets and "
-                "data_parallel); after the cue " + ", ".join(
+            log(f"  rank 0: running {seconds['start']:.1f} s after the launch, the codes "
+                f"{seconds['codes']:.1f} s after it, the references "
+                f"{seconds['references']:.1f} s (before the cue); after the cue " + ", ".join(
                     f"{k} {v:.1f} s" for k, v in seconds.items()
-                    if k not in ("start", "references")))
+                    if k not in ("start", "codes", "references")))
         finally:
             if quiet:
                 quiet.close()
@@ -4008,7 +4321,9 @@ def state_plan_summary() -> dict:
     """Sharded and replicated tensors of each model's plan at the mesh's tp."""
     out = {}
     for name, model in (("VQ-VAE", SNNVQVAE(VQVAEConfig())),
-                        ("denoiser", SpikingDenoiser(DiffusionConfig()))):
+                        ("denoiser", SpikingDenoiser(DiffusionConfig())),
+                        ("ANN VQ-VAE", ANNVQVAE(VQVAEConfig())),
+                        ("SNN-VAE", SNNVAE(SNNVAEConfig(), VQVAEConfig()))):
         plan = parallel.shard_plan(model, TP_MESH[1])
         whole = [n for n, d in plan.items() if d is None]
         out[name] = (f"{len(plan) - len(whole)} of {len(plan)} tensors sharded"
@@ -4026,11 +4341,10 @@ def tp_launches(tp: dict, idx: int) -> dict:
 class TensorParallelRun(RanksRun):
     """Phase tensor_parallel's four ranks (``tp_rank``)."""
 
-    def __init__(self, stage1_inputs: tuple, codes: np.ndarray, card: str):
+    def __init__(self, stage1_inputs: tuple, card: str):
         images, var, sd = stage1_inputs
         super().__init__(tp_rank, TP_RANKS, {
-            "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
-            "card": card})
+            "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "card": card})
 
 
 def main() -> int:
@@ -4040,7 +4354,7 @@ def main() -> int:
     signal.signal(signal.SIGALRM, over_budget)
     signal.alarm(BUDGET_S)
     t_start = time.perf_counter()
-    dp_run = tp_run = None
+    dp_run = tp_run = side = None
     try:
         with Phase("device"):
             smi = nvidia_smi()
@@ -4064,8 +4378,9 @@ def main() -> int:
             for name, count in k2_hmma.items():
                 log(f"  K2 SASS: {count:3d} HMMA in {name}")
             for kname in ("conv_lif_kernel", "readout_kernel"):
+                # each weight type, with and without the noshift ablation
                 found = [n for n in k2_hmma if kname in n]
-                check(len(found) == 3 and all(k2_hmma[n] > 0 for n in found),
+                check(len(found) == 6 and all(k2_hmma[n] > 0 for n in found),
                       f"K2's {kname} does not reach the tensor cores in every weight type")
             for name, count in k4_hmma.items():
                 log(f"  K4 SASS: {count:3d} HMMA in {name}")
@@ -4087,12 +4402,18 @@ def main() -> int:
             k1 = phase_k1(gen, flush)
             k1_bwd = phase_k1_bwd(gen, flush)
             k2 = phase_k2(models[0], dcfg, gen, flush, smi)
+            k2_options = phase_k2_options(flush, smi)
             k3 = phase_k3(gen, flush)
             k4 = phase_k4(gen, flush, smi)
             k1_s1 = phase_k1_stage1(gen, flush)
             k3_s1 = phase_k3(gen, flush, stage1_lif_shapes(), STAGE1_PLAIN_REPS,
                              "stage-1 training step")
             del flush
+        # phases metrics_extra, cli_vq_vae and cli_datasets run beside the
+        # main sequence from here, and phase tensor_parallel's ranks start up
+        side = SideLane(smi)
+        stage1_inputs = stage1_setup(VQVAEConfig())
+        tp_run = TensorParallelRun(stage1_inputs, smi)
         with Phase("generation"):
             launches, layerwise = phase_generation(models, dcfg, smi)
         with Phase("generation_fused"):
@@ -4109,6 +4430,11 @@ def main() -> int:
             codes = torch.from_numpy(train1["layerwise"].pop("codes_array")[:BATCH]).cuda()
             dp_codes = codes.cpu().numpy()
             train1["bnlif"].pop("codes_array")
+            # the TP ranks run their references from here; then phase
+            # data_parallel's ranks start up and run theirs
+            tp_run.send({"codes": dp_codes})
+            dp_run = DataParallelRun(stage1_inputs, dp_codes, smi, after=tp_run)
+            del stage1_inputs
             train = phase_train(dcfg, codes, smi)
         with Phase("trained_weights"):
             torch.cuda.empty_cache()
@@ -4118,9 +4444,6 @@ def main() -> int:
             profiled = phase_syops(smi)
         with Phase("cli"):
             cli_runs = phase_cli(smi)
-        with Phase("cli_vq_vae"):
-            vq = phase_cli_vq_vae(smi)
-            vq_runs = {"cli_train": vq["train"], "cli_eval": vq["eval"]}
         with Phase("cli_snn_vae"):
             torch.cuda.empty_cache()
             snn = phase_cli_snn_vae(smi)
@@ -4128,22 +4451,15 @@ def main() -> int:
                         **{f"sample {b}": row for b, row in snn["sample"].items()},
                         **{f"{b} {n}": row for b, rows in snn["steps"].items()
                            for n, row in rows.items()}}
-        with Phase("metrics_extra"):
-            phase_metrics_extra(smi)
-        with Phase("cli_datasets"):
-            torch.cuda.empty_cache()
-            # phases data_parallel's and tensor_parallel's ranks start up and run
-            # their references meanwhile
-            stage1_inputs = stage1_setup(VQVAEConfig())
-            dp_run = DataParallelRun(stage1_inputs, dp_codes, cli_runs["train"]["tree"], smi)
-            tp_run = TensorParallelRun(stage1_inputs, dp_codes, smi)
-            del stage1_inputs
-            datasets = phase_cli_datasets(smi)
+        with Phase("side_lane"):
+            lane = side.finish()
+            vq, datasets = lane["vq"], lane["datasets"]
+            vq_runs = {"cli_train": vq["train"], "cli_eval": vq["eval"]}
             dataset_runs = {"cifar10_train": datasets["train"], "cifar10_eval": datasets["eval"],
                             **{f"{n} eval": row for n, row in datasets["evals"].items()},
                             **{f"recon {n}": row for n, row in datasets["recon"].items()}}
         with Phase("data_parallel"):
-            dp = dp_run.finish(smi)
+            dp = dp_run.finish(smi, cli_runs["train"]["tree"])
         with Phase("tensor_parallel"):
             tp = tp_run.finish()
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4152,7 +4468,7 @@ def main() -> int:
         return 1
     finally:
         signal.alarm(0)
-        for ranks in (dp_run, tp_run):
+        for ranks in (side, dp_run, tp_run):
             if ranks is not None:
                 ranks.close()
     kernels = [{
@@ -4235,6 +4551,14 @@ def main() -> int:
             "max_abs_err_trained": trained["k2_max_abs_err"][name],
             # one call at batch 256; no single PyTorch call is the denoiser
             "library_ms": None, **row, "sass_hmma": k2_hmma,
+            # int8: the e60 weights at 256 through the entry point with JAX's
+            # variables, each option's and ablation's one launch, error and
+            # ms; the request with SD_INT8_LOGITS=bf16 in phase
+            # generation_fused
+            **({"e60_int8_row": k2_options["int8 row"], "options": k2_options["options"],
+                "ablations": k2_options["ablations"],
+                "launches_bf16_logits_request": fused_launches["int8 bf16 logits"][0]}
+               if name == "int8" else {}),
         })
     for key, name, replaces, idx in (("fwd", "K3 bn_lif_fwd", K3_FWD_REPLACES, 2),
                                      ("bwd", "K3 bn_lif_bwd", K3_BWD_REPLACES, 3)):

@@ -492,21 +492,51 @@ def _eval_generation(args, sweep, model, d_cfg, denoiser, ds, sample_path, dev):
 
 def make_train_step_snn_vae():
     """A step ``(state, images (N, H, W, C) in [-0.5, 0.5], generator,
-    p_scheduled) -> {"loss", "mmd", "rec"}`` of the SNN-VAE: loss =
-    mmd_loss + recon_loss, BPTT, AdamW; updates ``state`` in place."""
+    p_scheduled, draws=None) -> {"loss", "mmd", "rec"}`` of the SNN-VAE:
+    loss = mmd_loss + recon_loss, BPTT, AdamW; updates ``state`` in place.
+    ``draws``: the step's (choice, coin draws, noise), else drawn from
+    ``generator`` (``SNNVAE.draws``)."""
+    return _snn_vae_step(None)
 
+
+def make_train_step_snn_vae_tp(mesh: parallel.Mesh2D, device="cuda"):
+    """:func:`make_train_step_snn_vae` over ``mesh``'s (data x model) ranks,
+    JAX's SNN-VAE step on a state sharded by ``parallel.shard_state_tp``.
+    Each rank passes the same global batch and generator state (or
+    ``draws``): it draws the whole step's draws as one process does and
+    keeps its data row's rows; the metrics and the gradients are averaged
+    over the data group. The model must be a replica
+    (``parallel.replicate`` over ``mesh.world``) with its BN synced over
+    ``mesh.data``. Runs on the card unless ``device="cpu"`` is passed (the
+    mesh's device)."""
+    parallel.tp.check_device(mesh, device)
+    return _snn_vae_step(mesh.data if mesh.dp > 1 else None)
+
+
+def _snn_vae_step(data: Optional[parallel.Mesh]):
     def train_step(state: TrainState, images: torch.Tensor, generator: torch.Generator,
-                   p_scheduled: float):
+                   p_scheduled: float, draws=None):
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(images, generator, p_scheduled=p_scheduled)
+        if draws is None:
+            shape = (model.cfg.num_steps, images.shape[0], model.cfg.latent_dim)
+            draws = model.draws(shape, images.device, generator)
+        choice, coin_draws, noise = draws
+        if data is not None:
+            images = parallel.shard_batch(images, data)
+            choice, noise = (parallel.shard_batch(x.transpose(0, 1), data).transpose(0, 1)
+                             for x in (choice, noise))
+        out = model(images, p_scheduled=p_scheduled, choice=choice, coin_draws=coin_draws,
+                    noise=noise)
         loss = out["mmd_loss"] + out["recon_loss"]
         loss.backward()
+        metrics = (loss, out["mmd_loss"], out["recon_loss"])
+        if data is not None:
+            metrics = parallel.all_reduce_gradients(model.parameters(), data, *metrics)
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach(), "mmd": out["mmd_loss"].detach(),
-                "rec": out["recon_loss"].detach()}
+        return dict(zip(("loss", "mmd", "rec"), (m.detach() for m in metrics)))
 
     return train_step
 

@@ -44,17 +44,27 @@
 // (zero below), row plane * 3 * Cp_in + dx * Cp_in + ci within it. fp32
 // weights are three bf16 planes whose fp32 sum is the weight (smallest
 // first); bf16 weights one plane; int8 weights one plane of their integer
-// values (exact in bf16), with one scale per kernel row and output channel.
-// Spikes are 0 or 1, so every product is exact in fp32. The loop's hook
-// folds each kernel row's sum into `out` at the row's last stage and
-// zeroes the accumulators:
-//   fp32, bf16:  out = ((p1 + p0) + p2) + bias
-//   int8:        out = ((p1 * s1 + p0 * s0) + p2 * s2) + bias
+// values (exact in bf16), with one scale per kernel row and output channel
+// or one per output channel. An int8 sampler's readout may be bf16 (JAX's
+// SD_INT8_LOGITS=bf16): its layers then run conv_lif_kernel<int8_t> and
+// the readout readout_kernel<bf16>. Spikes are 0 or 1, so every product is
+// exact in fp32. The loop's hook folds each kernel row's sum into `out` at
+// the row's last stage and zeroes the accumulators:
+//   fp32, bf16:        out = ((p1 + p0) + p2) + bias
+//   int8, row scales:  out = ((p1 * s1 + p0 * s0) + p2 * s2) + bias
+//   int8, cout scale:  out = ((p1 + p0) + p2) * s + bias
 // the order of the plain version (ops/fused_denoiser.py `_conv_rows`). In
-// int8 a kernel row's sum is an integer below 3 * 512 * 127 < 2^24, exact in
-// fp32 in any order, so the int8 logits equal the plain version's bitwise.
-// fp32 and bf16 sums within a kernel row run in the tensor cores' order,
-// not cuBLAS's.
+// int8 a kernel row's sum is an integer below 3 * 512 * 127 < 2^24, and the
+// three rows' below 9 * 512 * 127 < 2^24, exact in fp32 in any order, so
+// the int8 logits equal the plain version's bitwise (JAX's cout order:
+// the int32 sum, then one dequant). fp32 and bf16 sums within a kernel row
+// run in the tensor cores' order, not cuBLAS's.
+//
+// JAX's roofline ablations (SD_FUSED_ABLATE), whose output is wrong on
+// purpose: `nolif` (Lif::nolif) spikes where z >= v_th and carries no
+// membrane, in lif1_kernel and every block's epilogue; `noshift` (the
+// kNoShift instances) reads every tap's A rows at the row's own (y, x),
+// with no halo and no bounds mask, the partials combined as above.
 //
 // The row tile holds whole T sequences: floor(128 / T) positions of T rows
 // (8 x 16 at T = 16; T <= 128). After the loop the ring is drained, and the
@@ -84,9 +94,11 @@ static_assert(tc::kBM * kZLd * 4 <= tc::smem_bytes(false), "z tile fits the ring
 struct Lif {
   float decay, v_th, v_reset;
   int decay_input, hard_reset;
+  int nolif;  // the roofline ablation: threshold-only spikes, no membrane
 };
 
 __device__ __forceinline__ float lif(float& v, float x, const Lif& p) {
+  if (p.nolif) return x >= p.v_th ? 1.0f : 0.0f;
   float h;
   if (p.decay_input) {
     h = v + (x - (v - p.v_reset)) * p.decay;
@@ -118,7 +130,8 @@ struct Conv {
   int cp;           // the operand's channels (padded)
   const bf16* w;    // B, (3 * kr, np)
   int kr;           // rows of one kernel row's range
-  const float* b;   // (1, cout) bias, or (4, cout) bias + 3 scales
+  const float* b;   // (1, cout) bias, (4, cout) bias + 3 scales, or (2, cout) bias + 1
+  int row_scales;   // an int8 weight's scales: 1 one per kernel row, 0 one per cout
   int cout;
   int np;           // padded(cout)
   bf16* dst;        // conv_lif: the output's first channel in row 0
@@ -135,8 +148,9 @@ constexpr int kPlanes<float> = 3;
 // The conv of `c` over the block's tile: rows m0.. (row tile blockIdx.x /
 // tiles_n, whole T sequences), columns n0.. (column tile blockIdx.x %
 // tiles_n). Leaves z = conv + bias, fp32, in the drained ring as a
-// [row][kZLd] tile and returns it.
-template <typename W>
+// [row][kZLd] tile and returns it. kNoShift: every tap reads the row's own
+// position (the roofline ablation).
+template <typename W, bool kNoShift>
 __device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv& c,
                                             const Rows& g, int& m0, int& n0) {
   using namespace tc;
@@ -184,9 +198,10 @@ __device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv&
     const int dx = ptap % 3;
 #pragma unroll
     for (int r = 0; r < kRowPasses; ++r) {
-      const int yy = a_y[r] + dy - 1;
-      const int xx = a_x[r] + dx - 1;
-      const bool ok = k_ok && a_ok[r] && yy >= 0 && yy < g.hw && xx >= 0 && xx < g.hw;
+      const int yy = kNoShift ? a_y[r] : a_y[r] + dy - 1;
+      const int xx = kNoShift ? a_x[r] : a_x[r] + dx - 1;
+      const bool ok = k_ok && a_ok[r] &&
+                      (kNoShift || (yy >= 0 && yy < g.hw && xx >= 0 && xx < g.hw));
       const bf16* from =
           ok ? c.src + static_cast<long long>(a_base[r] + (yy * g.hw + xx) * g.T) * c.src_ld + ci
              : c.src;
@@ -221,6 +236,7 @@ __device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv&
   const int wn = warp & 3;
   float out[4][4][4];
   int h_row = 0, h_dyi = 0;
+  const bool row_scales = sizeof(W) == 1 && c.row_scales;
   auto fold = [&](int, float (&acc)[4][4][4]) {
     if (++h_row < spr) return;
     h_row = 0;
@@ -231,13 +247,13 @@ __device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv&
       for (int e = 0; e < 2; ++e) {
         const int co = n0 + wn * 32 + j * 8 + 2 * (lane & 3) + e;
         float sc = 1.0f;
-        if (sizeof(W) == 1 && co < c.cout) sc = c.b[(1 + dy) * c.cout + co];
+        if (row_scales && co < c.cout) sc = c.b[(1 + dy) * c.cout + co];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             float pj = acc[i][j][half * 2 + e];
-            if (sizeof(W) == 1) pj = pj * sc;
+            if (row_scales) pj = pj * sc;
             out[i][j][half * 2 + e] = h_dyi == 0 ? pj : out[i][j][half * 2 + e] + pj;
             acc[i][j][half * 2 + e] = 0.0f;
           }
@@ -250,19 +266,27 @@ __device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv&
   mainloop<false>(smem, 3 * spr, load, acc, fold);
 
   float* zs = reinterpret_cast<float*>(smem_raw);
+  const bool cout_scale = sizeof(W) == 1 && !c.row_scales;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int col = wn * 32 + j * 8 + 2 * (lane & 3);
     const int co = n0 + col;
     const float b0 = co < c.cout ? c.b[co] : 0.0f;
     const float b1 = co + 1 < c.cout ? c.b[co + 1] : 0.0f;
+    const float s0 = cout_scale && co < c.cout ? c.b[c.cout + co] : 0.0f;
+    const float s1 = cout_scale && co + 1 < c.cout ? c.b[c.cout + co + 1] : 0.0f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = wm * 64 + i * 16 + (lane >> 2) + half * 8;
-        *reinterpret_cast<float2*>(zs + row * kZLd + col) =
-            make_float2(out[i][j][half * 2] + b0, out[i][j][half * 2 + 1] + b1);
+        float z0 = out[i][j][half * 2];
+        float z1 = out[i][j][half * 2 + 1];
+        if (cout_scale) {  // the exact integer sum, then its one dequant
+          z0 = z0 * s0;
+          z1 = z1 * s1;
+        }
+        *reinterpret_cast<float2*>(zs + row * kZLd + col) = make_float2(z0 + b0, z1 + b1);
       }
     }
   }
@@ -273,12 +297,12 @@ __device__ __forceinline__ float* conv_tile(unsigned char* smem_raw, const Conv&
 // A LIF conv block over all T steps: the conv, then each thread scans whole
 // (position, channel) sequences of the tile from v_reset and writes the
 // spikes (and zeros in the padding channels up to np) to c.dst.
-template <typename W>
+template <typename W, bool kNoShift>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 conv_lif_kernel(const Conv c, const Rows g, const Lif lp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int m0, n0;
-  const float* zs = conv_tile<W>(smem_raw, c, g, m0, n0);
+  const float* zs = conv_tile<W, kNoShift>(smem_raw, c, g, m0, n0);
   for (int q = threadIdx.x; q < g.G * tc::kBN; q += tc::kThreads) {
     const int gi = q / tc::kBN;
     const int col = q - gi * tc::kBN;
@@ -300,12 +324,12 @@ conv_lif_kernel(const Conv c, const Rows g, const Lif lp) {
 // the fp32 reciprocal of T, which is how PyTorch's CUDA division by a
 // scalar computes the plain version's acc / T (the same as dividing when T
 // is a power of two).
-template <typename W>
+template <typename W, bool kNoShift>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 readout_kernel(const Conv c, const Rows g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int m0, n0;
-  const float* zs = conv_tile<W>(smem_raw, c, g, m0, n0);
+  const float* zs = conv_tile<W, kNoShift>(smem_raw, c, g, m0, n0);
   const float inv_steps = 1.0f / static_cast<float>(g.T);
   for (int q = threadIdx.x; q < g.G * tc::kBN; q += tc::kThreads) {
     const int gi = q / tc::kBN;
@@ -341,16 +365,17 @@ lif1_kernel(const float* __restrict__ a1, bf16* __restrict__ dst, int dst_ld, in
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-template <typename W>
-int launch(const Rows& g, int n_layers, const int* ch, int classes, const float* a1,
-           const long long* w_ptrs, const long long* b_ptrs, bf16* cat, bf16* ping, bf16* pong,
-           float* logits, const Lif& lp, cudaStream_t st) {
+// W: the layers' weights, RW: the readout's; kNoShift: the ablation.
+template <typename W, typename RW, bool kNoShift>
+int launch(const Rows& g, int n_layers, const int* ch, int classes, int row_scales,
+           const float* a1, const long long* w_ptrs, const long long* b_ptrs, bf16* cat,
+           bf16* ping, bf16* pong, float* logits, const Lif& lp, cudaStream_t st) {
   const int bytes = tc::smem_bytes(false);
   int rc = static_cast<int>(cudaFuncSetAttribute(
-      conv_lif_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      conv_lif_kernel<W, kNoShift>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
   rc = static_cast<int>(cudaFuncSetAttribute(
-      readout_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+      readout_kernel<RW, kNoShift>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
   if (rc != 0) return rc;
   const int L = n_layers;
   const int cp1 = tc::padded(ch[0]);
@@ -380,14 +405,15 @@ int launch(const Rows& g, int n_layers, const int* ch, int classes, const float*
       c.src_ld = c.cp = tc::padded(ch[i]);
     }
     c.w = reinterpret_cast<const bf16*>(w_ptrs[i]);
-    c.kr = round_up(kPlanes<W> * 3 * c.cp, tc::kBK);
+    c.kr = round_up((readout ? kPlanes<RW> : kPlanes<W>) * 3 * c.cp, tc::kBK);
     c.b = reinterpret_cast<const float*>(b_ptrs[i]);
+    c.row_scales = row_scales;
     c.cout = readout ? classes : ch[i + 1];
     c.np = tc::padded(c.cout);
     const unsigned blocks = tiles_m * static_cast<unsigned>((c.np + tc::kBN - 1) / tc::kBN);
     if (readout) {
       c.logits = logits;
-      readout_kernel<W><<<blocks, tc::kThreads, bytes, st>>>(c, g);
+      readout_kernel<RW, kNoShift><<<blocks, tc::kThreads, bytes, st>>>(c, g);
     } else {
       if (i == L - 2) {
         c.dst = cat;
@@ -396,7 +422,7 @@ int launch(const Rows& g, int n_layers, const int* ch, int classes, const float*
         c.dst = bufs[i & 1];
         c.dst_ld = c.np;
       }
-      conv_lif_kernel<W><<<blocks, tc::kThreads, bytes, st>>>(c, g, lp);
+      conv_lif_kernel<W, kNoShift><<<blocks, tc::kThreads, bytes, st>>>(c, g, lp);
     }
     rc = static_cast<int>(cudaGetLastError());
     if (rc != 0) return rc;
@@ -404,10 +430,37 @@ int launch(const Rows& g, int n_layers, const int* ch, int classes, const float*
   return 0;
 }
 
+template <bool kNoShift>
+int launch_types(int wtype, int readout_wtype, const Rows& g, int n_layers, const int* ch,
+                 int classes, int row_scales, const float* a1, const long long* w_ptrs,
+                 const long long* b_ptrs, bf16* cat, bf16* ping, bf16* pong, float* logits,
+                 const Lif& lp, cudaStream_t st) {
+  if (wtype == 0 && readout_wtype == 0) {
+    return launch<float, float, kNoShift>(g, n_layers, ch, classes, row_scales, a1, w_ptrs,
+                                          b_ptrs, cat, ping, pong, logits, lp, st);
+  }
+  if (wtype == 1 && readout_wtype == 1) {
+    return launch<bf16, bf16, kNoShift>(g, n_layers, ch, classes, row_scales, a1, w_ptrs,
+                                        b_ptrs, cat, ping, pong, logits, lp, st);
+  }
+  if (wtype == 2 && readout_wtype == 2) {
+    return launch<int8_t, int8_t, kNoShift>(g, n_layers, ch, classes, row_scales, a1, w_ptrs,
+                                            b_ptrs, cat, ping, pong, logits, lp, st);
+  }
+  if (wtype == 2 && readout_wtype == 1) {
+    return launch<int8_t, bf16, kNoShift>(g, n_layers, ch, classes, row_scales, a1, w_ptrs,
+                                          b_ptrs, cat, ping, pong, logits, lp, st);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // Launches K2's L + 1 kernels on `stream` (a cudaStream_t); allocates
-// nothing and does not synchronise. wtype: 0 fp32, 1 bf16, 2 int8 weights.
+// nothing and does not synchronise. wtype: 0 fp32, 1 bf16, 2 int8 weights
+// of the L - 1 blocks; readout_wtype the readout's, wtype's but for an int8
+// sampler's bf16 readout (2, 1). row_scales: int8 scales one per kernel
+// row (1) or per output channel (0). ablate: bit 1 nolif, bit 2 noshift.
 // channels: the n_layers LIF conv blocks' output channels, the first
 // included; Cp(c) = c rounded up to a multiple of 8. a1 (N, P, ch[0]) fp32.
 // w_ptrs: device pointers of the n_layers bf16 matrices B (blocks 2..L,
@@ -416,13 +469,15 @@ int launch(const Rows& g, int n_layers, const int* ch, int classes, const float*
 // = Cp(ch[i]) for block i + 2 and Cp(ch[L-1]) + Cp(ch[0]) for the readout,
 // whose input channels are laid out as (x_L | s1), each part padded.
 // b_ptrs: the (1, cout) fp32 biases, int8 (4, cout): bias, then the
-// scales of kernel rows dy = 0, 1, 2. cat: bf16 (N * P * T, Cp(ch[L-1]) +
+// scales of kernel rows dy = 0, 1, 2, or (2, cout): bias, then the scale
+// of the output channel. cat: bf16 (N * P * T, Cp(ch[L-1]) +
 // Cp(ch[0])); ping, pong: bf16 scratch of N * P * T * Cp(ch[i + 1])
 // elements for blocks i + 2 = 2, 4, .. (ping) and 3, 5, .. (pong) below L;
 // logits (N, P, classes) fp32. Returns the first cudaGetLastError() of the
 // launches, or -1 for arguments it does not take (T > 128, N * P * T of
 // 2^31 or more).
-extern "C" int fused_denoiser_fwd(int wtype, int n_images, int hw, int n_layers,
+extern "C" int fused_denoiser_fwd(int wtype, int readout_wtype, int row_scales, int ablate,
+                                  int n_images, int hw, int n_layers,
                                   const int* channels, int classes, int steps,
                                   const float* a1, const long long* w_ptrs,
                                   const long long* b_ptrs, void* cat, void* ping, void* pong,
@@ -438,18 +493,16 @@ extern "C" int fused_denoiser_fwd(int wtype, int n_images, int hw, int n_layers,
   const long long rows = static_cast<long long>(n_images) * hw * hw * steps;
   if (rows > 0x7fffffffLL) return -1;
   const Rows g = {static_cast<int>(rows), steps, hw, hw * hw, tc::kBM / steps};
-  const Lif lp = {decay, v_th, v_reset, decay_input, hard_reset};
+  if (ablate < 0 || ablate > 3) return -1;
+  const Lif lp = {decay, v_th, v_reset, decay_input, hard_reset, ablate & 1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* c = static_cast<bf16*>(cat);
   bf16* p0 = static_cast<bf16*>(ping);
   bf16* p1 = static_cast<bf16*>(pong);
-  switch (wtype) {
-    case 0: return launch<float>(g, n_layers, channels, classes, a1, w_ptrs, b_ptrs, c, p0, p1,
-                                 logits, lp, st);
-    case 1: return launch<__nv_bfloat16>(g, n_layers, channels, classes, a1, w_ptrs, b_ptrs, c,
-                                         p0, p1, logits, lp, st);
-    case 2: return launch<int8_t>(g, n_layers, channels, classes, a1, w_ptrs, b_ptrs, c, p0, p1,
-                                  logits, lp, st);
-    default: return -1;
+  if (ablate & 2) {
+    return launch_types<true>(wtype, readout_wtype, g, n_layers, channels, classes, row_scales,
+                              a1, w_ptrs, b_ptrs, c, p0, p1, logits, lp, st);
   }
+  return launch_types<false>(wtype, readout_wtype, g, n_layers, channels, classes, row_scales,
+                             a1, w_ptrs, b_ptrs, c, p0, p1, logits, lp, st);
 }

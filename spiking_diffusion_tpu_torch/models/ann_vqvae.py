@@ -7,8 +7,15 @@ layouts are the JAX package's: images (N, H, W, C) in [-0.5, 0.5], code
 grids (N, h, w), flat indices in (N, h, w) row-major order; inside,
 NCHW. It has no BatchNorm and no LIF layer, so it runs no kernel of the
 port and has no training-mode state: ``train`` only picks the outputs.
-Its convs are plain ``nn.Conv2d`` / ``nn.ConvTranspose2d``, which the
+Its convs are ``nn.Conv2d`` / ``nn.ConvTranspose2d``, which the
 op/energy profiler does not count, as the JAX module sows no counters.
+
+Tensor parallel (``parallel.shard_state_tp``, JAX's ``shard_state_tp`` on
+this model): each conv whose output channels are sharded takes its input
+through ``parallel.copy_to_model``, computes this rank's channels and
+gathers every rank's (``gather_channels``) before the next layer; the
+codebook's rows are sharded and gathered (``gather_rows``) once per
+forward, so distances, codes and lookups are one process's.
 """
 
 from __future__ import annotations
@@ -20,23 +27,47 @@ import torch.nn.functional as F
 from torch import nn
 
 from spiking_diffusion_tpu_torch.config import VQVAEConfig
+from spiking_diffusion_tpu_torch.parallel.mesh import Mesh
+from spiking_diffusion_tpu_torch.parallel.tp import copy_to_model, gather_channels, gather_rows
+
+
+class _Gathered:
+    """A conv whose output channels may be sharded: with ``model_mesh`` (set
+    by ``parallel.shard_state_tp``) it computes this rank's and gathers
+    every rank's."""
+
+    model_mesh: Optional[Mesh] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(copy_to_model(x, self.model_mesh))
+        return gather_channels(y, self.model_mesh)
+
+
+class _Conv2d(_Gathered, nn.Conv2d):
+    pass
+
+
+class _ConvTranspose2d(_Gathered, nn.ConvTranspose2d):
+    pass
 
 
 def _conv(cin: int, cout: int, k: int, s: int, p: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=s, padding=p)
+    return _Conv2d(cin, cout, k, stride=s, padding=p)
 
 
 def _deconv(cin: int, cout: int, k: int, s: int, p: int, op: int) -> nn.ConvTranspose2d:
-    return nn.ConvTranspose2d(cin, cout, k, stride=s, padding=p, output_padding=op)
+    return _ConvTranspose2d(cin, cout, k, stride=s, padding=p, output_padding=op)
 
 
 class ANNVQVAE(nn.Module):
     """Conv/ReLU encoder, L2-nearest codebook lookup with the
-    straight-through estimator, Conv/ReLU transposed decoder."""
+    straight-through estimator, Conv/ReLU transposed decoder. ``model_mesh``:
+    the codebook's, under tensor parallelism."""
 
     def __init__(self, cfg: VQVAEConfig = VQVAEConfig()):
         super().__init__()
         self.cfg = cfg
+        self.model_mesh: Optional[Mesh] = None
         c1, c2 = cfg.enc_channels
         d1, d2 = cfg.dec_channels
         self.enc1 = _conv(cfg.in_channels, c1, 3, 2, 1)
@@ -55,22 +86,28 @@ class ANNVQVAE(nn.Module):
         """(N, D, h, w) -> (N, C, H, W)."""
         return self.dec3(F.relu(self.dec2(F.relu(self.dec1(z)))))
 
-    def get_code_indices(self, flat_x: torch.Tensor) -> torch.Tensor:
+    def codebook(self) -> torch.Tensor:
+        """The whole (K, D) codebook."""
+        return gather_rows(self.embeddings, self.model_mesh)
+
+    def get_code_indices(self, flat_x: torch.Tensor,
+                         e: Optional[torch.Tensor] = None) -> torch.Tensor:
         """L2-nearest codebook entry of each row of (M, D), the distances
-        in fp32; the first index among ties."""
-        e = self.embeddings
+        in fp32; the first index among ties. ``e``: the codebook, if the
+        caller has it."""
+        e = self.codebook() if e is None else e
         d = (torch.sum(flat_x ** 2, dim=1, keepdim=True) + torch.sum(e ** 2, dim=1)
              - 2.0 * (flat_x @ e.T))
         return torch.argmin(d, dim=1)
 
-    def quantize(self, indices: torch.Tensor) -> torch.Tensor:
+    def quantize(self, indices: torch.Tensor, e: Optional[torch.Tensor] = None) -> torch.Tensor:
         """indices (...,) -> codebook vectors (..., D)."""
-        return self.embeddings[indices]
+        return (self.codebook() if e is None else e)[indices]
 
-    def _codes(self, image: torch.Tensor):
+    def _codes(self, image: torch.Tensor, e: torch.Tensor):
         z = self.encode(image.permute(0, 3, 1, 2))
         z = z.permute(0, 2, 3, 1)  # (N, h, w, D), as the JAX module's
-        return z, self.get_code_indices(z.reshape(-1, z.shape[-1]))
+        return z, self.get_code_indices(z.reshape(-1, z.shape[-1]), e)
 
     def forward(self, image: torch.Tensor, train: Optional[bool] = None,
                 data_variance: float = 1.0) -> Dict[str, torch.Tensor]:
@@ -84,11 +121,13 @@ class ANNVQVAE(nn.Module):
         train = self.training if train is None else train
         if not train:
             with torch.no_grad():
-                z, indices = self._codes(image)
-                recon = self.decode(self.quantize(indices).reshape(z.shape).permute(0, 3, 1, 2))
+                e = self.codebook()
+                z, indices = self._codes(image, e)
+                recon = self.decode(self.quantize(indices, e).reshape(z.shape).permute(0, 3, 1, 2))
                 return {"recon": recon.permute(0, 2, 3, 1), "indices": indices}
-        z, indices = self._codes(image)
-        quantized = self.quantize(indices).reshape(z.shape)
+        e = self.codebook()
+        z, indices = self._codes(image, e)
+        quantized = self.quantize(indices, e).reshape(z.shape)
         q_latent = torch.mean((quantized - z.detach()) ** 2)
         e_latent = torch.mean((z - quantized.detach()) ** 2)
         vq_loss = q_latent + self.cfg.commitment_cost * e_latent
@@ -101,7 +140,7 @@ class ANNVQVAE(nn.Module):
     @torch.no_grad()
     def encode_indices(self, image: torch.Tensor) -> torch.Tensor:
         """Images (N, H, W, C) in [-0.5, 0.5] -> (N, h, w) int32 code grids."""
-        z, indices = self._codes(image)
+        z, indices = self._codes(image, self.codebook())
         return indices.reshape(z.shape[:3]).to(torch.int32)
 
     @torch.no_grad()

@@ -111,6 +111,20 @@ class SeqConvTranspose(nn.Module):
         return y + self.bias.to(self.dtype).reshape(1, -1, 1, 1)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear``, column-parallel under tensor parallelism: with
+    ``model_mesh`` (set by ``parallel.shard_state_tp`` when it shards the
+    weight's output features) the input enters through
+    ``parallel.copy_to_model`` and this rank's features come out; the
+    caller gathers them (``parallel.gather_features``) after the neuron
+    that acts on them."""
+
+    model_mesh: Optional[Mesh] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(copy_to_model(x, self.model_mesh))
+
+
 class SeqBatchNorm(nn.Module):
     """BatchNorm over channel axis 1 of (T*N, C, H, W).
 

@@ -23,6 +23,13 @@ backward (3 encoder, the head, the decoder input, 2 decoder); 'bnlif'
 5 + 5 K3 and 2 + 2 K1. A ``sample`` call: 3 K1 forward (the decoder input
 and the decoder) on either branch, or 1 K1 and 2 K3 on 'bnlif'.
 
+Tensor parallel (``parallel.shard_state_tp``, JAX's ``shard_state_tp`` on
+this model): the heads and the cells' Dense layers are column-parallel
+``Linear``s whose LIF runs on this rank's features, gathered
+(``parallel.gather_features``) before each consumer; the encoder's and
+decoder's convs take the VQ-VAE's forms. The cells' membranes hold this
+rank's features.
+
 Randomness comes from an explicit ``torch.Generator`` on the images'
 device, and every draw can be passed in instead: the posterior's channel
 ``choice`` (T, B, C) in [0, k), the prior's scheduled-sampling
@@ -40,7 +47,9 @@ import torch
 from torch import nn
 
 from spiking_diffusion_tpu_torch.config import SNNVAEConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch.models.layers import Linear
 from spiking_diffusion_tpu_torch.models.vqvae import Decoder, Encoder, _lif_backend, _mode
+from spiking_diffusion_tpu_torch.parallel.tp import gather_features
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams, lif_multi_step, lif_step
 from spiking_diffusion_tpu_torch.snn.temporal import membrane_output, psp
 
@@ -57,11 +66,12 @@ class _CausalMLP(nn.Module):
         super().__init__()
         widths = (in_features,) + tuple(features)
         self.denses = nn.ModuleList(
-            [nn.Linear(i, o) for i, o in zip(widths[:-1], widths[1:])])
+            [Linear(i, o) for i, o in zip(widths[:-1], widths[1:])])
         self.params = params
 
     def init_carry(self, batch: int, device) -> List[torch.Tensor]:
-        return [torch.zeros((batch, d.out_features), device=device) for d in self.denses]
+        # this rank's features of a sharded layer
+        return [torch.zeros((batch, d.weight.shape[0]), device=device) for d in self.denses]
 
     def step(self, carry: List[torch.Tensor], x_t: torch.Tensor):
         """(membranes, input (B, in)) -> (new membranes, spikes (B, out))."""
@@ -69,6 +79,7 @@ class _CausalMLP(nn.Module):
         h = x_t
         for dense, v in zip(self.denses, carry):
             v, h = lif_step(v, dense(h), self.params)
+            h = gather_features(h, dense.model_mesh)
             new_carry.append(v)
         return new_carry, h
 
@@ -178,13 +189,14 @@ class SNNVAE(nn.Module):
         self.grid = (vq_cfg.embedding_dim, vq_cfg.latent_size, vq_cfg.latent_size)
         flat = vq_cfg.embedding_dim * vq_cfg.latent_size ** 2
         self.encoder = Encoder(vq_cfg, lif_backend)
-        self.before_latent = nn.Linear(flat, cfg.latent_dim)
+        self.before_latent = Linear(flat, cfg.latent_dim)
         self.posterior = PosteriorBernoulli(cfg)
         self.prior = PriorBernoulli(cfg)
-        self.decoder_input = nn.Linear(cfg.latent_dim, flat)
+        self.decoder_input = Linear(cfg.latent_dim, flat)
         self.decoder = Decoder(vq_cfg, lif_backend)
 
-    def _draws(self, shape, device, generator, choice, coin_draws, noise, scheduled):
+    def draws(self, shape, device, generator, choice=None, coin_draws=None, noise=None,
+              scheduled=True):
         """The draws of one forward, each taken from ``generator`` unless
         given."""
         if choice is None:
@@ -207,9 +219,10 @@ class SNNVAE(nn.Module):
         z_seq = self.encoder(image.permute(0, 3, 1, 2))  # (T*N, D, h, w)
         z_seq = z_seq.reshape((t_steps, -1) + self.grid).permute(0, 1, 3, 4, 2)
         flat = z_seq.reshape(t_steps, z_seq.shape[1], -1)  # (T, N, h*w*D), flax's order
-        latent_x = lif_multi_step(self.before_latent(flat), params=self.neuron,
-                                  backend=self.head_backend)
-        choice, coin_draws, noise = self._draws(
+        latent_x = gather_features(
+            lif_multi_step(self.before_latent(flat), params=self.neuron,
+                           backend=self.head_backend), self.before_latent.model_mesh)
+        choice, coin_draws, noise = self.draws(
             latent_x.shape, image.device, generator, choice, coin_draws, noise,
             self.training)
         z, q_z = self.posterior(latent_x, choice)
@@ -220,8 +233,9 @@ class SNNVAE(nn.Module):
         """Binary latents (T, B, C) -> images (B, H, W, C), in the
         module's mode."""
         t_steps, batch = z.shape[:2]
-        spikes = lif_multi_step(self.decoder_input(z), params=self.neuron,
-                                backend=self.head_backend)
+        spikes = gather_features(
+            lif_multi_step(self.decoder_input(z), params=self.neuron,
+                           backend=self.head_backend), self.decoder_input.model_mesh)
         d, h, w = self.grid
         grid = spikes.reshape(t_steps, batch, h, w, d).permute(0, 1, 4, 2, 3)
         x = self.decoder(grid.reshape(t_steps * batch, d, h, w))

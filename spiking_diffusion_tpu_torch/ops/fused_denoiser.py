@@ -10,13 +10,24 @@ of ``csrc/fused_denoiser.cu`` for a tensor on a CUDA device, and takes
 :func:`fused_denoise_reference`, its plain PyTorch version, only for a
 tensor on the CPU. ``LAUNCHES`` counts the calls that launch K2.
 
-Weights come in fp32, bf16 (rounded to nearest even) or int8 (symmetric,
-one scale per kernel row and output channel, the JAX package's default
-``SD_INT8_SCALES=row`` with an int8 readout). Membranes, biases and logits
-are fp32. Every conv is three kernel-row partial sums combined in the
-order centre, top, bottom, then bias (int8: each partial times its
-scale), the JAX mirror's int8 order; in int8 the partials are exact
-integers, so kernel and plain version agree bitwise.
+Weights come in fp32, bf16 (rounded to nearest even) or int8 (symmetric).
+The int8 sampler has the JAX package's options (:func:`sampler_options`,
+each an argument or JAX's environment variable of the same name, read
+when the weights are folded or K2 is called): one scale per kernel row
+and output channel (``SD_INT8_SCALES=row``, the default) or per output
+channel (``cout``); scales from the largest weight or a percentile of
+them with saturation (``SD_INT8_CLIP_PCT``); an int8 or a bf16 readout
+conv (``SD_INT8_LOGITS``). Membranes, biases and logits are fp32. Every
+conv is three kernel-row partial sums combined in the order centre, top,
+bottom, then bias (row scales: each partial times its scale; cout: the
+integer sum times its one scale), the JAX mirror's int8 order; in int8 the
+partials are exact integers, so kernel and plain version agree bitwise.
+
+``SD_FUSED_ABLATE`` (``ablate``) is JAX's roofline mode, whose output is
+wrong on purpose and which warns on stderr whenever it is built or run:
+``nolif`` spikes where the input reaches the threshold and keeps no
+membrane; ``noshift`` reads every tap at the row's own position, with no
+halo; ``matmul`` both.
 
 The kernel runs layer by layer over all T steps at once: each conv is one
 tensor-core GEMM over N * P * T bf16 spike rows ordered (n, p, t),
@@ -31,8 +42,10 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import os
+import sys
 import warnings
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +79,55 @@ ROW_ORDER = (1, 0, 2)  # kernel rows dy in the kernel's contraction: centre, top
 FIRST_CONV_DTYPES = {torch.float32: torch.float32, torch.bfloat16: torch.bfloat16,
                      torch.int8: torch.bfloat16}
 
+# the int8 sampler's options and the roofline ablations, JAX's names and defaults
+SCALES = ("row", "cout")
+LOGITS = ("int8", "bf16")
+ABLATIONS = ("", "nolif", "noshift", "matmul")
+ABLATION_BITS = {"": 0, "nolif": 1, "noshift": 2, "matmul": 3}  # the kernel's: nolif 1, noshift 2
+UNSET = object()  # an option left to its environment variable
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerOptions:
+    """The fused sampler's int8 quantizer and its roofline ablation."""
+
+    scales: str = "row"
+    clip_pct: Optional[float] = None
+    logits: str = "int8"
+    ablate: str = ""
+
+
+def sampler_options(scales=UNSET, clip_pct=UNSET, logits=UNSET, ablate=UNSET) -> SamplerOptions:
+    """The options given, the others from the JAX package's environment
+    variables (``SD_INT8_SCALES``, ``SD_INT8_CLIP_PCT``, ``SD_INT8_LOGITS``,
+    ``SD_FUSED_ABLATE``), read now, else JAX's defaults. ``clip_pct=None``
+    is no clipping. ``ValueError`` for a value JAX's sampler does not take."""
+    env = os.environ
+    if scales is UNSET:
+        scales = env.get("SD_INT8_SCALES", "row")
+    if clip_pct is UNSET:
+        clip_pct = float(env["SD_INT8_CLIP_PCT"]) if env.get("SD_INT8_CLIP_PCT") else None
+    if logits is UNSET:
+        logits = env.get("SD_INT8_LOGITS", "int8")
+    if ablate is UNSET:
+        ablate = env.get("SD_FUSED_ABLATE", "")
+    for name, value, allowed in (("SD_INT8_SCALES", scales, SCALES),
+                                 ("SD_INT8_LOGITS", logits, LOGITS),
+                                 ("SD_FUSED_ABLATE", ablate, ABLATIONS)):
+        if value not in allowed:
+            raise ValueError(f"{name}={value!r} not in {'/'.join(a for a in allowed if a)}")
+    if clip_pct is not None and not 0.0 <= float(clip_pct) <= 100.0:
+        raise ValueError(f"SD_INT8_CLIP_PCT={clip_pct!r} is no percentile")
+    return SamplerOptions(scales, None if clip_pct is None else float(clip_pct), logits, ablate)
+
+
+def _warn_ablation(ablate: str) -> None:
+    """JAX's warning for a roofline ablation, on stderr."""
+    if ablate:
+        print(f"fused_denoiser: SD_FUSED_ABLATE={ablate} — ROOFLINE MODE, output is "
+              "numerically WRONG (benchmark only)", file=sys.stderr, flush=True)
+
+
 _FN = None
 
 
@@ -75,6 +137,7 @@ def _kernel():
         fn = _build.load(SOURCE).fused_denoiser_fwd
         fn.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p, ctypes.c_void_p,
@@ -93,9 +156,11 @@ class FoldedDenoiser:
     ``k1`` (C1, 2, 3, 3) and ``b1`` (C1,): the first conv, fp32 tensors;
     ``k1`` holds values of ``FIRST_CONV_DTYPES[dtype]``. Then one entry per
     conv of the kernel, blocks 2..L and the readout last:
-    ``weights[i]`` (3, 3 * Cin, Cout) in ``dtype``, rows grouped by kernel
-    row dy and then (dx, cin); ``biases[i]`` (1, Cout) fp32, or for int8
-    (4, Cout): the bias and one dequant scale per kernel row.
+    ``weights[i]`` (3, 3 * Cin, Cout) in ``dtype`` (an int8 sampler's
+    readout may be bf16), rows grouped by kernel row dy and then (dx, cin);
+    ``biases[i]`` (1, Cout) fp32 for an fp32 or bf16 weight; for an int8
+    one the bias and its dequant scales, (4, Cout) with a scale per kernel
+    row or (2, Cout) with one per output channel, as JAX packs them.
     """
 
     k1: torch.Tensor
@@ -118,17 +183,32 @@ def _full_fp32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def _quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 with one scale per kernel row and output channel.
+def quantize(w: torch.Tensor, scales: str = "row",
+             clip_pct: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 of a (3, 3 * Cin, Cout) weight, JAX's quantizer.
 
-    ``s = max(amax / 127, 1e-12)`` over each (kw, cin) group, then
-    ``clip(round(w / s), -127, 127)``; ``torch.round`` rounds half to even
-    as ``jnp.round`` does. Returns (int8 weights, (3, Cout) scales).
+    ``scales='row'``: one scale per kernel row and output channel, over
+    each (kw, cin) group; 'cout': one per output channel, over all nine
+    taps and the input channels. The group's ``max |w|``, or with
+    ``clip_pct`` its percentile (``torch.quantile``, linear interpolation,
+    ``jnp.percentile``'s method), gives ``s =
+    max(amax / 127, 1e-12)``; then ``clip(round(w / s), -127, 127)``
+    (``torch.round`` rounds half to even as ``jnp.round`` does, and the clip
+    saturates the weights above a percentile). Returns (int8 weights, the
+    scales: (3, Cout) for 'row', (1, Cout) for 'cout').
     """
-    amax = w.abs().amax(dim=1)  # (3, Cout)
-    s = torch.clamp(amax / 127.0, min=1e-12)
-    wq = torch.clamp(torch.round(w / s[:, None, :]), -127, 127).to(torch.int8)
-    return wq, s
+    aw = w.abs()
+    if scales == "row":
+        amax = aw.amax(dim=1) if clip_pct is None else torch.quantile(aw, clip_pct / 100.0, dim=1)
+        s = torch.clamp(amax / 127.0, min=1e-12)  # (3, Cout)
+        wq = torch.round(w / s[:, None, :])
+    else:
+        flat = aw.reshape(-1, w.shape[-1])
+        amax = flat.amax(dim=0) if clip_pct is None else torch.quantile(flat, clip_pct / 100.0,
+                                                                        dim=0)
+        s = torch.clamp(amax / 127.0, min=1e-12).reshape(1, -1)
+        wq = torch.round(w / s)
+    return torch.clamp(wq, -127, 127).to(torch.int8), s
 
 
 def _kernel_rows(weight: torch.Tensor) -> torch.Tensor:
@@ -138,16 +218,21 @@ def _kernel_rows(weight: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
+def fold_denoiser_weights(denoiser, dtype=torch.float32, scales=UNSET, clip_pct=UNSET,
+                          logits=UNSET) -> FoldedDenoiser:
     """Fold the BN of convs 1..L into them and cast or quantize for K2.
 
     Counterpart of the JAX ``_extract_folded_weights`` with
     ``folded_conv_params``. The readout conv has no BN and is not folded;
-    it is cast or quantized like the others. The first conv stays outside
-    the kernel, its weight rounded to ``FIRST_CONV_DTYPES[dtype]``.
+    it is cast or quantized like the others, or for an int8 sampler with
+    ``logits='bf16'`` cast to bf16. The first conv stays outside the
+    kernel, its weight rounded to ``FIRST_CONV_DTYPES[dtype]``. ``scales``,
+    ``clip_pct`` and ``logits`` (:func:`sampler_options`; unset: their
+    environment variables, read now) act on an int8 sampler only.
     """
     if dtype not in DTYPES:
         raise TypeError(f"fused sampler dtype must be one of {list(DTYPES)}, got {dtype}")
+    opts = sampler_options(scales, clip_pct, logits)
     folded = [fuse_conv_bn(conv.weight, conv.bias, bn.scale, bn.bias, bn.mean,
                            bn.var, bn.eps)
               for conv, bn in zip(denoiser.convs, denoiser.bns)]
@@ -156,13 +241,16 @@ def fold_denoiser_weights(denoiser, dtype=torch.float32) -> FoldedDenoiser:
     k1, b1 = folded[0]
     k1 = k1.to(FIRST_CONV_DTYPES[dtype]).float()
     weights, biases = [], []
-    for w, b in folded[1:]:
+    for i, (w, b) in enumerate(folded[1:]):
         w = _kernel_rows(w)
         b = b.reshape(1, -1)
-        if dtype == torch.int8:
-            w, s = _quantize_rows(w)
+        wdtype = dtype
+        if dtype == torch.int8 and i == len(folded) - 2 and opts.logits == "bf16":
+            wdtype = torch.bfloat16  # the readout of a mixed-precision sampler
+        elif dtype == torch.int8:
+            w, s = quantize(w, opts.scales, opts.clip_pct)
             b = torch.cat([b, s], dim=0)
-        weights.append(w.to(dtype).contiguous())
+        weights.append(w.to(wdtype).contiguous())
         biases.append(b.contiguous())
     return FoldedDenoiser(k1.contiguous(), b1.contiguous(), tuple(weights),
                           tuple(biases), dtype)
@@ -215,19 +303,25 @@ def denoiser_cost(cfg: DiffusionConfig, n: int, itemsize: int = 2,
 
 
 def _conv_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n: int,
-               hw: int) -> torch.Tensor:
+               hw: int, noshift: bool = False) -> torch.Tensor:
     """3x3 SAME conv of (n*hw*hw, Cin) spikes as three kernel-row products.
 
     Each partial is one fp32 product of the zero-padded, x-shifted spikes
-    (n*hw*hw, 3 * Cin) with ``w[dy]``; they combine centre, top, bottom,
-    then bias (each times its scale when ``b`` has 4 rows).
+    (n*hw*hw, 3 * Cin) with ``w[dy]`` (``noshift``: the unshifted spikes at
+    every tap); they combine centre, top, bottom, then the bias. With 4
+    bias rows each partial is first times its scale; with 2 (an int8
+    weight's one scale per output channel) the exact integer sum is times
+    the scale before the bias.
     """
     cin = x.shape[1]
     xp = F.pad(x.reshape(n, hw, hw, cin), (0, 0, 1, 1, 1, 1))
     wf = w.float()
     parts = []
     for dy in range(3):
-        big = torch.cat([xp[:, dy:dy + hw, dx:dx + hw] for dx in range(3)], dim=-1)
+        if noshift:
+            big = torch.cat([x] * 3, dim=-1)
+        else:
+            big = torch.cat([xp[:, dy:dy + hw, dx:dx + hw] for dx in range(3)], dim=-1)
         parts.append(big.reshape(n * hw * hw, 3 * cin) @ wf[dy])
     if b.shape[0] == 4:
         out = parts[1] * b[2]
@@ -236,20 +330,31 @@ def _conv_rows(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n: int,
     else:
         out = parts[1] + parts[0]
         out = out + parts[2]
+        if b.shape[0] == 2:
+            out = out * b[1]
     return out + b[0]
 
 
+def _lif(v: torch.Tensor, z: torch.Tensor, p, nolif: bool):
+    """One LIF step, or with ``nolif`` JAX's threshold-only spike: z >=
+    v_threshold, the membrane kept as it is."""
+    if nolif:
+        return v, (z >= p.v_threshold).float()
+    return lif_step(v, z, p)
+
+
 def fused_denoise_reference(a1: torch.Tensor, folded: FoldedDenoiser,
-                            cfg: DiffusionConfig) -> torch.Tensor:
+                            cfg: DiffusionConfig, ablate: str = "") -> torch.Tensor:
     """Plain PyTorch version of K2: (N, h*w, C1) a1 -> (N, h*w, K) logits.
 
     Counterpart of the JAX ``mirror_denoise_fn`` after the first conv:
     the same folded computation, fp32 membranes and logits, spikes as
-    exact 0/1 fp32, TF32 off.
+    exact 0/1 fp32, TF32 off; ``ablate`` as K2's (``ABLATIONS``).
     """
     n, hw2, c1 = a1.shape
     hw = cfg.latent_size
     p = cfg.lif.to_params()
+    nolif, noshift = ablate in ("nolif", "matmul"), ablate in ("noshift", "matmul")
     x1 = a1.reshape(n * hw2, c1).float()
     chans = [c1] + [w.shape[2] for w in folded.weights[:-1]]
     vs = [torch.full((n * hw2, c), p.v_reset, dtype=torch.float32,
@@ -258,13 +363,13 @@ def fused_denoise_reference(a1: torch.Tensor, folded: FoldedDenoiser,
                       dtype=torch.float32, device=a1.device)
     with _full_fp32():
         for _ in range(cfg.num_steps):
-            vs[0], s1 = lif_step(vs[0], x1, p)
+            vs[0], s1 = _lif(vs[0], x1, p, nolif)
             x = s1
             for i in range(1, len(chans)):
-                z = _conv_rows(x, folded.weights[i - 1], folded.biases[i - 1], n, hw)
-                vs[i], x = lif_step(vs[i], z, p)
+                z = _conv_rows(x, folded.weights[i - 1], folded.biases[i - 1], n, hw, noshift)
+                vs[i], x = _lif(vs[i], z, p, nolif)
             cat = torch.cat([x, s1], dim=-1)
-            acc = acc + _conv_rows(cat, folded.weights[-1], folded.biases[-1], n, hw)
+            acc = acc + _conv_rows(cat, folded.weights[-1], folded.biases[-1], n, hw, noshift)
     return (acc / cfg.num_steps).reshape(n, hw2, -1)
 
 
@@ -352,16 +457,21 @@ def _check(a1: torch.Tensor, folded: FoldedDenoiser, cfg: DiffusionConfig):
         raise ValueError(f"K2 takes 2..{MAX_LAYERS} conv blocks, got {len(chans)}")
     cins = chans[:-1] + (chans[-1] + chans[0],)
     couts = chans[1:] + (cfg.num_embeddings,)
-    bias_rows = 4 if folded.dtype == torch.int8 else 1
     if len(folded.weights) != len(couts) or len(folded.biases) != len(couts):
         raise ValueError(f"need {len(couts)} weights and biases")
-    for w, b, cin, cout in zip(folded.weights, folded.biases, cins, couts):
-        if w.dtype != folded.dtype or b.dtype != torch.float32:
+    # an int8 weight's pack: the bias and 3 scales a kernel row, or 1 an output
+    # channel, in every layer as in the first
+    int8_rows = 4 if folded.biases[0].shape[0] == 4 else 2
+    for i, (w, b, cin, cout) in enumerate(zip(folded.weights, folded.biases, cins, couts)):
+        readout_bf16 = (i == len(couts) - 1 and folded.dtype == torch.int8
+                        and w.dtype == torch.bfloat16)
+        if (w.dtype != folded.dtype and not readout_bf16) or b.dtype != torch.float32:
             raise TypeError(f"weights {w.dtype} / bias {b.dtype}: need "
                             f"{folded.dtype} / float32")
-        if tuple(w.shape) != (3, 3 * cin, cout) or tuple(b.shape) != (bias_rows, cout):
+        rows = int8_rows if w.dtype == torch.int8 else 1
+        if tuple(w.shape) != (3, 3 * cin, cout) or tuple(b.shape) != (rows, cout):
             raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)}: "
-                             f"need (3, {3 * cin}, {cout}) / ({bias_rows}, {cout})")
+                             f"need (3, {3 * cin}, {cout}) / ({rows}, {cout})")
     for x in folded.weights + folded.biases:
         if x.device != a1.device:
             raise ValueError(f"a1 on {a1.device}, weights on {x.device}")
@@ -379,16 +489,19 @@ def _check_card(a1: torch.Tensor, cfg: DiffusionConfig):
 
 
 def fused_denoise(a1: torch.Tensor, folded: FoldedDenoiser,
-                  cfg: DiffusionConfig) -> torch.Tensor:
+                  cfg: DiffusionConfig, ablate=UNSET) -> torch.Tensor:
     """The denoiser after its first conv: (N, h*w, C1) a1 -> (N, h*w, K).
 
     A CPU tensor takes :func:`fused_denoise_reference`; a CUDA tensor
-    launches K2 (its L + 1 kernels), or raises.
+    launches K2 (its L + 1 kernels), or raises. ``ablate``: a roofline
+    ablation (unset: ``SD_FUSED_ABLATE``, read now), which warns.
     """
     global LAUNCHES
+    ablate = sampler_options(ablate=ablate).ablate
     _check(a1, folded, cfg)
+    _warn_ablation(ablate)
     if a1.device.type == "cpu":
-        return fused_denoise_reference(a1, folded, cfg)
+        return fused_denoise_reference(a1, folded, cfg, ablate)
     if not _on_card(a1):
         raise ValueError(f"fused_denoise runs on CUDA or CPU, not {a1.device}")
     tensors = (a1,) + folded.weights + folded.biases
@@ -413,7 +526,9 @@ def fused_denoise(a1: torch.Tensor, folded: FoldedDenoiser,
     fn = _kernel()
     with torch.cuda.device(a1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(DTYPES[folded.dtype], n, cfg.latent_size, n_l, c_chans,
+        rc = fn(DTYPES[folded.dtype], DTYPES[folded.weights[-1].dtype],
+                int(folded.biases[0].shape[0] == 4), ABLATION_BITS[ablate],
+                n, cfg.latent_size, n_l, c_chans,
                 cfg.num_embeddings, cfg.num_steps, a1.data_ptr(), w_ptrs,
                 b_ptrs, cat.data_ptr(), ping.data_ptr(), pong.data_ptr(),
                 out.data_ptr(), p.decay, p.v_threshold, p.v_reset,
@@ -428,21 +543,26 @@ def fused_denoise(a1: torch.Tensor, folded: FoldedDenoiser,
 
 
 def make_fused_denoise_fn(denoiser, cfg: DiffusionConfig,
-                          dtype=torch.float32) -> DenoiseFn:
+                          dtype=torch.float32, ablate=UNSET) -> DenoiseFn:
     """(tokens (N, h, w), t (N,)) -> (N, h, w, K) logits through K2.
 
     Folds the weights on every call, as the JAX package does, so the
-    function follows the module's current weights.
+    function follows the module's current weights, and the int8
+    quantizer's environment variables are read then. ``ablate`` (unset:
+    ``SD_FUSED_ABLATE``, read now) is fixed for the function and warns now
+    and at every call.
     """
     if dtype not in DTYPES:
         raise TypeError(f"fused sampler dtype must be one of {list(DTYPES)}, got {dtype}")
+    ablate = sampler_options(ablate=ablate).ablate
+    _warn_ablation(ablate)
     hw, k = cfg.latent_size, cfg.num_embeddings
 
     @torch.no_grad()
     def denoise(tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         folded = fold_denoiser_weights(denoiser, dtype)
         a1 = first_preactivation(tokens, t, folded.k1, folded.b1)
-        return fused_denoise(a1, folded, cfg).reshape(tokens.shape[0], hw, hw, k)
+        return fused_denoise(a1, folded, cfg, ablate).reshape(tokens.shape[0], hw, hw, k)
 
     return denoise
 

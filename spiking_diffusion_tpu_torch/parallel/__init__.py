@@ -25,6 +25,7 @@ from spiking_diffusion_tpu_torch.parallel.tp import (
     Mesh2D,
     copy_to_model,
     gather_channels,
+    gather_features,
     gather_rows,
     make_mesh_2d,
     param_spec,
@@ -39,7 +40,7 @@ from spiking_diffusion_tpu_torch.parallel.tp import (
 
 __all__ = ["CollectiveStats", "Mesh", "Mesh2D", "all_gather_rows", "all_reduce_gradients",
            "all_reduce_mean", "broadcast_object", "copy_to_model", "gather_channels",
-           "gather_rows", "in_process_group", "launch", "make_mesh", "make_mesh_2d",
-           "param_spec", "replicas_equal", "replicas_equal_tp", "replicate", "shard_batch",
-           "shard_batch_2d", "shard_plan", "shard_state_tp", "shard_variables_tp",
-           "sync_batchnorm", "unshard_state_dict", "unshard_tensors"]
+           "gather_features", "gather_rows", "in_process_group", "launch", "make_mesh",
+           "make_mesh_2d", "param_spec", "replicas_equal", "replicas_equal_tp", "replicate",
+           "shard_batch", "shard_batch_2d", "shard_plan", "shard_state_tp",
+           "shard_variables_tp", "sync_batchnorm", "unshard_state_dict", "unshard_tensors"]

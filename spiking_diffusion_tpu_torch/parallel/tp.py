@@ -7,13 +7,15 @@ written out, with their backward passes, as ``torch.autograd.Function``s
 over the ``model`` group (Megatron's column-parallel layer with a gathered
 output):
 
-- a sharded conv takes :func:`copy_to_model` of its input (the identity;
+- a sharded conv or ``Linear`` (the baselines' heads and causal cells)
+  takes :func:`copy_to_model` of its input (the identity;
   its backward sums the ranks' partial input gradients) and computes only
   its own output channels; its bias, its BatchNorm (scale, bias, running
   statistics) and its neuron (K1, or K3 on the shard's scale and shift, or
   K4's moments) run on that shard, since each is per channel;
 - the block's spikes leave through :func:`gather_channels` (all ranks'
-  channels in rank order; the backward keeps this rank's slice);
+  channels in rank order; the backward keeps this rank's slice), a
+  ``Linear``'s spikes through :func:`gather_features`;
 - everything after a gather is computed alike on every model rank from
   the same tensors: the quantizer's readout and its distances and argmin
   over the codebook from :func:`gather_rows` (the same codes as one
@@ -22,8 +24,9 @@ output):
   are therefore whole on every model rank and take no model-group sum.
 
 The rule (:func:`param_spec`) is JAX's ``_param_spec`` on the port's
-layouts: a conv weight (Cout, Cin, kh, kw) is sharded on dim 0, a
-transposed conv's (Cin, Cout, kh, kw) on dim 1, the codebook (K, D) on its
+layouts: a conv weight (Cout, Cin, kh, kw) and a ``Linear``'s (out, in)
+are sharded on dim 0, a transposed conv's (Cin, Cout, kh, kw) on dim 1,
+the codebook (K, D) on its
 rows, every 1-D tensor (biases, BN parameters and running statistics) on
 dim 0; everything else, and a dimension that does not divide by ``tp`` or
 is smaller than ``MIN_SIZE * tp``, is replicated. AdamW's moments are
@@ -181,6 +184,12 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _Gather.apply(x, 0, mesh) if _sharded(mesh) else x
 
 
+def gather_features(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """(..., F / tp) on each model rank -> (..., F) on every one: a
+    column-parallel ``Linear``'s features."""
+    return _Gather.apply(x, x.ndim - 1, mesh) if _sharded(mesh) else x
+
+
 # --- the sharding plan ---------------------------------------------------------
 
 
@@ -229,7 +238,9 @@ def shard_state_tp(state, mesh: Mesh2D):
     parameters and buffers and AdamW's ``exp_avg`` / ``exp_avg_sq`` by
     :func:`shard_plan`, the step count kept; each sharded conv and the
     quantizer's codebook gathers over ``mesh.model`` from then on. The plan
-    is kept as ``model.tp_plan``. Shard a replica (``parallel.replicate``);
+    is kept as ``model.tp_plan``. Every model of the port has the forms:
+    the VQ-VAE, the denoiser, the ANN VQ-VAE and the SNN-VAE. Shard a
+    replica (``parallel.replicate``);
     its statistics are synced over ``mesh.data`` by
     ``parallel.sync_batchnorm(model, mesh.data)``."""
     model = state.model

@@ -129,8 +129,8 @@ def test_parallel_defaults_to_cuda(monkeypatch):
 
 def test_tensor_parallel_defaults_to_cuda(monkeypatch):
     """``make_mesh_2d`` without a device raises on a process with no card,
-    as ``make_mesh`` does (the TP step builders on a rank:
-    tests/test_torch_tensor_parallel.py)."""
+    as ``make_mesh`` does, and so do the TP step builders, the SNN-VAE's
+    included (on a rank: tests/test_torch_tensor_parallel.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         parallel.make_mesh_2d(1, 1)
@@ -138,6 +138,8 @@ def test_tensor_parallel_defaults_to_cuda(monkeypatch):
     assert (mesh.dp, mesh.tp, mesh.world.world_size, str(mesh.device)) == (1, 1, 1, "cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         stage2.make_train_step_diffusion_tp(DiffusionConfig(), mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.make_train_step_snn_vae_tp(mesh)
 
 
 def test_cli_and_metrics_default_to_cuda(monkeypatch, tmp_path):

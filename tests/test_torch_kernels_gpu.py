@@ -27,10 +27,13 @@ cores for dW when x is exact in bf16 and g finite, for dx when g is
 finite, and the CUDA cores otherwise, at the same tolerances (with inf and
 NaN where the plain version has them), equal from launch to launch, and
 its dx weight split is bitwise its plain version. K2 (the fused denoiser) must agree
-bitwise in int8, where every partial sum is an exact integer; in fp32 and bf16 its sums run in another
+bitwise in int8, where every partial sum is an exact integer, with per-row
+or per-cout scales and with percentile clips; in fp32 and bf16, and for an
+int8 sampler's bf16 readout, its sums run in another
 order than cuBLAS's, so a membrane one rounding from threshold may flip a
 spike: at least 99 % of the logits lie within 1e-4 and the median
-|difference| is at most 1e-6; its conv and readout kernels run on the
+|difference| is at most 1e-6; each roofline ablation agrees with the plain
+version of its mode at the same bounds; its conv and readout kernels run on the
 tensor cores (HMMA in their SASS), and it refuses T > 128. The op/energy
 counters (``profiling/syops.py``) of a full-width VQ-VAE and denoiser
 forward through K1 or K3 equal those through the plain versions.
@@ -549,15 +552,28 @@ def _k2_setup(width, n, device, seed=0):
     return cfg, den, tokens[:n], t[:n]
 
 
-def _k2_pair(cfg, den, tokens, t, dtype):
-    folded = fd.fold_denoiser_weights(den, dtype)
+def _k2_pair(cfg, den, tokens, t, dtype, ablate="", **options):
+    folded = fd.fold_denoiser_weights(den, dtype, **options)
     a1 = fd.first_preactivation(tokens, t, folded.k1, folded.b1)
     before = fd.LAUNCHES
-    out = fd.fused_denoise(a1, folded, cfg)
+    out = fd.fused_denoise(a1, folded, cfg, ablate)
     assert fd.LAUNCHES == before + 1
-    ref = fd.fused_denoise_reference(a1, folded, cfg)
+    ref = fd.fused_denoise_reference(a1, folded, cfg, ablate)
     torch.cuda.synchronize()
     return out, ref
+
+
+def _hold_k2(out, ref, exact: bool) -> None:
+    """int8 bitwise; fp32 and bf16 (sums in the tensor cores' order) with
+    99 % of the logits within 1e-4 and the median |difference| at most 1e-6."""
+    assert out.shape == ref.shape
+    assert bool(torch.isfinite(out).all()) and float(ref.std()) > 0.01
+    diff = (out - ref).abs()
+    if exact:
+        assert float(diff.max()) == 0.0
+    else:
+        assert float((diff <= 1e-4).float().mean()) >= 0.99
+        assert float(diff.median()) <= 1e-6
 
 
 @pytest.mark.gpu
@@ -625,8 +641,41 @@ def test_fused_denoiser_kernels_reach_the_tensor_cores(cuda_device):
         elif name is not None and "HMMA" in line:
             counts[name] += 1
     for kernel in ("conv_lif_kernel", "readout_kernel"):
+        # each weight type, with and without the noshift ablation
         found = {k: v for k, v in counts.items() if kernel in k}
-        assert len(found) == 3 and all(v > 0 for v in found.values()), found
+        assert len(found) == 6 and all(v > 0 for v in found.values()), found
+
+
+K2_OPTIONS = {"cout": dict(scales="cout"), "clip99.9": dict(clip_pct=99.9),
+              "clip99.9_cout": dict(scales="cout", clip_pct=99.9),
+              "bf16_logits": dict(logits="bf16")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [13, 256])
+@pytest.mark.parametrize("width", ["small", "full"])
+@pytest.mark.parametrize("option", sorted(K2_OPTIONS))
+def test_fused_denoiser_int8_options_match_reference(cuda_device, option, width, n):
+    """The int8 sampler's options: per-cout scales and percentile clips
+    bitwise (exact integer sums, one dequant); a bf16 readout at the bf16
+    sampler's bound."""
+    cfg, den, tokens, t = _k2_setup(width, n, cuda_device, seed=5)
+    out, ref = _k2_pair(cfg, den, tokens, t, torch.int8, **K2_OPTIONS[option])
+    _hold_k2(out, ref, exact=option != "bf16_logits")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ablate", ["nolif", "noshift", "matmul"])
+@pytest.mark.parametrize("dtype", sorted(K2_DTYPES))
+def test_fused_denoiser_ablations_match_reference(cuda_device, dtype, ablate):
+    """Each roofline ablation against the plain version of the same mode, at
+    the unablated mode's bound (int8 bitwise), and unlike the unablated
+    output."""
+    cfg, den, tokens, t = _k2_setup("small", 13, cuda_device, seed=6)
+    out, ref = _k2_pair(cfg, den, tokens, t, K2_DTYPES[dtype], ablate)
+    _hold_k2(out, ref, exact=dtype == "int8")
+    plain, _ = _k2_pair(cfg, den, tokens, t, K2_DTYPES[dtype])
+    assert not torch.equal(out, plain)
 
 
 # --- K4 ----------------------------------------------------------------------

@@ -9,11 +9,11 @@ imports no JAX) and each is a test here:
 
 * the plan: ``param_spec`` / ``shard_plan`` shard the same tensors on the
   same (translated) dims as JAX's ``shard_variables_tp`` for every leaf of
-  the VQ-VAE and the denoiser at the flagship widths (``jax.eval_shape``),
-  at tp 2 and 4; each rank (d, m)'s slices (``shard_variables_tp``) are
-  JAX's ``addressable_shards`` on device d * tp + m, after the layout
-  translation of ``models/weights.py``; shard then unshard is bitwise the
-  whole; ``shard_state_tp`` slices AdamW's moments and keeps its step;
+  the VQ-VAE, the denoiser, the ANN VQ-VAE and the SNN-VAE at the flagship
+  widths (``jax.eval_shape``), at tp 2 and 4; each rank (d, m)'s slices
+  (``shard_variables_tp``) are JAX's ``addressable_shards`` on device
+  d * tp + m, after the layout translation of ``models/weights.py``; shard
+  then unshard is bitwise the whole; ``shard_state_tp`` slices AdamW's moments and keeps its step;
 * the mesh: each rank's coordinates and groups, the ``ValueError`` for a
   world that is not dp x tp and for a model whose sharded layer has no
   tensor-parallel form; on a rank with no card, ``make_mesh_2d`` and the
@@ -27,6 +27,11 @@ imports no JAX) and each is a test here:
   ``make_mesh_2d(2, 2)`` and ``make_mesh_2d(1, 2)`` (layerwise, fp32, fed
   JAX's drawn corruption): JAX's own tolerances (tests/test_tensor_parallel.py),
   the codes of the sharded model equal to JAX's;
+* the baselines' TP steps on the 2 x 2 mesh against JAX's over
+  ``make_mesh_2d(2, 2)``: the ANN VQ-VAE's stage-1 step and the SNN-VAE's
+  step (JAX's CLI step, fed JAX's draws, on tests/test_torch_snn_vae.py's
+  problem), at JAX's tolerances, the ANN's codes and the SNN-VAE's binary
+  latents equal to JAX's;
 * the TP steps against the port's single-process step on the global batch
   on every branch in fp32 and bf16 (stage 1 'auto' and 'bnlif', stage 2
   'torch', 'bnlif_torch', 'bnlifconv_torch', the kernels' plain versions
@@ -45,21 +50,27 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_snn_vae as snn_vae_test
 import torch_tp_worker as worker
 from spiking_diffusion_tpu.config import DiffusionConfig as JaxDiffusionConfig
+from spiking_diffusion_tpu.config import SNNVAEConfig as JaxSNNVAEConfig
 from spiking_diffusion_tpu.config import VQVAEConfig as JaxVQVAEConfig
 from spiking_diffusion_tpu.models import diffusion as jax_diffusion
+from spiking_diffusion_tpu.models.ann_vqvae import ANNVQVAE as JaxANNVQVAE
 from spiking_diffusion_tpu.models.denoiser import SpikingDenoiser as JaxDenoiser
+from spiking_diffusion_tpu.models.snn_vae import SNNVAE as JaxSNNVAE
 from spiking_diffusion_tpu.models.vqvae import SNNVQVAE as JaxSNNVQVAE
 from spiking_diffusion_tpu.parallel import tp as jax_tp
 from spiking_diffusion_tpu.train import stage1 as jax_stage1
 from spiking_diffusion_tpu.train import stage2 as jax_stage2
 from spiking_diffusion_tpu.train import state as jax_state
-from spiking_diffusion_tpu_torch import parallel
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch import cli, parallel
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import data_variance, synthetic_dataset
 from spiking_diffusion_tpu_torch.models import weights
+from spiking_diffusion_tpu_torch.models.ann_vqvae import ANNVQVAE
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
+from spiking_diffusion_tpu_torch.models.snn_vae import SNNVAE
 from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
@@ -69,6 +80,12 @@ VQ_KW = dict(num_steps=2, embedding_dim=4, num_embeddings=8, enc_channels=(8, 8)
              dec_channels=(8, 8))
 DEN_KW = dict(num_timesteps=4, num_embeddings=8, mask_id=8, num_steps=2,
               denoiser_channels=(8, 16, 8))
+# the SNN-VAE problem of tests/test_torch_snn_vae.py, whose step the port
+# matches JAX's on (its decoder input fixes the 7 x 7 x 16 grid): T = 4,
+# its widened variables, 4 images (2 a data rank), scheduled sampling on,
+# its training forward's key
+SNN_VQ_KW = dict(snn_vae_test.VQ_KW, num_steps=snn_vae_test.T_MODEL)
+SNN_KW = dict(snn_vae_test.VAE_KW, num_steps=snn_vae_test.T_MODEL)
 BATCH = 8  # the global batch: 4 rows a data rank on the 2 x 2 mesh
 # JAX's TP tolerances (tests/test_tensor_parallel.py)
 JAX_LOSS_RTOL = 1e-5
@@ -117,6 +134,39 @@ def _widened(variables, seed):
     return {"params": variables["params"], "batch_stats": variables["batch_stats"]}
 
 
+def _snn_vae_draws(key, batch):
+    """The draws of JAX ``SNNVAE.__call__(image, key, train=True)``."""
+    shape = (SNN_KW["num_steps"], batch, SNN_KW["latent_dim"])
+    k1, k2 = jax.random.split(key)
+    c1, c2 = jax.random.split(k2)
+    return tuple(np.array(a) for a in (jax.random.randint(k1, shape, 0, SNN_KW["k"]),
+                                       jax.random.uniform(c1, (shape[0],)),
+                                       jax.random.normal(c2, shape)))
+
+
+def _baseline_inputs(images, variance):
+    """The ANN VQ-VAE's and the SNN-VAE's JAX variables (numpy) and their
+    step's inputs."""
+    ann = JaxANNVQVAE(JaxVQVAEConfig(**VQ_KW))
+    ann_params = _to_np(jax.jit(lambda k, x: ann.init(k, x, train=True))(
+        jax.random.PRNGKey(6), jnp.asarray(images))["params"])
+    # the codebook drawn from the encoder's outputs, so that the codes vary
+    z = np.asarray(ann.apply({"params": ann_params}, jnp.asarray(images), method=ann.encode))
+    z = z.reshape(-1, z.shape[-1])
+    rows = np.random.RandomState(11).choice(len(z), ann_params["embeddings"].shape[0],
+                                            replace=False)
+    ann_params["embeddings"] = z[rows].astype(np.float32)
+    _, vae_vars, _, _ = snn_vae_test._problem(snn_vae_test.T_MODEL)
+    vae_images = snn_vae_test._images()
+    key = jax.random.PRNGKey(9)
+    return {"ann_vqvae": {"cfg": VQ_KW, "images": images, "variance": variance,
+                          "params": ann_params},
+            "snn_vae": {"cfg": SNN_KW, "vq_cfg": SNN_VQ_KW, "images": vae_images,
+                        "params": vae_vars["params"], "batch_stats": vae_vars["batch_stats"],
+                        "p_scheduled": snn_vae_test.P_SCHEDULED, "key": key,
+                        "draws": _snn_vae_draws(key, len(vae_images))}}
+
+
 def _inputs():
     ds = synthetic_dataset("MNIST", n_train=16, n_test=4)
     images = ds.train_images[:BATCH] - 0.5
@@ -136,7 +186,8 @@ def _inputs():
                    for k in keys]
     return {"stage1": vq, "stage1_uni": vq_uni,
             "stage2": {"cfg": DEN_KW, "x0": x0, "corruption": corruptions[0],
-                       "corruptions": corruptions, **den_vars}}, keys[0]
+                       "corruptions": corruptions, **den_vars},
+            **_baseline_inputs(images, data_variance(ds.train_images))}, keys[0]
 
 
 def _to_np(tree):
@@ -172,6 +223,47 @@ def _jax_stage2(inp, key, dp, tp):
         _to_np(new.params), _to_np(new.batch_stats), DiffusionConfig(**inp["cfg"])), None)
 
 
+def _jax_ann(inp, dp, tp):
+    """JAX's stage-1 step of the ANN VQ-VAE over ``make_mesh_2d(dp, tp)``."""
+    model = JaxANNVQVAE(JaxVQVAEConfig(**inp["cfg"]))
+    variables = {"params": inp["params"]}
+    mesh = jax_tp.make_mesh_2d(dp, tp)
+    state = jax_tp.shard_state_tp(jax_state.create_train_state(model, variables), mesh)
+    new, metrics = jax_stage1.make_train_step_vqvae(inp["variance"], donate=False)(
+        state, jax_tp.shard_batch_2d(jnp.asarray(inp["images"]), mesh))
+    codes = jax.jit(lambda v, x: model.apply(v, x, method=model.encode_indices))(
+        variables, jnp.asarray(inp["images"]))
+    return (float(metrics["loss"]), weights.ann_vqvae_state_dict(_to_np(new.params)),
+            np.asarray(codes))
+
+
+def _jax_snn_vae(inp, dp, tp):
+    """JAX's SNN-VAE step (``cli._run_snn_vae``'s) over ``make_mesh_2d(dp,
+    tp)``, and the eval forward's binary latents before it."""
+    model = JaxSNNVAE(JaxSNNVAEConfig(**inp["cfg"]), vq_cfg=JaxVQVAEConfig(**inp["vq_cfg"]))
+    variables = {"params": inp["params"], "batch_stats": inp["batch_stats"]}
+    mesh = jax_tp.make_mesh_2d(dp, tp)
+    state = jax_tp.shard_state_tp(jax_state.create_train_state(model, variables), mesh)
+    images = jax_tp.shard_batch_2d(jnp.asarray(inp["images"]), mesh)
+
+    @jax.jit
+    def step(state, batch, key):
+        def loss_fn(params, bs):
+            out, mut = model.apply({"params": params, "batch_stats": bs}, batch, key,
+                                   train=True, p_scheduled=inp["p_scheduled"],
+                                   mutable=["batch_stats"])
+            return out["mmd_loss"] + out["recon_loss"], mut
+        (loss, mut), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            state.params, state.batch_stats)
+        return state.apply_gradients(grads, new_batch_stats=mut["batch_stats"]), loss
+
+    z = jax.jit(lambda v, x, k: model.apply(v, x, k, train=False)["z"])(
+        variables, jnp.asarray(inp["images"]), inp["key"])
+    new, loss = step(state, images, inp["key"])
+    return (float(loss), weights.snn_vae_state_dict(_to_np(new.params),
+                                                    _to_np(new.batch_stats)), np.asarray(z))
+
+
 def _single_record(state, metrics, codes=None) -> dict:
     model = state.model
     return {"loss": float(metrics["loss"]),
@@ -204,6 +296,24 @@ def _single_stage2(inp, backend, dtype, steps=1):
     return _single_record(state, metrics)
 
 
+def _single_ann(inp):
+    """The port's single-process stage-1 step of the ANN VQ-VAE."""
+    cfg = VQVAEConfig(**inp["cfg"])
+    state = create_train_state(weights.load_ann_vqvae(inp["params"], cfg, device="cpu",
+                                                      train=True))
+    codes = worker._codes_recorder(state.model)
+    metrics = stage1.make_train_step_vqvae(inp["variance"])(state, torch.from_numpy(inp["images"]))
+    return _single_record(state, metrics, codes)
+
+
+def _single_snn_vae(inp):
+    """The port's single-process SNN-VAE step on the given draws."""
+    state = create_train_state(worker.snn_vae_model(inp))
+    metrics = cli.make_train_step_snn_vae()(state, torch.from_numpy(inp["images"]), None,
+                                            inp["p_scheduled"], draws=worker.snn_vae_draws(inp))
+    return _single_record(state, metrics)
+
+
 @pytest.fixture(scope="module")
 def problem():
     """(the inputs, the references, the 2 x 2 ranks' results, the 1 x 2's)."""
@@ -226,6 +336,10 @@ def problem():
             refs["single"][f"stage2_{backend}_{dtype}"] = _single_stage2(
                 inputs["stage2"], backend, dtype)
         refs["single"]["stage2_resumed"] = _single_stage2(inputs["stage2"], "torch", "fp32", 2)
+        refs["jax"]["2x2", "ann_vqvae"] = _jax_ann(inputs["ann_vqvae"], 2, 2)
+        refs["jax"]["2x2", "snn_vae"] = _jax_snn_vae(inputs["snn_vae"], 2, 2)
+        refs["single"]["ann_vqvae"] = _single_ann(inputs["ann_vqvae"])
+        refs["single"]["snn_vae"] = _single_snn_vae(inputs["snn_vae"])
         results = ranks.result(timeout=RANKS_TIMEOUT_S)
         results_1x2 = ranks_1x2.result(timeout=RANKS_TIMEOUT_S)
     return inputs, refs, results, results_1x2
@@ -234,21 +348,41 @@ def problem():
 # --- the plan ---------------------------------------------------------------------
 
 
+MODELS = ["vqvae", "denoiser", "ann_vqvae", "snn_vae"]
+
+
 def _jax_flagship(model_name):
     """(the JAX module, its variables' shapes at the flagship widths)."""
+    images = jnp.zeros((2, 28, 28, 1))
     if model_name == "vqvae":
-        model = JaxSNNVQVAE(JaxVQVAEConfig(), backend="scan")
-        args = (jnp.zeros((2, 28, 28, 1)),)
+        model, args = JaxSNNVQVAE(JaxVQVAEConfig(), backend="scan"), (images,)
+    elif model_name == "ann_vqvae":
+        model, args = JaxANNVQVAE(JaxVQVAEConfig()), (images,)
+    elif model_name == "snn_vae":
+        model = JaxSNNVAE(JaxSNNVAEConfig(), vq_cfg=JaxVQVAEConfig())
+        args = (images, jax.random.PRNGKey(1))
     else:
         model = JaxDenoiser(JaxDiffusionConfig(), backend="scan")
         args = (jnp.zeros((2, 7, 7), jnp.int32), jnp.ones((2,), jnp.int32))
-    return jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *args, train=True))
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), *args, train=True))
+    return {"params": shapes["params"], "batch_stats": shapes.get("batch_stats", {})}
 
 
-def _port_names(model_name, params, stats):
+def _port_names(model_name, params, stats, dcfg=DiffusionConfig()):
     if model_name == "vqvae":
         return weights.vqvae_state_dict(params, stats)
-    return weights.denoiser_state_dict(params, stats, DiffusionConfig())
+    if model_name == "ann_vqvae":
+        return weights.ann_vqvae_state_dict(params)
+    if model_name == "snn_vae":
+        return weights.snn_vae_state_dict(params, stats)
+    return weights.denoiser_state_dict(params, stats, dcfg)
+
+
+def _port_flagship(model_name):
+    return {"vqvae": lambda: SNNVQVAE(VQVAEConfig()),
+            "denoiser": lambda: SpikingDenoiser(DiffusionConfig()),
+            "ann_vqvae": lambda: ANNVQVAE(VQVAEConfig()),
+            "snn_vae": lambda: SNNVAE(SNNVAEConfig(), VQVAEConfig())}[model_name]()
 
 
 def _sharded_dims(tree):
@@ -276,7 +410,7 @@ def _varying_dim(a: np.ndarray):
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("model_name", ["vqvae", "denoiser"])
+@pytest.mark.parametrize("model_name", MODELS)
 def test_param_spec_matches_jax_at_flagship_widths(model_name, tp):
     shapes = _jax_flagship(model_name)
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
@@ -284,8 +418,7 @@ def test_param_spec_matches_jax_at_flagship_widths(model_name, tp):
     want = _port_names(model_name,
                        *(_sharded_dims(jax_tp.shard_variables_tp(zeros[c], mesh))
                          for c in ("params", "batch_stats")))
-    port = SNNVQVAE(VQVAEConfig()) if model_name == "vqvae" else SpikingDenoiser(DiffusionConfig())
-    plan = parallel.shard_plan(port, tp)
+    plan = parallel.shard_plan(_port_flagship(model_name), tp)
     assert set(plan) == set(want)
     assert {n: plan[n] for n in plan} == {n: _varying_dim(a) for n, a in want.items()}
     assert any(d is not None for d in plan.values())
@@ -294,22 +427,36 @@ def test_param_spec_matches_jax_at_flagship_widths(model_name, tp):
             "vq_layer.alpha", "decoder.deconvs.2.weight", "decoder.deconvs.2.bias"]
     if model_name == "denoiser":  # every tensor, the readout's too (logits sharded on K)
         assert all(d is not None for d in plan.values())
+    if model_name == "ann_vqvae":  # what stays whole: the 32 -> 1 deconv
+        assert [n for n, d in plan.items() if d is None] == ["dec3.weight", "dec3.bias"]
+    if model_name == "snn_vae":  # the heads' and cells' Linears are sharded on their rows
+        assert plan["before_latent.weight"] == plan["posterior.mlp.denses.2.weight"] == 0
 
 
 @pytest.mark.parametrize("tp", [2, 4])
-@pytest.mark.parametrize("model_name", ["vqvae", "denoiser"])
+@pytest.mark.parametrize("model_name", MODELS)
 def test_rank_slices_equal_jax_device_shards(model_name, tp):
     """Each rank (d, m)'s slices of the same variables equal JAX's shards on
     device d * tp + m of ``make_mesh_2d(2, tp)``."""
     torch.manual_seed(0)
+    gen = torch.Generator().manual_seed(1)
+    dcfg = DiffusionConfig(**DEN_KW)
     if model_name == "vqvae":
         cfg = VQVAEConfig(**VQ_KW)
-        params, stats = weights.init_vqvae_variables(cfg, torch.Generator().manual_seed(1))
-        port, names = SNNVQVAE(cfg), lambda p, s: weights.vqvae_state_dict(p, s)
+        params, stats = weights.init_vqvae_variables(cfg, gen)
+        port = SNNVQVAE(cfg)
+    elif model_name == "ann_vqvae":
+        cfg = VQVAEConfig(**VQ_KW)
+        params, stats = weights.init_ann_vqvae_variables(cfg, gen), {}
+        port = ANNVQVAE(cfg)
+    elif model_name == "snn_vae":
+        cfg, vcfg = SNNVAEConfig(**SNN_KW), VQVAEConfig(**SNN_VQ_KW)
+        params, stats = weights.init_snn_vae_variables(cfg, vcfg, gen)
+        port = SNNVAE(cfg, vcfg)
     else:
-        cfg = DiffusionConfig(**DEN_KW)
-        params, stats = weights.init_denoiser_variables(cfg, torch.Generator().manual_seed(1))
-        port, names = SpikingDenoiser(cfg), lambda p, s: weights.denoiser_state_dict(p, s, cfg)
+        params, stats = weights.init_denoiser_variables(dcfg, gen)
+        port = SpikingDenoiser(dcfg)
+    names = lambda p, s: _port_names(model_name, p, s, dcfg)  # noqa: E731
     plan = parallel.shard_plan(port, tp)
     full = {k: torch.from_numpy(v) for k, v in names(params, stats).items()}
     mesh = jax_tp.make_mesh_2d(2, tp)
@@ -366,7 +513,7 @@ def test_mesh_and_model_errors(problem, name, message):
     assert message in problem[2]["errors"][name]
 
 
-@pytest.mark.parametrize("name", ["make_mesh_2d", "stage1", "stage2"])
+@pytest.mark.parametrize("name", ["make_mesh_2d", "stage1", "stage2", "snn_vae"])
 def test_tp_entry_points_default_to_cuda(problem, name):
     """On a rank with no card, the mesh and the TP step builders called
     without a device raise instead of running on the CPU."""
@@ -458,11 +605,26 @@ def test_tp_step_matches_jax_mesh_step(problem, mesh, case):
     assert got["replicas_equal"]
 
 
-@pytest.mark.parametrize("case", STAGE1_CASES + ["stage1_uni"] + STAGE2_CASES)
+@pytest.mark.parametrize("case", list(worker.BASELINES))
+def test_baseline_tp_step_matches_jax_mesh_step(problem, case):
+    """The ANN VQ-VAE's and the SNN-VAE's TP step on the 2 x 2 mesh against
+    JAX's on ``make_mesh_2d(2, 2)``; the ANN's codes and the SNN-VAE's
+    binary latents (its eval forward on JAX's draws) equal JAX's."""
+    _, refs, results, _ = problem
+    got = results[case]
+    loss, state, codes = refs["jax"]["2x2", case]
+    _hold_jax_tolerance(got, loss, state)
+    assert 0.05 < float(np.mean(codes)) < 0.95 if case == "snn_vae" else len(np.unique(codes)) > 1
+    np.testing.assert_array_equal(got["eval_codes"], codes)
+    assert got["replicas_equal"]
+
+
+@pytest.mark.parametrize("case", STAGE1_CASES + ["stage1_uni"] + STAGE2_CASES
+                         + list(worker.BASELINES))
 def test_tp_step_matches_single_process(problem, case):
     _, refs, results, _ = problem
     got, want = results[case], refs["single"][case]
-    dtype = case.rsplit("_", 1)[-1] if case != "stage1_uni" else "fp32"
+    dtype = "bf16" if case.endswith("bf16") else "fp32"
     assert got["metrics"]["loss"] == pytest.approx(want["loss"], rel=LOSS_RTOL)
     if want["codes"] is not None:
         np.testing.assert_array_equal(got["codes"], want["codes"])
@@ -484,7 +646,7 @@ def test_tp_step_matches_single_process(problem, case):
 
 
 @pytest.mark.parametrize("case", STAGE1_CASES + ["stage1_uni"] + STAGE2_CASES
-                         + ["stage2_resumed"])
+                         + ["stage2_resumed"] + list(worker.BASELINES))
 def test_replicas_stay_bitwise_equal(problem, case):
     """Every tensor equal over the data group, every replicated one over the
     model group."""

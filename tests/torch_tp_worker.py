@@ -11,8 +11,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from spiking_diffusion_tpu_torch import parallel
-from spiking_diffusion_tpu_torch.config import DiffusionConfig, VQVAEConfig
+from spiking_diffusion_tpu_torch import cli, parallel
+from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.models import weights
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
@@ -25,6 +25,7 @@ STAGE1_CASES = [("auto", "fp32"), ("auto", "bf16"), ("bnlif", "fp32"), ("bnlif",
 STAGE2_CASES = [(b, d) for b in ("torch", "bnlif_torch", "bnlifconv_torch")
                 for d in ("fp32", "bf16")]
 FD_SHAPE = (2, 3, 2)  # each model rank's slice in the finite-difference checks
+BASELINES = ("ann_vqvae", "snn_vae")  # the baselines' TP steps on the 2 x 2 mesh
 
 
 def fd_inputs(m: int):
@@ -53,7 +54,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
 def _codes_recorder(model):
     """Record the codes of the quantizer's training forward (this rank's
     rows)."""
-    vq = model.vq_layer
+    vq = getattr(model, "vq_layer", model)  # the ANN VQ-VAE is its own quantizer
     seen = []
     inner = vq.get_code_indices
 
@@ -120,6 +121,54 @@ def _stage2_case(mesh, inp, backend="torch", dtype="fp32") -> dict:
     metrics, collectives = _counted(
         mesh, lambda: step(state, torch.from_numpy(inp["x0"]), corruption=corruption))
     return _record(state, metrics, mesh, collectives)
+
+
+def snn_vae_model(inp, device="cpu", train=True):
+    """The SNN-VAE of ``inp`` on the CPU (layerwise, fp32)."""
+    return weights.load_snn_vae(inp["params"], inp["batch_stats"],
+                                SNNVAEConfig(**inp["cfg"]), VQVAEConfig(**inp["vq_cfg"]),
+                                device=device, train=train)
+
+
+def snn_vae_draws(inp) -> tuple:
+    """The step's (choice, coin draws, noise) of the global batch."""
+    return tuple(torch.from_numpy(a) for a in inp["draws"])
+
+
+def _ann_case(mesh, inp) -> dict:
+    """The ANN VQ-VAE's stage-1 TP step: its eval codes before the step (the
+    sharded model's, every row), its training codes, the record."""
+    cfg = VQVAEConfig(**inp["cfg"])
+    state = _tp_state(weights.load_ann_vqvae(inp["params"], cfg, device="cpu", train=True),
+                      mesh)
+    images = torch.from_numpy(inp["images"])
+    codes = state.model.encode_indices(images).numpy()
+    seen = _codes_recorder(state.model)
+    step = stage1.make_train_step_vqvae_tp(inp["variance"], mesh, device="cpu")
+    metrics, collectives = _counted(mesh, lambda: step(state, images))
+    rec = _record(state, metrics, mesh, collectives)
+    rec["codes"] = parallel.all_gather_rows(seen[0], mesh.data).numpy()
+    rec["eval_codes"] = codes
+    return rec
+
+
+def _snn_vae_case(mesh, inp) -> dict:
+    """The SNN-VAE's TP step on the given draws: the eval forward's binary
+    latents before the step (this data row's rows, gathered), the record."""
+    state = _tp_state(snn_vae_model(inp), mesh)
+    images = torch.from_numpy(inp["images"])
+    choice, coins, noise = snn_vae_draws(inp)
+    with torch.no_grad():
+        rows = parallel.shard_batch_2d(images, mesh)
+        mine = parallel.shard_batch(choice.transpose(0, 1), mesh.data).transpose(0, 1)
+        z = state.model(rows, train=False, choice=mine)["z"]
+    step = cli.make_train_step_snn_vae_tp(mesh, device="cpu")
+    metrics, collectives = _counted(mesh, lambda: step(
+        state, images, None, inp["p_scheduled"], draws=(choice, coins, noise)))
+    rec = _record(state, metrics, mesh, collectives)
+    rec["eval_codes"] = parallel.all_gather_rows(z.transpose(0, 1).contiguous(),
+                                                 mesh.data).transpose(0, 1).numpy()
+    return rec
 
 
 def _resumed_case(mesh, inp) -> dict:
@@ -202,15 +251,13 @@ def _errors_case(inputs) -> dict:
     whose sharded layer has no tensor-parallel form, and, on a rank with no
     card, the mesh and the TP step builders called without a device."""
     out = {}
-    vcfg = VQVAEConfig(**inputs["stage1"]["cfg"])
     dcfg = DiffusionConfig(**inputs["stage2"]["cfg"])
     mesh = parallel.make_mesh_2d(2, 2, device="cpu")
-    ann = weights.load_ann_vqvae(weights.init_ann_vqvae_variables(
-        vcfg, torch.Generator().manual_seed(0)), vcfg, device="cpu")
+    plain = nn.Sequential(nn.Linear(4, 8))  # a layer the port gives no tensor-parallel form
     for name, call in (("world_1x2", lambda: parallel.make_mesh_2d(1, 2, device="cpu")),
                        ("world_4x2", lambda: parallel.make_mesh_2d(4, 2, device="cpu")),
                        ("no_tp_form", lambda: parallel.shard_state_tp(
-                           create_train_state(ann), mesh))):
+                           create_train_state(plain), mesh))):
         try:
             call()
             out[name] = None
@@ -222,7 +269,8 @@ def _errors_case(inputs) -> dict:
         for name, call in (
                 ("make_mesh_2d", lambda: parallel.make_mesh_2d(2, 2)),
                 ("stage1", lambda: stage1.make_train_step_vqvae_tp(0.1, mesh)),
-                ("stage2", lambda: stage2.make_train_step_diffusion_tp(dcfg, mesh))):
+                ("stage2", lambda: stage2.make_train_step_diffusion_tp(dcfg, mesh)),
+                ("snn_vae", lambda: cli.make_train_step_snn_vae_tp(mesh))):
             try:
                 call()
                 out[name] = None
@@ -247,6 +295,8 @@ def run_cases(inputs: dict) -> dict:
             mesh, inputs["stage1"], backend, dtype, encode=(backend, dtype) == ("auto", "fp32"))
     for backend, dtype in STAGE2_CASES:
         out[f"stage2_{backend}_{dtype}"] = _stage2_case(mesh, inputs["stage2"], backend, dtype)
+    out["ann_vqvae"] = _ann_case(mesh, inputs["ann_vqvae"])
+    out["snn_vae"] = _snn_vae_case(mesh, inputs["snn_vae"])
     return out
 
 
