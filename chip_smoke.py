@@ -317,6 +317,28 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    collectives' count, bytes and ms by group, labelled as four ranks
    sharing one card: the process model's cost, not scaling.
 
+18. zoo: the classifier zoo (``models/zoo.py``) at the JAX modules' own
+   widths on seeded weights (``weights.init_zoo_variables``), T = 4, batch
+   64: PLIFNet (128 channels, voting 10) on synthetic MNIST 28x28x1,
+   SpikingVGG vgg11, SpikingResNet and SEW-ResNet ADD (stages (2, 2),
+   width 64) on CIFAR10's synthetic 32x32x3. Four training steps each
+   (``zoo.train_step``, ``train_classifier``'s AdamW), the launch counts
+   reset just before: exactly 8 / 9 / 10 / 0 K1 forward and as many
+   backward launches a step (VGG, ResNet, SEW, PLIFNet: one per LIF layer;
+   PLIF is plain PyTorch), then an eval forward with 8 / 9 / 10 / 0; finite
+   losses; ms per step (CUDA events, median of steps 2-4) and peak memory.
+   ``lif_multi_step`` on the card: atan and sigmoid launch K1, erf takes
+   the plain scan under 'auto' and raises under 'cuda'. ANN -> SNN
+   conversion (IF neurons) at T = 32 over 256 images. Runs after
+   cli_snn_vae, beside the side lane; its CPU side (each model's first
+   step, each LIF and PLIF layer passing the card's spikes on, and ANN ->
+   SNN) runs in a nice'd worker process beside the later phases, where
+   the main process waits for the side lane and the ranks, and phase
+   zoo_check, last, holds the card to it: the first step at stage 1's
+   bounds (STAGE1_CPU_*, at most STAGE1_FLIP_SHARE of each layer's spikes
+   differing), the conversion's scales within 1e-6 and at least 99 % of
+   its outputs within 1e-5.
+
 Two lanes share the card and the host after phase kernels, so that the run
 keeps under five minutes: phases metrics_extra, cli_vq_vae and
 cli_datasets (which share no state with the rest) run in a spawned
@@ -328,8 +350,8 @@ the side lane and run their references once phase train_stage1 has made
 the stage-2 codes; phase data_parallel's ranks start when those are done
 (the card then holds one set of references at a time; phase cli's
 artifact tree reaches them with their cue). The timings of phases
-generation to cli_snn_vae are therefore taken beside the side lane's
-work; phase kernels' are the card's alone.
+generation to zoo are therefore taken beside the side lane's work; phase
+kernels' are the card's alone.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -353,6 +375,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
@@ -365,9 +388,10 @@ import torch
 from spiking_diffusion_tpu_torch import cli, parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import data_variance, load_dataset, synthetic_dataset
+from spiking_diffusion_tpu_torch.data.extra_datasets import load_cifar10
 from spiking_diffusion_tpu_torch.generate import sample_codes
 from spiking_diffusion_tpu_torch.metrics import cleanfid, frozen, inception
-from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.models import ann2snn, diffusion, weights, zoo
 from spiking_diffusion_tpu_torch.models.ann_vqvae import ANNVQVAE
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
 from spiking_diffusion_tpu_torch.models.layers import LIF, SeqConv
@@ -381,7 +405,7 @@ from spiking_diffusion_tpu_torch.ops import spike_conv as sc
 from spiking_diffusion_tpu_torch.parallel.launch import free_port
 from spiking_diffusion_tpu_torch.parallel.mesh import init_process_group
 from spiking_diffusion_tpu_torch.profiling import benchmark, monitor, syops, trace
-from spiking_diffusion_tpu_torch.snn import surrogate
+from spiking_diffusion_tpu_torch.snn import encoding, neuron, surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
@@ -643,6 +667,28 @@ INCEPTION_REPS = 5
 INCEPTION_RTOL = 1e-4  # of the largest output: the CPU tests' tolerance against JAX
 RESIZE_ATOL = 1e-5
 FREEZE_SIZES = (60000, 10240)  # the canonical freeze protocol's sets
+# phase zoo: the JAX modules' own widths; name -> (weights kind, the model's
+# arguments, dataset, K1 launches of a forward)
+# (in the order of their CPU steps' cost, the dearest first: each CPU step
+# runs beside the card's later models)
+ZOO_MODELS = {
+    "SEW-ResNet ADD": ("sew", dict(stages=(2, 2), width=64, sew="ADD"), "CIFAR10", 10),
+    "SpikingResNet": ("resnet", dict(stages=(2, 2), width=64), "CIFAR10", 9),
+    "SpikingVGG vgg11": ("vgg", dict(cfg=zoo.VGG_CFGS["vgg11"]), "CIFAR10", 8),
+    "PLIFNet": ("plif", dict(channels=128, voting_size=10, input_shape=(28, 28, 1)),
+                "MNIST", 0),
+}
+ZOO_T = 4
+ZOO_BATCH = 64
+ZOO_STEPS = 4
+ZOO_SEED = 5
+ANN2SNN_T = 32
+# the zoo's CPU-side worker process: started with the run, used after phase
+# zoo beside the later phases, below their priority but above the recon pool's
+ZOO_CPU_THREADS = 4
+ZOO_NICE = 5
+ANN2SNN_IMAGES = 256
+ANN2SNN_SHARE = 0.99  # of the converted SNN's outputs within 1e-5 card against CPU
 
 
 def log(msg: str) -> None:
@@ -3254,6 +3300,292 @@ def phase_cli_snn_vae(card: str) -> dict:
                      "scores": {k: out[k] for k in ("IS", "KID_x1e3", "FID")}}}
 
 
+# --- phase zoo: the classifier zoo and ANN -> SNN conversion ----------------
+
+_TAP = threading.local()
+
+
+def _tapped(fn, first: bool):
+    """``fn`` that also copies each spike train it makes to the host, into
+    the calling thread's ``_TAP.trains`` when that thread set one. When the
+    thread set ``_TAP.force`` (a list of spike trains), each call instead
+    puts the next train of that list forward in place of its own, with its
+    own gradient (``own + (forced - own).detach()``), and records its own."""
+    def wrapped(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        own = out[0] if first else out
+        trains = getattr(_TAP, "trains", None)
+        if trains is not None:
+            trains.append(own.detach().cpu())
+        force = getattr(_TAP, "force", None)
+        if force:
+            s = own + (force.pop(0).to(own) - own).detach()
+            out = (s,) + tuple(out[1:]) if first else s
+        return out
+    return wrapped
+
+
+@contextlib.contextmanager
+def zoo_spike_tap():
+    """While open, the zoo's LIF and PLIF layers go through ``_tapped``."""
+    lif, plif = zoo.lif_multi_step, zoo.plif_scan
+    zoo.lif_multi_step, zoo.plif_scan = _tapped(lif, False), _tapped(plif, True)
+    try:
+        yield
+    finally:
+        zoo.lif_multi_step, zoo.plif_scan = lif, plif
+
+
+def zoo_data() -> dict:
+    """dataset -> (images (N, H, W, C) in [0, 1], labels) for ZOO_STEPS
+    batches: synthetic MNIST and CIFAR10's synthetic fallback at 32x32x3."""
+    n = ZOO_BATCH * ZOO_STEPS
+    mnist = synthetic_dataset("MNIST", n_train=n, n_test=1, seed=0)
+    cifar = load_cifar10(image_size=32, synthetic_size=(n, 1))
+    return {"MNIST": (mnist.train_images[:n], mnist.train_labels[:n]),
+            "CIFAR10": (cifar.train_images[:n], cifar.train_labels[:n])}
+
+
+def zoo_state(name: str, device):
+    """A fresh train state (``train_classifier``'s AdamW) of zoo model
+    ``name`` from seeded flax-layout weights."""
+    kind, kw, _, _ = ZOO_MODELS[name]
+    variables = weights.init_zoo_variables(kind, torch.Generator().manual_seed(ZOO_SEED), **kw)
+    model = weights.load_zoo_model(kind, *variables, device=device, train=True, **kw)
+    return create_train_state(model, weight_decay=1e-4)
+
+
+def zoo_batches(data, device) -> list:
+    images, labels = data
+    return [(torch.from_numpy(images[i:i + ZOO_BATCH]).to(device),
+             torch.from_numpy(labels[i:i + ZOO_BATCH]).to(device))
+            for i in range(0, ZOO_BATCH * ZOO_STEPS, ZOO_BATCH)]
+
+
+def zoo_step(state, batch) -> dict:
+    loss, acc = zoo.train_step(state.model, state.optimizer, *batch, ZOO_T)
+    return {"loss": loss, "acc": acc}
+
+
+def zoo_recording_step(trains: list):
+    """``zoo_step`` that records the first call's spike trains into ``trains``."""
+    calls = []
+
+    def step(state, batch):
+        _TAP.trains = None if calls else trains
+        calls.append(batch)
+        try:
+            return zoo_step(state, batch)
+        finally:
+            _TAP.trains = None
+    return step
+
+
+def zoo_worker_init() -> None:
+    """The zoo's CPU-side worker process: lower priority, fewer threads,
+    so that the phases beside it keep the host."""
+    os.nice(ZOO_NICE)
+    torch.set_num_threads(ZOO_CPU_THREADS)
+
+
+def zoo_worker() -> ProcessPoolExecutor:
+    """The zoo's CPU-side worker, started now (its imports off the later
+    phases' path) and idle until phase zoo."""
+    pool = ProcessPoolExecutor(1, initializer=zoo_worker_init,
+                               mp_context=multiprocessing.get_context("spawn"))
+    pool.submit(int)
+    return pool
+
+
+def zoo_cpu_first_step(name: str, batch: tuple, card_trains: list) -> tuple:
+    """Model ``name``'s first training step on the CPU, in the zoo's worker
+    process, each LIF and PLIF layer passing on the card's spike train
+    (``card_trains``, bool arrays) in place of its own, with its own
+    gradient: (the step's record, its own spike trains as bool arrays,
+    seconds), as numpy."""
+    t0 = time.perf_counter()
+    state = zoo_state(name, "cpu")
+    images, labels = (torch.from_numpy(a) for a in batch)
+    with zoo_spike_tap():
+        _TAP.trains, _TAP.force = [], [torch.from_numpy(a).float() for a in card_trains]
+        try:
+            loss = zoo_step(state, (images, labels))["loss"]
+            own = [t.numpy().astype(bool) for t in _TAP.trains]
+        finally:
+            _TAP.trains = _TAP.force = None
+    loss, grads, stats = step_record(state, loss)
+    return ((loss, {k: v.numpy() for k, v in grads.items()},
+             {k: v.numpy() for k, v in stats.items()}), own, time.perf_counter() - t0)
+
+
+def ann2snn_cpu() -> tuple:
+    """``ann2snn_run`` on the CPU, in the zoo's worker process, as numpy."""
+    scales, y, ann, seconds = ann2snn_run("cpu")
+    return scales, y.numpy(), ann.numpy(), seconds
+
+
+def zoo_routes() -> dict:
+    """``lif_multi_step`` on the card by surrogate family: atan and sigmoid
+    launch K1 under 'auto'; erf takes ``lif_scan`` under 'auto' (no launch)
+    and raises under 'cuda' before anything is launched."""
+    x = torch.rand((ZOO_T, ZOO_BATCH, 64), device="cuda") * 3.0
+    rows = {}
+    for family in ("atan", "sigmoid", "erf"):
+        params = NeuronParams(surrogate=surrogate.get_surrogate(family, 2.0))
+        reset_launch_counts()
+        before = dict(neuron.ROUTES)
+        neuron.lif_multi_step(x, params=params, backend="auto")
+        raised = False
+        try:
+            neuron.lif_multi_step(x, params=params, backend="cuda")
+        except ValueError:
+            raised = True
+        torch.cuda.synchronize()
+        routes = {k: neuron.ROUTES[k] - before[k] for k in before}
+        rows[family] = {"k1_launches": lif_op.LAUNCHES, "routes": routes, "cuda_raised": raised}
+        kernel = family in surrogate.KERNEL_FAMILIES
+        want = (2, {"kernel": 2, "scan": 0}, False) if kernel else (0, {"kernel": 0, "scan": 1}, True)
+        check((lif_op.LAUNCHES, routes, raised) == want,
+              f"lif_multi_step with {family}: {rows[family]}, expected {want}")
+    log(f"  lif_multi_step routes on the card: {rows}")
+    return rows
+
+
+ANN2SNN_SPECS = [("conv", {"stride": 1, "padding": 1}), ("relu",), ("pool", 2), ("flatten",),
+                 ("dense", {}), ("relu",), ("dense", {})]
+
+
+def ann2snn_run(device: str) -> tuple:
+    """ANN -> SNN conversion (``models/ann2snn.py``; IF neurons, plain
+    PyTorch) of a seeded conv-pool-dense-dense ANN on ANN2SNN_IMAGES
+    synthetic MNIST images at T = ANN2SNN_T on ``device``: (scales, SNN
+    outputs, ANN outputs, seconds of the converted SNN's forward)."""
+    rng = np.random.RandomState(ZOO_SEED)
+    flax = [{"kernel": rng.randn(3, 3, 1, 32).astype(np.float32) * 0.3,
+             "bias": rng.randn(32).astype(np.float32) * 0.1}, None, None, None,
+            {"kernel": rng.randn(32 * 14 * 14, 128).astype(np.float32) * 0.02,
+             "bias": np.zeros(128, np.float32)}, None,
+            {"kernel": rng.randn(128, 10).astype(np.float32) * 0.1,
+             "bias": np.zeros(10, np.float32)}]
+    params = [None if p is None else {k: v.to(device) for k, v in p.items()}
+              for p in weights.ann2snn_params(ANN2SNN_SPECS, flax)]
+    x = torch.from_numpy(synthetic_dataset("MNIST", n_train=ANN2SNN_IMAGES, n_test=1,
+                                           seed=1).train_images).to(device)
+    snn_fn, scales = ann2snn.convert(ANN2SNN_SPECS, params, x, num_steps=ANN2SNN_T)
+    t0 = time.perf_counter()
+    y = snn_fn(x)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return scales, y.cpu(), ann2snn.ann_forward(ANN2SNN_SPECS, params, x).cpu(), seconds
+
+
+def zoo_ann2snn(gpu: tuple, cpu: tuple, card: str) -> dict:
+    """``ann2snn_run`` on the card against the same on the CPU: the scales
+    within 1e-6, at least ANN2SNN_SHARE of the outputs within 1e-5 (a conv
+    summed in another order may flip an IF spike), the argmax agreement
+    with the ANN logged."""
+    (sc_g, y_g, a_g, s_g), (sc_c, y_c, a_c, s_c) = gpu, cpu
+    y_c, a_c = torch.from_numpy(y_c), torch.from_numpy(a_c)
+    d = (y_g - y_c).abs()
+    share = float((d <= 1e-5).float().mean())
+    agree = float((y_g.argmax(1) == a_g.argmax(1)).float().mean())
+    log(f"  ann2snn at T = {ANN2SNN_T}, {ANN2SNN_IMAGES} images: scales card {sc_g[1]:.6g}, "
+        f"{sc_g[5]:.6g}, CPU {sc_c[1]:.6g}, {sc_c[5]:.6g}; SNN outputs card vs CPU max|d| "
+        f"{float(d.max()):.3g}, {share:.4%} within 1e-5; ANN max|d| "
+        f"{float((a_g - a_c).abs().max()):.3g}; SNN argmax = ANN argmax {agree:.1%}; "
+        f"snn_fn {s_g * 1e3:.1f} ms on the card (host clock), {s_c * 1e3:.1f} ms on the CPU "
+        f"[{card}]")
+    for a, b in zip(sc_g, sc_c):
+        check((a is None) == (b is None) and (a is None or abs(a - b) <= 1e-6 * abs(b)),
+              f"ann2snn scales: card {sc_g} vs CPU {sc_c}")
+    check(bool(torch.isfinite(y_g).all()) and share >= ANN2SNN_SHARE,
+          f"ann2snn: {share:.4%} of outputs within 1e-5 of the CPU's")
+    return {"max_abs_diff": float(d.max()), "share_within_1e-5": share,
+            "argmax_agree_ann": agree, "card_s": s_g}
+
+
+def phase_zoo(card: str, pool: ProcessPoolExecutor) -> dict:
+    """The classifier zoo at the JAX modules' widths (ZOO_MODELS) on seeded
+    weights, T = ZOO_T, batch ZOO_BATCH: ZOO_STEPS training steps each
+    (``zoo.train_step``, ``train_classifier``'s step) with exact K1
+    launches (one forward and one backward per LIF layer; PLIF none), ms
+    per step (CUDA events, median of steps 2-4) and peak memory; an eval
+    forward's exact K1 launches; ``lif_multi_step``'s routes by family;
+    ANN -> SNN conversion on the card. The CPU's side (each first step,
+    ANN -> SNN) goes to ``pool``, a nice'd worker process that runs it
+    beside the later phases; ``finish_zoo`` holds the card to it."""
+    data = zoo_data()
+    rows, cpu = {}, {}
+    with zoo_spike_tap():
+        for name, (_, _, dataset, per_forward) in ZOO_MODELS.items():
+            state = zoo_state(name, "cuda")
+            batches = zoo_batches(data[dataset], "cuda")
+            trains = []
+            times, losses, first, counts, peak = run_steps(state, zoo_recording_step(trains),
+                                                           batches)
+            trains = [t.numpy().astype(bool) for t in trains]
+            images, labels = data[dataset]
+            cpu[name] = pool.submit(zoo_cpu_first_step, name,
+                                    (images[:ZOO_BATCH], labels[:ZOO_BATCH]), trains)
+            want = (per_forward * ZOO_STEPS, per_forward * ZOO_STEPS, 0, 0, 0, 0, 0)
+            median = statistics.median(times[1:])
+            log(f"  {name} T={ZOO_T} batch {ZOO_BATCH}: launches {format_counts(counts)} in "
+                f"{ZOO_STEPS} steps; ms per step {', '.join(f'{t:.2f}' for t in times)} (median "
+                f"after the first {median:.2f}); losses {', '.join(f'{v:.4f}' for v in losses)}; "
+                f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+            check(counts == want, f"{name}: launches {counts}, expected {want}")
+            check(all(math.isfinite(v) for v in losses), f"{name}: loss not finite")
+            state.model.eval()
+            reset_launch_counts()
+            with torch.no_grad():
+                logits = state.model(encoding.direct_encode(batches[0][0], ZOO_T))
+            torch.cuda.synchronize()
+            eval_counts = launch_counts()
+            check(eval_counts == (per_forward, 0, 0, 0, 0, 0, 0),
+                  f"{name} eval forward: launches {eval_counts}")
+            check(tuple(logits.shape) == (ZOO_BATCH, 10) and bool(torch.isfinite(logits).all()),
+                  f"{name} eval logits {tuple(logits.shape)}")
+            rows[name] = {"launches": counts, "eval_launches": eval_counts, "ms": times,
+                          "ms_median": median, "losses": losses, "peak_bytes": peak,
+                          "first": first, "trains": trains}
+            del state
+    torch.cuda.empty_cache()
+    return {"models": rows, "cpu": cpu, "routes": zoo_routes(),
+            "ann2snn": (ann2snn_run("cuda"), pool.submit(ann2snn_cpu))}
+
+
+def finish_zoo(run: dict, card: str) -> dict:
+    """Phase zoo held against its CPU side. The CPU's first step of each
+    model takes the card's spikes downstream of each LIF and PLIF layer: a
+    spike flipped at threshold by a sum in another order would otherwise
+    move the next BN's batch statistics and so flip more, layer after
+    layer (the residual nets: from 1 flip at the stem to 1.1 % of the last
+    block's spikes). Each layer's own spikes, from the card's spikes before
+    it, may differ from the card's in at most STAGE1_FLIP_SHARE of them;
+    the loss, gradients and BN statistics are held at stage 1's
+    card-against-CPU bounds (STAGE1_CPU_*)."""
+    for name, row in run["models"].items():
+        (loss, grads, stats), cpu_trains, seconds = run["cpu"][name].result(timeout=HOST_WAIT_S)
+        cpu_record = (loss, {k: torch.from_numpy(v) for k, v in grads.items()},
+                      {k: torch.from_numpy(v) for k, v in stats.items()})
+        trains = row.pop("trains")
+        flips = [int((a != b).sum()) for a, b in zip(trains, cpu_trains)]
+        total = sum(b.size for b in cpu_trains)
+        log(f"  {name}: spikes of its {len(cpu_trains)} spiking layers that differ between "
+            f"the card and the CPU (each from the card's spikes before it): "
+            f"{', '.join(map(str, flips))} of {total}; the CPU step {seconds:.1f} s")
+        check(len(trains) == len(cpu_trains) and sum(flips) <= STAGE1_FLIP_SHARE * total,
+              f"{name}: spikes differ from the CPU's")
+        row["vs_cpu"] = compare_steps(f"the CPU ({name})", row.pop("first"), cpu_record,
+                                      False, STAGE1_CPU_LOSS_ATOL, STATS_TOL,
+                                      STAGE1_CPU_GRAD_TOL)
+        row["vs_cpu"]["spikes_differing"] = flips
+    gpu, cpu = run["ann2snn"]
+    return {"models": run["models"], "routes": run["routes"],
+            "ann2snn": zoo_ann2snn(gpu, cpu.result(timeout=HOST_WAIT_S), card)}
+
+
 def phase_metrics_extra(card: str) -> dict:
     """InceptionV3 (seeded weights) at 299 on the card against the CPU in
     both pipelines; ``clean_resize`` card against CPU; the freeze protocol
@@ -3568,6 +3900,13 @@ class SideLane:
             self.proc.terminate()
         self.proc.join()
         self.conn.close()
+
+
+def zoo_launches(run: dict, idx: int) -> dict:
+    """A kernel's launches in phase zoo's training steps and eval forward,
+    by model."""
+    return {name: {"train_4_steps": row["launches"][idx], "eval": row["eval_launches"][idx]}
+            for name, row in run["models"].items()}
 
 
 def launches_of(runs: dict, idx: int) -> dict:
@@ -4355,6 +4694,7 @@ def main() -> int:
     signal.alarm(BUDGET_S)
     t_start = time.perf_counter()
     dp_run = tp_run = side = None
+    zoo_pool = None
     try:
         with Phase("device"):
             smi = nvidia_smi()
@@ -4363,6 +4703,7 @@ def main() -> int:
             pin_arithmetic()
             log("  cudnn.allow_tf32=False cuda.matmul.allow_tf32=False "
                 "cudnn.deterministic=True cudnn.benchmark=False")
+        zoo_pool = zoo_worker()
         with Phase("build"):
             for built in _build.build([lif_op.SOURCE, lif_op.SOURCE_BWD, fd.SOURCE,
                                        bnl.SOURCE, sc.SOURCE]):
@@ -4451,6 +4792,11 @@ def main() -> int:
                         **{f"sample {b}": row for b, row in snn["sample"].items()},
                         **{f"{b} {n}": row for b, rows in snn["steps"].items()
                            for n, row in rows.items()}}
+        with Phase("zoo"):
+            # its CPU side runs in the nice'd worker beside the later phases,
+            # where this process waits for the side lane and the ranks
+            torch.cuda.empty_cache()
+            zoo_pending = phase_zoo(smi, zoo_pool)
         with Phase("side_lane"):
             lane = side.finish()
             vq, datasets = lane["vq"], lane["datasets"]
@@ -4462,6 +4808,8 @@ def main() -> int:
             dp = dp_run.finish(smi, cli_runs["train"]["tree"])
         with Phase("tensor_parallel"):
             tp = tp_run.finish()
+        with Phase("zoo_check"):
+            zoo_run = finish_zoo(zoo_pending, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -4471,6 +4819,8 @@ def main() -> int:
         for ranks in (side, dp_run, tp_run):
             if ranks is not None:
                 ranks.close()
+        if zoo_pool is not None:
+            zoo_pool.shutdown(cancel_futures=True)
     kernels = [{
         "name": "K1 lif_fwd", "route": "cuda",
         "source": "spiking_diffusion_tpu_torch/csrc/lif_fwd.cu",
@@ -4500,6 +4850,9 @@ def main() -> int:
         "launches_data_parallel": dp_launches(dp, 0),
         # phase tensor_parallel, per rank: 6 a TP stage-1 step
         "launches_tensor_parallel": tp_launches(tp, 0),
+        # phase zoo: 8 / 9 / 10 / 0 a training step and an eval forward
+        # (SpikingVGG, SpikingResNet, SEW-ResNet, PLIFNet), in 4 steps + 1
+        "launches_zoo": zoo_launches(zoo_run, 0),
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -4514,6 +4867,7 @@ def main() -> int:
         "launches_cli_datasets": launches_of(dataset_runs, 1),
         "launches_data_parallel": dp_launches(dp, 1),
         "launches_tensor_parallel": tp_launches(tp, 1),
+        "launches_zoo": zoo_launches(zoo_run, 1),
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],

@@ -35,7 +35,9 @@ class SeqConv(nn.Module):
 
     With ``dtype`` the input, weight and bias are cast to it and the bias
     is added to the conv's rounded output, as flax's ``nn.Conv(dtype=)``
-    does. ``fused_train=True`` (3x3, stride 1, padding 1 only) runs the
+    does. ``use_bias=False`` makes no bias (the classifier zoo's ResNet
+    convs, as flax's ``use_bias``). ``fused_train=True`` (3x3, stride 1,
+    padding 1, with a bias) runs the
     conv through K4 (``ops/spike_conv.py``; its plain versions with
     ``reference``) and returns ``(y, s1, s2)``, the per-channel BN moments
     of y, for ``SeqBatchNorm(moments=...)``; the parameters are the same
@@ -50,10 +52,10 @@ class SeqConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
                  dtype: Optional[torch.dtype] = None, fused_train: bool = False,
-                 reference: bool = False):
+                 reference: bool = False, use_bias: bool = True):
         super().__init__()
-        if fused_train and (kernel_size, stride, padding) != (3, 1, 1):
-            raise ValueError("fused_train supports 3x3 / stride 1 / pad 1 only")
+        if fused_train and ((kernel_size, stride, padding) != (3, 1, 1) or not use_bias):
+            raise ValueError("fused_train supports 3x3 / stride 1 / pad 1 with a bias only")
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
@@ -62,7 +64,10 @@ class SeqConv(nn.Module):
         self.model_mesh: Optional[Mesh] = None
         self.weight = nn.Parameter(
             torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_ch))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor, with_moments: bool = True):
         x = copy_to_model(x, self.model_mesh)
@@ -74,6 +79,8 @@ class SeqConv(nn.Module):
         if self.dtype is None:
             return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
         y = F.conv2d(x, self.weight.to(self.dtype), None, self.stride, self.padding)
+        if self.bias is None:
+            return y
         return y + self.bias.to(self.dtype).reshape(1, -1, 1, 1)
 
 
@@ -196,6 +203,68 @@ class SeqBatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.scale
         y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
         return y if self.dtype is None else y.to(self.dtype)
+
+
+class SeqLinear(Linear):
+    """Linear over the trailing axis of a (T, N, ..., F) sequence;
+    weight (out, in), as flax ``Dense``'s kernel transposed."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True):
+        super().__init__(in_features, out_features, bias=use_bias)
+
+
+class SeqMaxPool(nn.Module):
+    """MaxPool2d over a time-folded (T*N, C, H, W) sequence (spikingjelly
+    ``layer.MaxPool2d``); VALID windows, as flax's ``max_pool``."""
+
+    def __init__(self, window: int = 2, strides: Optional[int] = None):
+        super().__init__()
+        self.window, self.strides = window, strides or window
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(x, self.window, self.strides)
+
+
+class SeqAvgPool(SeqMaxPool):
+    """AvgPool2d over a time-folded (T*N, C, H, W) sequence (spikingjelly
+    ``layer.AvgPool2d``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.avg_pool2d(x, self.window, self.strides)
+
+
+class SeqDropout(nn.Module):
+    """Dropout of a (T, ...) sequence with one mask for every step
+    (spikingjelly ``layer.Dropout``): in training ``x * mask / keep``,
+    ``mask`` of shape ``x.shape[1:]`` drawn Bernoulli(1 - rate) from
+    ``generator`` unless given; the identity in eval mode."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x_seq: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x_seq
+        keep = 1.0 - self.rate
+        if mask is None:
+            probs = torch.full(x_seq.shape[1:], keep, device=x_seq.device)
+            mask = torch.bernoulli(probs, generator=generator)
+        return x_seq * mask.to(x_seq.dtype) / keep
+
+
+class VotingLayer(nn.Module):
+    """Average the trailing class axis in groups of ``voting_size``
+    (spikingjelly ``layer.VotingLayer``): (..., C*k) -> (..., C)."""
+
+    def __init__(self, voting_size: int = 10):
+        super().__init__()
+        self.voting_size = voting_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.voting_size
+        return x.reshape(tuple(x.shape[:-1]) + (x.shape[-1] // k, k)).mean(-1)
 
 
 class LIF(nn.Module):

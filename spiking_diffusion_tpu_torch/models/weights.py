@@ -11,11 +11,15 @@ from ``train/checkpoint.py`` ``load_variables``). The layout rules:
 * BatchNorm: ``scale``/``bias``/``mean``/``var`` as they are.
 * Codebook: (K, D) as it is; the readout blend ``alpha`` a 0-d scalar.
 
-Models: the spiking VQ-VAE (``vqvae_*``), the denoiser (``denoiser_*``)
-and the two baselines of the CLI's ``--model``, the ANN VQ-VAE
+Models: the spiking VQ-VAE (``vqvae_*``), the denoiser (``denoiser_*``),
+the two baselines of the CLI's ``--model``, the ANN VQ-VAE
 (``ann_vqvae_*``, no BatchNorm) and the SNN-VAE (``snn_vae_*``, the
 VQ-VAE's encoder and decoder around Dense heads and the posterior's and
-prior's 3-layer Dense stacks).
+prior's 3-layer Dense stacks), the classifier zoo (``zoo_*``:
+``SeqConv_i`` -> ``convs.i``, ``SeqBatchNorm_i`` -> ``bns.i``,
+``_BasicBlock_k`` -> ``blocks.k``, ``SeqLinear_0`` -> ``linear``, PLIF's
+``plif_w_i`` as they are) and ANN -> SNN conversion's parameter list
+(``ann2snn_params``).
 
 ``init_*_variables`` make seeded random trees in the flax layout with
 the JAX package's initialisers (``utils/init.py``: torch-default kaiming
@@ -36,7 +40,8 @@ from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQ
 from spiking_diffusion_tpu_torch.device import resolve_device
 from spiking_diffusion_tpu_torch.models.ann_vqvae import ANNVQVAE
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
-from spiking_diffusion_tpu_torch.models.layers import SeqBatchNorm
+from spiking_diffusion_tpu_torch.models import zoo
+from spiking_diffusion_tpu_torch.models.layers import SeqBatchNorm, SeqConv, SeqLinear
 from spiking_diffusion_tpu_torch.models.snn_vae import SNNVAE
 from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 
@@ -57,14 +62,24 @@ def deconv_weight(kernel) -> np.ndarray:
 
 
 def _conv(prefix: str, node: Tree, deconv: bool = False) -> Dict[str, np.ndarray]:
+    """A conv; flax leaves its bias out under ``use_bias=False``."""
     to_torch = deconv_weight if deconv else conv_weight
-    return {f"{prefix}.weight": to_torch(node["kernel"]),
-            f"{prefix}.bias": np.asarray(node["bias"], np.float32)}
+    sd = {f"{prefix}.weight": to_torch(node["kernel"])}
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = np.asarray(node["bias"], np.float32)
+    return sd
+
+
+def dense_weight(kernel) -> np.ndarray:
+    """flax Dense kernel (in, out) -> ``nn.Linear`` (out, in)."""
+    return np.ascontiguousarray(np.asarray(kernel, np.float32).T)
 
 
 def _dense(prefix: str, node: Tree) -> Dict[str, np.ndarray]:
-    return {f"{prefix}.weight": np.ascontiguousarray(np.asarray(node["kernel"], np.float32).T),
-            f"{prefix}.bias": np.asarray(node["bias"], np.float32)}
+    sd = {f"{prefix}.weight": dense_weight(node["kernel"])}
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = np.asarray(node["bias"], np.float32)
+    return sd
 
 
 def _bn(prefix: str, params: Tree, stats: Tree) -> Dict[str, np.ndarray]:
@@ -149,6 +164,94 @@ def snn_vae_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]
         for i in range(3):
             sd.update(_dense(f"{cell}.mlp.denses.{i}", params[cell]["mlp"][f"dense_{i}"]))
     return sd
+
+
+def zoo_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
+    """flax variables of a zoo model (``SpikingVGG``, ``SpikingResNet`` or
+    SEW, ``PLIFNet``) -> the port's state dict."""
+
+    def walk(node: Tree, stats: Tree, prefix: str) -> Dict[str, np.ndarray]:
+        sd = {}
+        for name, child in node.items():
+            kind, _, idx = name.rpartition("_")
+            if kind == "SeqConv":
+                sd.update(_conv(f"{prefix}convs.{idx}", child["Conv_0"]))
+            elif kind == "SeqBatchNorm":
+                sd.update(_bn(f"{prefix}bns.{idx}", child["BatchNorm_0"],
+                              stats[name]["BatchNorm_0"]))
+            elif kind == "_BasicBlock":
+                sd.update(walk(child, stats.get(name, {}), f"{prefix}blocks.{idx}."))
+            elif kind == "SeqLinear":
+                sd.update(_dense(f"{prefix}linear", child["Dense_0"]))
+            elif kind == "plif_w":
+                sd[name] = np.asarray(child, np.float32).reshape(())
+            else:
+                raise ValueError(f"no zoo layer named {name!r}")
+        return sd
+
+    return walk(params, batch_stats, "")
+
+
+# flax scope -> the port's attribute, in the SNN library's layers
+_LIBRARY_NAMES = {"Dense_0": "rc"}
+
+
+def library_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict[str, np.ndarray]:
+    """flax variables of an SNN library layer -> the port's state dict:
+    the spiking RNN cells and ``SpikingRNN`` (``ih``, ``hh``, ...;
+    ``fwd``, ``bwd``), the attentions (``fc1``, ``fc2``, ``ta``,
+    ``ca_fc*``, ``sa_conv``), ``DropConnectLinear``, ``NeuNorm`` (``w``
+    as it is, (1, H, W, C)), ``SynapseFilter`` (``w``),
+    ``LinearRecurrentContainer`` (its Dense as ``rc``) and tdBN (its
+    BatchNorm's scale, bias, mean and var at the root). Dense kernels
+    become (out, in), conv kernels (O, I, kh, kw)."""
+
+    def walk(node: Tree, stats: Tree, prefix: str) -> Dict[str, np.ndarray]:
+        sd = {}
+        for name, child in node.items():
+            if name == "BatchNorm_0":
+                sd.update(_bn(prefix.rstrip("."), child, stats[name]))
+                continue
+            key = prefix + _LIBRARY_NAMES.get(name, name)
+            if name == "kernel":
+                to_torch = conv_weight if np.ndim(child) == 4 else dense_weight
+                sd[prefix + "weight"] = to_torch(child)
+            elif isinstance(child, Mapping):
+                sd.update(walk(child, (stats or {}).get(name, {}), key + "."))
+            else:
+                sd[key] = np.asarray(child, np.float32)
+        return sd
+
+    return {k.lstrip("."): v for k, v in walk(params, batch_stats or {}, "").items()}
+
+
+ZOO_KINDS = {"vgg": zoo.SpikingVGG, "resnet": zoo.SpikingResNet, "sew": zoo.SEWResNet,
+             "plif": zoo.PLIFNet}
+
+
+def load_zoo_model(kind: str, params: Tree, batch_stats: Tree, device="cuda",
+                   train: bool = False, **kwargs) -> torch.nn.Module:
+    """The port's zoo model of ``kind`` ('vgg', 'resnet', 'sew', 'plif';
+    ``kwargs`` its constructor's) on ``device`` from flax variables, in
+    eval mode or, with ``train``, in training mode."""
+    return _load(ZOO_KINDS[kind](**kwargs), zoo_state_dict(params, batch_stats), device, train)
+
+
+def ann2snn_params(specs, params) -> list:
+    """An ANN -> SNN conversion's flax-layout parameter list -> the
+    port's (``models/ann2snn.py``): conv kernels HWIO -> OIHW, dense
+    kernels (in, out) -> (out, in), biases as they are; torch tensors."""
+    out = []
+    for spec, p in zip(specs, params):
+        if p is None:
+            out.append(None)
+            continue
+        to_torch = conv_weight if spec[0] == "conv" else dense_weight
+        q = {"weight": torch.from_numpy(to_torch(p["kernel"]))}
+        if "bias" in p:
+            q["bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32))
+        out.append(q)
+    return out
 
 
 def _load(module: torch.nn.Module, sd: Dict[str, np.ndarray], device,
@@ -333,3 +436,49 @@ def init_snn_vae_variables(cfg: SNNVAEConfig, vq_cfg: VQVAEConfig,
         params[cell] = {"mlp": {f"dense_{i}": _dense_vars(generator, *w)
                                 for i, w in enumerate(widths)}}
     return params, {"encoder": enc_stats, "decoder": dec_stats}
+
+
+def _flax_path(prefix: str) -> list:
+    """A zoo module's port prefix -> its flax path (``zoo_state_dict``'s
+    names, the other way)."""
+    parts, path = prefix.split("."), []
+    names = {"convs": "SeqConv", "bns": "SeqBatchNorm", "blocks": "_BasicBlock"}
+    for i in range(0, len(parts) - 1, 2):
+        path.append(f"{names[parts[i]]}_{parts[i + 1]}")
+    if len(parts) % 2:
+        path.append({"linear": "SeqLinear_0"}.get(parts[-1], parts[-1]))
+    return path
+
+
+def _put(tree: Dict, path: list, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def init_zoo_variables(kind: str, generator: torch.Generator,
+                       **kwargs) -> Tuple[Dict, Dict]:
+    """Random flax-layout (params, batch_stats) of a zoo model of ``kind``
+    (``load_zoo_model``'s kinds and ``kwargs``): the JAX package's
+    initialisers (kaiming-uniform kernels, uniform +-1/sqrt(fan_in)
+    biases, BN at identity, PLIF's w at -log(init_tau - 1))."""
+    model = ZOO_KINDS[kind](**kwargs)
+    params, stats = {}, {}
+    for name, module in model.named_modules():
+        if isinstance(module, SeqConv):
+            cout, cin, kh, kw = module.weight.shape
+            fan_in = cin * kh * kw
+            node = {"kernel": _uniform(generator, (kh, kw, cin, cout), math.sqrt(1.0 / fan_in))}
+            if module.bias is not None:
+                node["bias"] = _uniform(generator, (cout,), 1.0 / math.sqrt(fan_in))
+            _put(params, _flax_path(name) + ["Conv_0"], node)
+        elif isinstance(module, SeqBatchNorm):
+            bn_params, bn_stats = _bn_vars(module.scale.shape[0])
+            _put(params, _flax_path(name), bn_params)
+            _put(stats, _flax_path(name), bn_stats)
+        elif isinstance(module, SeqLinear):
+            out, fan_in = module.weight.shape
+            _put(params, _flax_path(name) + ["Dense_0"], _dense_vars(generator, fan_in, out, fan_in))
+    for name, p in model.named_parameters(recurse=False):
+        params[name] = np.asarray(p.detach().numpy(), np.float32)
+    return params, stats

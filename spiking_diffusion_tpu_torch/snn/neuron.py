@@ -1,4 +1,4 @@
-"""LIF neuron dynamics over explicit state.
+"""Spiking neuron dynamics over explicit state.
 
 Dynamics (spikingjelly ``LIFNode``), the same fp32 operations in the same
 order as ``spiking_diffusion_tpu/snn/neuron.py``:
@@ -10,11 +10,18 @@ order as ``spiking_diffusion_tpu/snn/neuron.py``:
     soft reset:                 V[t] = H[t] - S[t] * v_th
 
 with decay = 1/tau. The spike carries the surrogate gradient
-(``snn/surrogate.py``), so ``lif_step`` and ``lif_scan``, a plain Python
-loop over T, are differentiable by autograd; ``detach_reset`` keeps the
-reset out of the gradient, as JAX's ``_reset`` does. ``lif_multi_step``
-runs K1, the hand-written CUDA forward and backward kernels behind one
-``torch.autograd.Function`` (:mod:`spiking_diffusion_tpu_torch.ops.lif`).
+(``snn/surrogate.py``), so the steps and the scans, plain Python loops
+over T, are differentiable by autograd; ``detach_reset`` keeps the reset
+out of the gradient, as JAX's ``_reset`` does. The IF, PLIF, QIF, EIF
+and Izhikevich neurons change only the charge (``if_scan`` ..
+``izhikevich_scan``); they are plain PyTorch on either device, as they
+are ``lax.scan``s without a kernel in JAX.
+
+``lif_multi_step`` runs K1, the hand-written CUDA forward and backward
+kernels behind one ``torch.autograd.Function``
+(:mod:`spiking_diffusion_tpu_torch.ops.lif`), for the surrogate families
+K1 computes (atan, sigmoid), and ``lif_scan`` for any other, as JAX's
+``_pallas_ok`` routes; ``ROUTES`` counts the calls of each route.
 """
 
 from __future__ import annotations
@@ -24,9 +31,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from spiking_diffusion_tpu_torch.snn.surrogate import SurrogateFn, atan
+from spiking_diffusion_tpu_torch.snn.surrogate import KERNEL_FAMILIES, SurrogateFn, atan
 
 BACKENDS = ("auto", "torch", "cuda")
+# calls of ``lif_multi_step`` by route: "kernel" (K1 on a CUDA tensor, its
+# plain versions on a CPU tensor or with backend 'torch') and "scan"
+# (``lif_scan``, for a surrogate family K1 does not compute)
+ROUTES = {"kernel": 0, "scan": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,14 +72,42 @@ def reset(h: torch.Tensor, s: torch.Tensor, p: NeuronParams) -> torch.Tensor:
     return h - s * p.v_threshold
 
 
+def fire_and_reset(h: torch.Tensor, p: NeuronParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(V[t], S[t]) from the pre-reset membrane H[t]."""
+    s = p.surrogate(h - p.v_threshold)
+    return reset(h, s.detach() if p.detach_reset else s, p), s
+
+
 def lif_step(
     v: torch.Tensor, x: torch.Tensor, params: NeuronParams = NeuronParams()
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LIF timestep: (v, x) -> (v_next, spike)."""
-    p = params
-    h = charge(v, x, p)
-    s = p.surrogate(h - p.v_threshold)
-    return reset(h, s.detach() if p.detach_reset else s, p), s
+    return fire_and_reset(charge(v, x, params), params)
+
+
+def if_step(
+    v: torch.Tensor, x: torch.Tensor, params: NeuronParams = NeuronParams()
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One IF timestep (no leak): H[t] = V[t-1] + X[t]."""
+    return fire_and_reset(v + x, params)
+
+
+def _initial(x_seq: torch.Tensor, v_init: Optional[torch.Tensor], fill: float):
+    if v_init is None:
+        return torch.full(x_seq.shape[1:], fill, dtype=torch.float32, device=x_seq.device)
+    return v_init.float()
+
+
+def _scan(x_seq, v_init, params: NeuronParams, charge_fn):
+    """Spikes (in the input dtype) and v_T of the neuron whose H[t] is
+    ``charge_fn(v, x_t)``."""
+    xt = x_seq.float()
+    v = _initial(x_seq, v_init, params.v_reset)
+    spikes = []
+    for t in range(xt.shape[0]):
+        v, s = fire_and_reset(charge_fn(v, xt[t]), params)
+        spikes.append(s)
+    return torch.stack(spikes).to(x_seq.dtype), v
 
 
 def lif_scan(
@@ -84,11 +123,7 @@ def lif_scan(
     Membranes are fp32 whatever the input dtype.
     """
     xt = x_seq.float()
-    if v_init is None:
-        v = torch.full(x_seq.shape[1:], params.v_reset, dtype=torch.float32,
-                       device=x_seq.device)
-    else:
-        v = v_init.float()
+    v = _initial(x_seq, v_init, params.v_reset)
     spikes, v_seq = [], []
     for t in range(xt.shape[0]):
         v, s = lif_step(v, xt[t], params)
@@ -101,6 +136,94 @@ def lif_scan(
     return s_seq, v
 
 
+def if_scan(
+    x_seq: torch.Tensor,
+    v_init: Optional[torch.Tensor] = None,
+    params: NeuronParams = NeuronParams(),
+):
+    """IF neuron over (T, ...) input: (spikes, v_T)."""
+    return _scan(x_seq, v_init, params, lambda v, x: v + x)
+
+
+def plif_scan(
+    x_seq: torch.Tensor,
+    w: torch.Tensor,
+    v_init: Optional[torch.Tensor] = None,
+    params: NeuronParams = NeuronParams(),
+):
+    """Parametric LIF over (T, ...) input (spikingjelly
+    ``ParametricLIFNode``): the decay is the tensor ``sigmoid(w)``, so the
+    learnable ``w`` gets a gradient. Returns (spikes, v_T)."""
+    decay = torch.sigmoid(w)
+    p = params
+    if p.decay_input:
+        return _scan(x_seq, v_init, p, lambda v, x: v + (x - (v - p.v_reset)) * decay)
+    return _scan(x_seq, v_init, p, lambda v, x: v - (v - p.v_reset) * decay + x)
+
+
+def qif_scan(
+    x_seq: torch.Tensor,
+    v_init: Optional[torch.Tensor] = None,
+    params: NeuronParams = NeuronParams(),
+    a0: float = 1.0,
+    v_c: float = 0.8,
+):
+    """Quadratic integrate-and-fire (spikingjelly ``QIFNode``):
+    H = V + (X + a0 (V - v_reset)(V - v_c)) / tau. Returns (spikes, v_T)."""
+    p = params
+    return _scan(x_seq, v_init, p,
+                 lambda v, x: v + (x + a0 * (v - p.v_reset) * (v - v_c)) * p.decay)
+
+
+def eif_scan(
+    x_seq: torch.Tensor,
+    v_init: Optional[torch.Tensor] = None,
+    params: NeuronParams = NeuronParams(),
+    delta_t: float = 1.0,
+    theta_rh: float = 0.8,
+):
+    """Exponential integrate-and-fire (spikingjelly ``EIFNode``):
+    H = V + (X - (V - v_rest) + dT exp((V - theta_rh)/dT)) / tau. Returns
+    (spikes, v_T)."""
+    p = params
+    return _scan(x_seq, v_init, p, lambda v, x: v + (
+        x - (v - p.v_reset) + delta_t * torch.exp((v - theta_rh) / delta_t)) * p.decay)
+
+
+def izhikevich_scan(
+    x_seq: torch.Tensor,
+    v_init: Optional[torch.Tensor] = None,
+    w_init: Optional[torch.Tensor] = None,
+    params: NeuronParams = NeuronParams(),
+    a: float = 0.02,
+    b: float = 0.2,
+    v_rest: float = -0.1,
+    w_rest: float = 0.0,
+    tau_w: float = 2.0,
+    a0: float = 1.0,
+    v_c: float = 0.8,
+):
+    """Izhikevich neuron (spikingjelly ``IzhikevichNode``): a quadratic
+    membrane with a recovery current w. Returns (spikes, v_T, w_T)."""
+    p = params
+    xt = x_seq.float()
+    v = _initial(x_seq, v_init, p.v_reset)
+    w = _initial(x_seq, w_init, w_rest)
+    spikes = []
+    for t in range(xt.shape[0]):
+        h = v + (xt[t] + a0 * (v - v_rest) * (v - v_c) - w) * p.decay
+        v, s = fire_and_reset(h, p)
+        w = w + (a * (b * (v - v_rest)) - w + w_rest) / tau_w
+        spikes.append(s)
+    return torch.stack(spikes).to(x_seq.dtype), v, w
+
+
+def kernel_route(params: NeuronParams) -> bool:
+    """Whether ``lif_multi_step`` takes K1 for ``params``: its surrogate
+    family is one the kernel computes."""
+    return params.surrogate.name in KERNEL_FAMILIES
+
+
 def lif_multi_step(
     x_seq: torch.Tensor,
     v_init: Optional[torch.Tensor] = None,
@@ -109,16 +232,25 @@ def lif_multi_step(
 ) -> torch.Tensor:
     """Multi-step LIF, differentiable; returns the (T, ...) spike train.
 
-    ``backend``: 'cuda' (K1's forward and backward kernels; the tensor
-    must lie on a CUDA device), 'auto' (K1 for a CUDA tensor, its plain
-    versions for a CPU tensor) or 'torch' (K1's plain versions on either
-    device).
+    For the atan and sigmoid surrogates, ``backend``: 'cuda' (K1's
+    forward and backward kernels; the tensor must lie on a CUDA device),
+    'auto' (K1 for a CUDA tensor, its plain versions for a CPU tensor) or
+    'torch' (K1's plain versions on either device). Any other family
+    takes ``lif_scan`` under 'auto' and 'torch', and raises under 'cuda':
+    the route is chosen from ``params`` before anything is launched.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown LIF backend {backend!r}; have {BACKENDS}")
     if backend == "cuda" and not x_seq.is_cuda:
         raise ValueError("LIF backend 'cuda' needs a tensor on a CUDA device")
+    if not kernel_route(params):
+        if backend == "cuda":
+            raise ValueError(f"the LIF kernels take the {list(KERNEL_FAMILIES)} "
+                             f"surrogates, not {params.surrogate.name!r}")
+        ROUTES["scan"] += 1
+        return lif_scan(x_seq, v_init, params)[0]
     # imported here: ops.lif imports this module for NeuronParams
     from spiking_diffusion_tpu_torch.ops.lif import lif
 
+    ROUTES["kernel"] += 1
     return lif(x_seq, v_init, params, reference=backend == "torch")

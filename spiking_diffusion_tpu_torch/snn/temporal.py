@@ -1,17 +1,28 @@
-"""Temporal primitives over the leading T axis: PSP filter and membrane
-readout.
+"""Temporal primitives over the leading T axis: time-folded apply, PSP
+filter and membrane readout.
 
-``psp`` is the first-order synaptic low-pass, syn[t] = syn[t-1] + (x[t] -
-syn[t-1]) / tau_s from syn = 0, returned for every t (reference
-``snn_model/snn_layers.py:6-26``); ``membrane_output`` is the leaky readout
-out = sum_t decay^(T-1-t) * x[t] (``snn_layers.py:28-41``). The JAX
-package's ``seq_apply`` has no counterpart: the port keeps T folded into
-the batch.
+``seq_apply`` runs a stateless layer once over (T*N, ...) (spikingjelly
+``functional.seq_to_ann_forward``); ``psp`` is the first-order synaptic
+low-pass, syn[t] = syn[t-1] + (x[t] - syn[t-1]) / tau_s from syn = 0,
+returned for every t (reference ``snn_model/snn_layers.py:6-26``);
+``membrane_output`` is the leaky readout out = sum_t decay^(T-1-t) * x[t]
+(``snn_layers.py:28-41``).
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+
+
+def seq_apply(fn: Callable[[torch.Tensor], torch.Tensor],
+              x_seq: torch.Tensor) -> torch.Tensor:
+    """Apply a stateless function over a (T, N, ...) sequence by folding
+    time into batch: (T, N, ...) -> (T*N, ...) -> fn -> (T, N, ...)."""
+    t, n = x_seq.shape[0], x_seq.shape[1]
+    y = fn(x_seq.reshape((t * n,) + tuple(x_seq.shape[2:])))
+    return y.reshape((t, n) + tuple(y.shape[1:]))
 
 
 def psp(x_seq: torch.Tensor, tau_s: float = 2.0) -> torch.Tensor:

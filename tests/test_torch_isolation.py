@@ -6,8 +6,9 @@
 * The entry points' device defaults to ``"cuda"`` (the sampler's, the
   fused sampler's, the stage-1 and stage-2 trainers',
   ``extract_code_indices``'s, the CLI's ``main``, the LeNet feature
-  space's, the baselines' loaders, InceptionV3's, clean-fid's and the
-  freeze's too): with no card they raise instead of running on the CPU.
+  space's, the baselines' loaders, InceptionV3's, clean-fid's, the
+  freeze's and the classifier zoo's loader and trainer too): with no card
+  they raise instead of running on the CPU.
   So do ``parallel.make_mesh``, ``parallel.make_mesh_2d`` and
   ``parallel.launch``: a rank runs on the card unless the CPU is named (the
   DP trainers and sampler on a rank: tests/test_torch_parallel.py; the TP
@@ -28,7 +29,7 @@ import torch
 from spiking_diffusion_tpu_torch import cli, generate, parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.metrics import cleanfid, features, frozen, inception
-from spiking_diffusion_tpu_torch.models import diffusion, weights
+from spiking_diffusion_tpu_torch.models import diffusion, weights, zoo
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,7 +45,11 @@ for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage
              "metrics.scores", "metrics.ssim", "utils.grids", "profiling.syops",
              "profiling.timing", "profiling.monitor", "models.ann_vqvae", "models.snn_vae",
              "metrics.inception", "metrics.cleanfid", "data.extra_datasets",
-             "parallel.mesh", "parallel.launch", "parallel.tp"):
+             "parallel.mesh", "parallel.launch", "parallel.tp", "snn.surrogate",
+             "snn.neuron", "snn.encoding", "snn.functional", "snn.temporal",
+             "snn.quantize", "snn.rnn", "snn.learning", "snn.fptt", "snn.tempotron",
+             "models.zoo", "models.ann2snn", "models.recurrent", "models.attention",
+             "models.dropconnect"):
     assert pkg.__name__ + "." + name in names, name
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
@@ -179,6 +184,20 @@ def test_baselines_and_metrics_default_to_cuda(monkeypatch, tmp_path):
                                                      log_fn=None)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_zoo_defaults_to_cuda(monkeypatch):
+    """The classifier zoo's trainer and loader run on the card unless the
+    CPU is named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(cfg=(4, "M"), num_classes=10, input_shape=(4, 4, 1))
+    variables = weights.init_zoo_variables("vgg", torch.Generator().manual_seed(0), **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weights.load_zoo_model("vgg", *variables, **kw)
+    model = weights.load_zoo_model("vgg", *variables, device="cpu", **kw)
+    images = np.zeros((4, 4, 4, 1), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        zoo.train_classifier(model, images, np.zeros((4,), np.int32), batch_size=2)
 
 
 def test_chip_smoke_fails_without_card():

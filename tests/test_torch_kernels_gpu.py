@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (LIF forward) must agree bitwise. K1's backward must agree bitwise with
+K1 (LIF forward) must agree bitwise, also at the classifier zoo's T = 4
+shapes, where ``lif_multi_step`` launches it for the atan and sigmoid
+surrogates only (any other family takes the plain scan, and
+``backend='cuda'`` refuses it). K1's backward must agree bitwise with
 the atan surrogate; with sigmoid the kernel's ``expf`` and PyTorch's exp
 may differ by an ulp, so dX and dV0 agree within rtol 1e-5, atol 1e-6.
 K3 (fused BN-apply + LIF): spikes, dy, dscale and dshift bitwise in fp32
@@ -61,7 +64,7 @@ from spiking_diffusion_tpu_torch.ops import bn_lif as port_bn_lif
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as port_lif
 from spiking_diffusion_tpu_torch.ops import spike_conv as port_spike_conv
-from spiking_diffusion_tpu_torch.snn import surrogate
+from spiking_diffusion_tpu_torch.snn import neuron, surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
@@ -199,6 +202,55 @@ def test_lif_kernels_at_stage1_shapes(cuda_device, shape):
     torch.cuda.synchronize()
     assert 0.05 < float(s_ref.mean()) < 0.95
     assert torch.equal(s, s_ref) and torch.equal(v, v_ref) and torch.equal(dx, dx_ref)
+
+
+# the classifier zoo's LIF layers at T = 4, batch 64, as (T, M = N * C * H * W)
+ZOO_LIF_SHAPES = {
+    "vgg11_first_C64_32x32": 64 * 64 * 32 * 32,
+    "resnet_stage2_C128_16x16": 64 * 128 * 16 * 16,
+    "vgg11_last_C512_2x2": 64 * 512 * 2 * 2,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(ZOO_LIF_SHAPES))
+def test_lif_kernels_at_zoo_shapes(cuda_device, shape):
+    """K1 forward and backward bitwise their plain versions at T = 4 and the
+    M of the zoo's LIF layers, as its training step calls them."""
+    m = ZOO_LIF_SHAPES[shape]
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    x = torch.rand((4, m), generator=gen, device=cuda_device) * 4.0 - 1.0
+    gs = torch.randn((4, m), generator=gen, device=cuda_device)
+    s, v = port_lif.lif_fwd(x)
+    s_ref, v_ref = port_lif.lif_fwd_reference(x)
+    dx, _ = port_lif.lif_bwd(x, None, gs, NeuronParams(), False)
+    dx_ref, _ = port_lif.lif_bwd_reference(x, None, gs, NeuronParams(), False)
+    torch.cuda.synchronize()
+    assert 0.05 < float(s_ref.mean()) < 0.95
+    assert torch.equal(s, s_ref) and torch.equal(v, v_ref) and torch.equal(dx, dx_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(surrogate.FAMILIES))
+def test_lif_multi_step_routes_by_family(cuda_device, family):
+    """On a CUDA tensor 'auto' launches K1 forward and backward for atan
+    and sigmoid and takes the plain scan for any other family, which
+    'cuda' refuses before anything is launched."""
+    params = NeuronParams(surrogate=surrogate.get_surrogate(family, 2.0))
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    x = (torch.rand((4, 64, 40), generator=gen, device=cuda_device) * 3.0).requires_grad_()
+    before = (port_lif.LAUNCHES, port_lif.LAUNCHES_BWD, dict(neuron.ROUTES))
+    neuron.lif_multi_step(x, params=params, backend="auto").sum().backward()
+    torch.cuda.synchronize()
+    launched = (port_lif.LAUNCHES - before[0], port_lif.LAUNCHES_BWD - before[1])
+    routes = {k: neuron.ROUTES[k] - before[2][k] for k in before[2]}
+    kernel = family in surrogate.KERNEL_FAMILIES
+    assert launched == ((1, 1) if kernel else (0, 0))
+    assert routes == ({"kernel": 1, "scan": 0} if kernel else {"kernel": 0, "scan": 1})
+    if not kernel:
+        with pytest.raises(ValueError, match="surrogates"):
+            neuron.lif_multi_step(x, params=params, backend="cuda")
+        assert (port_lif.LAUNCHES, port_lif.LAUNCHES_BWD) == (before[0], before[1])
 
 
 # --- K3 ----------------------------------------------------------------------
