@@ -222,7 +222,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    eval's data for seed 42 on fused fp32, the layerwise sampler and
    ``--bf16`` (stats verified, K2 launches exact, figures logged): whether
    the distance from the record follows the kernel or the arithmetic.
-13. cli_snn_vae: ``--model snn-vae`` on the card. Every K1 launch of a
+13. cli_snn_vae (in the side lane, after cli_datasets): ``--model
+   snn-vae`` on the card. Every K1 launch of a
    training step at batch 32 and 256 (the latent head's (16, N·56) and the
    decoder input's (16, N·784) among them), forward and backward, bitwise
    against the plain versions; a CLI training run with ``--vae_scheduled_p
@@ -240,9 +241,10 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    calibration images) at 299 on 8 images in both pipelines, card against
    CPU within 1e-4 of the largest output, and its forward time;
    ``clean_resize`` of 64 uint8 images card against CPU within 1e-5; the
-   freeze protocol at canonical sizes (60,000 + 10,240 images, 5 epochs)
-   into a temporary root, read back in mode 'on' and its stats verified
-   by the CLI's rule (``frozen.verify_stats``), with its seconds.
+   freeze protocol (5 epochs) on 2,048 training images, its stats over
+   the 8,192 test images of the canonical reference set's size, into a
+   temporary root, read back in mode 'on' and its stats verified by the
+   CLI's rule (``frozen.verify_stats``), with its seconds.
 15. cli_datasets: every other dataset's committed spiking VQ-VAE
    (``result_torch/<dataset>/snn-vq-vae``). CIFAR10 at 3 input channels
    through ``cli.main``: a training run with the cli phase's flags (exact
@@ -266,8 +268,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    ranks on a GPU), spawned by ``parallel.launch`` once phase
    tensor_parallel's ranks have run their references, each holding a replica. Meanwhile each rank runs the
    same steps in one process on the global batch (``make_train_step_*``,
-   no mesh): the references. After the side lane's join, on each rank, with the
-   launch counts reset just before: 4 fp32 stage-1 steps (layerwise, K1)
+   no mesh): the references. From the start of phase serve_export (their
+   cue), on each rank, with the launch counts reset just before: 4 fp32 stage-1 steps (layerwise, K1)
    at a global batch of 256, 128 a rank (exactly 6 + 6 K1 a step); 4
    stage-2 steps on 'bnlif' (K3) at 256 in fp32 and in bf16 (5 + 5 K3 a
    step); the fused bf16 sampler (K2) on the trained weights at 256 (49
@@ -292,7 +294,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
 17. tensor_parallel: four ranks on the one card over gloo forming a 2 x 2
    (data x model) mesh (``parallel.make_mesh_2d``), spawned after phase
    kernels; each runs the single-process references once phase
-   train_stage1 has made the codes. After data_parallel, at the
+   train_stage1 has made the codes. Once phase data_parallel's ranks are
+   done (beside phase serve_export), at the
    full-width flagship and a global batch of 64 (32 rows a data row: gloo
    copies every gather of a block's spike train through the host), each
    from a replica synced over the data group and sharded over the model
@@ -329,8 +332,8 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    losses; ms per step (CUDA events, median of steps 2-4) and peak memory.
    ``lif_multi_step`` on the card: atan and sigmoid launch K1, erf takes
    the plain scan under 'auto' and raises under 'cuda'. ANN -> SNN
-   conversion (IF neurons) at T = 32 over 256 images. Runs after
-   cli_snn_vae, beside the side lane; its CPU side (each model's first
+   conversion (IF neurons) at T = 32 over 256 images. Runs after cli,
+   beside the side lane; its CPU side (each model's first
    step, each LIF and PLIF layer passing the card's spikes on, and ANN ->
    SNN) runs in a nice'd worker process beside the later phases, where
    the main process waits for the side lane and the ranks, and phase
@@ -339,19 +342,41 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    differing), the conversion's scales within 1e-6 and at least 99 % of
    its outputs within 1e-5.
 
+19. serve_export (after zoo, before the side lane's join): the server
+   (``examples/serve_torch.py``) on the committed e60 weights. A bf16
+   ``Generator`` at batch 64 (K2 + K1) behind a ``ThreadingHTTPServer``
+   on 127.0.0.1: three ``/generate?n=64`` requests, whose PNGs each equal
+   the matching sequential draw of ``generate.generate`` from a generator
+   seeded alike, bitwise, then one ``sample`` call whose fp32 images do;
+   ``/healthz``, ``/stats``, a 400 and a 404; exactly 49 K2 calls and 3 K1
+   launches a batch drawn (warm-up and speculation included). The e60
+   VQ-VAE's and denoiser's netlists (``models/deploy.py``) written and
+   read (host ms), the modules reloaded on the card, one request on one
+   noise set: codes and images bitwise the originals'. One decode's spike
+   train packed and unpacked on the card (``ops/bitpack.py``), bitwise.
+   ``lynxi_infer_torch.run`` at its defaults: exactly 2 K1 forward and
+   backward launches a training step (and 2 in the eval forward),
+   argmax agreement 1.0 with the exported manifest's executor. Then
+   ``bench(8)`` at batch 64 and 256 in fp32, bf16 and int8, the launches
+   held (11 batches each), p50 / p90 / images/s logged.
+
 Two lanes share the card and the host after phase kernels, so that the run
-keeps under five minutes: phases metrics_extra, cli_vq_vae and
-cli_datasets (which share no state with the rest) run in a spawned
+keeps under five minutes: phases metrics_extra, cli_vq_vae, cli_datasets
+and cli_snn_vae (which share no state with the rest) run in a spawned
 process of their own (``SideLane``), its log printed whole where the main
-sequence joins it (phase side_lane, after cli_snn_vae); the CPU's side of
+sequence joins it (phase side_lane, after serve_export); the CPU's side of
 the datasets' recon runs from the lane's start in HOST_WORKERS worker
-processes at a lower priority. Phase tensor_parallel's ranks start with
-the side lane and run their references once phase train_stage1 has made
-the stage-2 codes; phase data_parallel's ranks start when those are done
-(the card then holds one set of references at a time; phase cli's
-artifact tree reaches them with their cue). The timings of phases
-generation to zoo are therefore taken beside the side lane's work; phase
-kernels' are the card's alone.
+processes at a lower priority, and phase trained_weights' CPU recon from
+the run's start in the main sequence's worker (the zoo's). Phase
+tensor_parallel's ranks start with the side lane and run their references
+once phase train_stage1 has made the stage-2 codes; phase data_parallel's
+ranks start when those are done (the card then holds one set of
+references at a time). Phase data_parallel's ranks take their cue (with
+phase cli's artifact tree) at the start of phase serve_export, phase
+tensor_parallel's when those are done: their steps run beside
+serve_export. The timings of phases generation to serve_export, and of
+the ranks' steps, are therefore taken beside other work; phase kernels'
+are the card's alone.
 
 The last lines are a JSON line of per-kernel numbers, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -364,6 +389,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -374,11 +400,16 @@ import signal
 import statistics
 import subprocess
 import sys
+import struct
 import tempfile
 import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
+import zlib
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from http.server import ThreadingHTTPServer
 from pathlib import Path
 from typing import Optional
 
@@ -389,15 +420,17 @@ from spiking_diffusion_tpu_torch import cli, parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.data import data_variance, load_dataset, synthetic_dataset
 from spiking_diffusion_tpu_torch.data.extra_datasets import load_cifar10
+from spiking_diffusion_tpu_torch.generate import generate as generate_images
 from spiking_diffusion_tpu_torch.generate import sample_codes
 from spiking_diffusion_tpu_torch.metrics import cleanfid, frozen, inception
-from spiking_diffusion_tpu_torch.models import ann2snn, diffusion, weights, zoo
+from spiking_diffusion_tpu_torch.models import ann2snn, deploy, diffusion, weights, zoo
 from spiking_diffusion_tpu_torch.models.ann_vqvae import ANNVQVAE
 from spiking_diffusion_tpu_torch.models.denoiser import SpikingDenoiser
 from spiking_diffusion_tpu_torch.models.layers import LIF, SeqConv
 from spiking_diffusion_tpu_torch.models.snn_vae import SNNVAE
 from spiking_diffusion_tpu_torch.models.vqvae import SNNVQVAE
 from spiking_diffusion_tpu_torch.ops import _build
+from spiking_diffusion_tpu_torch.ops import bitpack
 from spiking_diffusion_tpu_torch.ops import bn_lif as bnl
 from spiking_diffusion_tpu_torch.ops import fused_denoiser as fd
 from spiking_diffusion_tpu_torch.ops import lif as lif_op
@@ -409,6 +442,7 @@ from spiking_diffusion_tpu_torch.snn import encoding, neuron, surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 from spiking_diffusion_tpu_torch.train.state import create_train_state
+from spiking_diffusion_tpu_torch.utils.grids import _tile, _to_uint8
 
 BUDGET_S = 900  # the whole run, the build included
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -666,7 +700,11 @@ INCEPTION_IMAGES = 8
 INCEPTION_REPS = 5
 INCEPTION_RTOL = 1e-4  # of the largest output: the CPU tests' tolerance against JAX
 RESIZE_ATOL = 1e-5
-FREEZE_SIZES = (60000, 10240)  # the canonical freeze protocol's sets
+# the freeze protocol's sets, its training set cut from the canonical 60,000
+# to 2,048 (5 epochs of LeNet steps, bound by the host's launches, took
+# 37-55 s at 60,000 and 22 s at 6,000 beside the main sequence); the test
+# set keeps the stats' CANONICAL_REF_N images
+FREEZE_SIZES = (2048, 8192)
 # phase zoo: the JAX modules' own widths; name -> (weights kind, the model's
 # arguments, dataset, K1 launches of a forward)
 # (in the order of their CPU steps' cost, the dearest first: each CPU step
@@ -2575,16 +2613,17 @@ def k1_at_cli_eval(what: str, vq_eval, codes: torch.Tensor, images: np.ndarray,
     return k1_err
 
 
-def phase_trained_weights(card: str) -> dict:
+def phase_trained_weights(card: str, cpu) -> dict:
     """The trained weights on the card: recon and the encoder's codes card
-    against CPU, and the samplers on one set of per-step noise, K2 against
-    its plain version on their logits."""
+    against CPU (``cpu``: the future of ``cpu_recon``'s, computed in the
+    worker process since the run's start), and the samplers on one set of
+    per-step noise, K2 against its plain version on their logits."""
     dcfg = DiffusionConfig()
     vq = stage1_run_model("MNIST/snn-vq-vae", "cuda")
     den = exported_denoiser("MNIST/snn-vq-vae", backend="auto")
     ds = recon_set("MNIST/snn-vq-vae", TRAINED_IMAGES)
     recon = recon_against_cpu("MNIST/snn-vq-vae", TRAINED_IMAGES,
-                              cpu_recon("MNIST/snn-vq-vae", TRAINED_IMAGES), card)
+                              cpu.result(timeout=HOST_WAIT_S), card)
 
     steps = len(diffusion.schedule(dcfg)[0])
     gen = torch.Generator(device="cuda").manual_seed(TRAINED_STEP_NOISE_SEED)
@@ -3389,8 +3428,9 @@ def zoo_worker_init() -> None:
 
 
 def zoo_worker() -> ProcessPoolExecutor:
-    """The zoo's CPU-side worker, started now (its imports off the later
-    phases' path) and idle until phase zoo."""
+    """The main sequence's CPU-side worker, started now (its imports off
+    the later phases' path): phase trained_weights' CPU recon from the
+    start, then the zoo's CPU side from phase zoo."""
     pool = ProcessPoolExecutor(1, initializer=zoo_worker_init,
                                mp_context=multiprocessing.get_context("spawn"))
     pool.submit(int)
@@ -3833,15 +3873,16 @@ def phase_cli_datasets(card: str, cpu: dict) -> dict:
 # --- the side lane: phases metrics_extra, cli_vq_vae, cli_datasets -----------
 
 
-def side_lane(card: str, conn) -> None:
-    """Phases metrics_extra, cli_vq_vae and cli_datasets, which share no
-    state with the main sequence, in a process of their own beside it; the
-    CPU's side of the datasets' recon runs in its pool from the start.
-    Sends {"log": all it printed, "results", "error": a traceback or None}
-    through ``conn``; the main process prints the log when it joins, so
-    that each phase's lines stay together."""
+def side_lane(card: str, conn, go) -> None:
+    """Phases metrics_extra, cli_vq_vae, cli_datasets and cli_snn_vae,
+    which share no state with the main sequence, in a process of their own
+    beside it, from ``go`` on; the CPU's side of the datasets' recon runs in
+    its pool from then. Sends {"log": all it printed, "results", "error": a
+    traceback or None} through ``conn``; the main process prints the log
+    when it joins, so that each phase's lines stay together."""
     buf = io.StringIO()
     out = {"results": None, "error": None}
+    go.wait()
     with contextlib.redirect_stdout(buf):
         pool = None
         try:
@@ -3859,6 +3900,9 @@ def side_lane(card: str, conn) -> None:
             with Phase("cli_datasets"):
                 torch.cuda.empty_cache()
                 results["datasets"] = phase_cli_datasets(card, cpu)
+            with Phase("cli_snn_vae"):
+                torch.cuda.empty_cache()
+                results["snn"] = phase_cli_snn_vae(card)
             out["results"] = results
         except Exception:
             out["error"] = traceback.format_exc()
@@ -3871,17 +3915,22 @@ def side_lane(card: str, conn) -> None:
 
 
 class SideLane:
-    """``side_lane`` in a spawned process, started after phase kernels (whose
-    timings are then the card's alone): the later phases of the main
-    sequence share the card and the host with it."""
+    """``side_lane`` in a process spawned now (its imports off the later
+    phases' path) and let go after phase kernels (whose timings are then
+    the card's alone): the later phases of the main sequence share the card
+    and the host with it."""
 
     def __init__(self, card: str):
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=side_lane, args=(card, child))
-        self.t0 = time.perf_counter()
+        self.go = ctx.Event()
+        self.proc = ctx.Process(target=side_lane, args=(card, child, self.go))
         self.proc.start()
         child.close()
+
+    def start(self) -> None:
+        self.t0 = time.perf_counter()
+        self.go.set()
 
     def finish(self) -> dict:
         """Wait for the lane; print its log; its results, or raise."""
@@ -4370,8 +4419,12 @@ class RanksRun:
         for _ in range(self.n_ranks):
             self.late.put(values)
 
+    def cue(self) -> None:
+        """Let the ranks run their phase (once their references are done)."""
+        self.go.set()
+
     def finish(self) -> dict:
-        """Cue the ranks; rank 0's result."""
+        """Cue the ranks, if not yet; rank 0's result."""
         self.go.set()
         out = self.ranks.result()
         check(out["backend"] == "gloo", f"ranks sharing the card on {out['backend']}")
@@ -4407,10 +4460,15 @@ class DataParallelRun(RanksRun):
             "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "codes": codes,
             "cli_root": self.root.name, "card": card}, after)
 
+    def cue(self, cli_tree: list) -> None:
+        """Cue the ranks with phase cli's artifact tree."""
+        if not self.go.is_set():
+            self.send({"cli_tree": cli_tree})
+        super().cue()
+
     def finish(self, card: str, cli_tree: list) -> dict:
-        """Cue the ranks with phase cli's artifact tree; their result and the
-        NCCL probe's."""
-        self.send({"cli_tree": cli_tree})
+        """Cue the ranks, if not yet; their result and the NCCL probe's."""
+        self.cue(cli_tree)
         return {**super().finish(), "nccl": nccl_probe(card)}
 
     def close(self) -> None:
@@ -4686,6 +4744,275 @@ class TensorParallelRun(RanksRun):
             "stage1": (images, var, {k: v.cpu() for k, v in sd.items()}), "card": card})
 
 
+# --- phase 19: serving and export ---------------------------------------------
+
+E60 = EXPORTED / "MNIST" / "snn-vq-vae"
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+SERVE_BATCH = 64
+SERVE_REQUESTS = 3  # over loopback, then one call of Generator.sample
+SERVE_TEMPERATURE = 0.65
+SERVE_BENCH_REQUESTS = 8
+SERVE_BENCH_BATCHES = (64, 256)
+SERVE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+NETLIST_NOISE_SEED = 13
+LYNXI_LIF_LAYERS = 2  # lynxi_infer_torch's SpikingVGG((8, "M", 16, "M"))
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels of a greyscale PNG of one IDAT with filter byte 0 on
+    every row, as ``utils.grids.png_bytes`` writes it."""
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        chunks[data[pos + 4:pos + 8]] = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    check(depth == 8 and color == 0, f"PNG of depth {depth}, colour type {color}")
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, w + 1)
+    check(not raw[:, 0].any(), "a PNG row with a filter")
+    return raw[:, 1:]
+
+
+def http_get(port: int, path: str) -> tuple:
+    """(status, content type, body) of a GET on the loopback server."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, None, b""
+
+
+def expect_launches(what: str, k1: int = 0, k1_bwd: int = 0, k2: int = 0) -> tuple:
+    """The launch counts since the last reset, held exactly."""
+    torch.cuda.synchronize()
+    got = launch_counts()
+    check(got == (k1, k1_bwd, 0, 0, k2, 0, 0),
+          f"{what}: {format_counts(got)}, expected K1 {k1}/{k1_bwd}, K2 {k2}")
+    return got
+
+
+def serve_requests(serve, card: str) -> tuple:
+    """The bf16 server at batch 64 over loopback: three /generate requests,
+    /healthz, /stats, a 400 and a 404, then one ``sample`` call; each
+    batch held bitwise to the matching sequential draw of
+    ``generate.generate``. ((K1, K2) launches, the Generator)."""
+    reset_launch_counts()
+    gen = serve.Generator(str(E60), SERVE_BATCH, T, 128, dtype="bf16", device="cuda")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(gen))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        port = server.server_address[1]
+        pngs, walls = [], []
+        for _ in range(SERVE_REQUESTS):
+            t0 = time.perf_counter()
+            status, kind, body = http_get(
+                port, f"/generate?n={SERVE_BATCH}&temperature={SERVE_TEMPERATURE}")
+            walls.append(time.perf_counter() - t0)
+            check((status, kind) == (200, "image/png"), f"/generate answered {status} {kind}")
+            pngs.append(body)
+        health = json.loads(http_get(port, "/healthz")[2])
+        stats = json.loads(http_get(port, "/stats")[2])
+        bad = (http_get(port, "/generate?temperature=0")[0], http_get(port, "/nope")[0])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the server thread did not stop")
+    check(health == {"status": "ok", "batch": SERVE_BATCH}, f"/healthz {health}")
+    check(set(stats) == {"batch", "last_latency_s"} and stats["last_latency_s"] > 0,
+          f"/stats {stats}")
+    check(bad == (400, 404), f"bad requests answered {bad}")
+    direct = gen.sample(SERVE_BATCH, SERVE_TEMPERATURE)
+    # the warm-up, the requests, the sample call and the last one's speculation
+    batches = 1 + SERVE_REQUESTS + 1 + 1
+    counts = expect_launches("the server", k1=3 * batches, k2=49 * batches)
+    ref = torch.Generator(device="cuda").manual_seed(serve.SEED)
+    for i in range(SERVE_REQUESTS + 1):
+        codes, images = generate_images(gen.denoiser, gen.vqvae, gen.d_cfg, SERVE_BATCH,
+                                        temperature=SERVE_TEMPERATURE, generator=ref,
+                                        device="cuda", fused=True, dtype=torch.bfloat16)
+        check_outputs(codes, images, SERVE_BATCH, gen.d_cfg)
+        images = images.cpu().numpy()
+        if i < SERVE_REQUESTS:
+            grid = _tile(_to_uint8(images), rows=SERVE_BATCH // 8, cols=8)
+            check(np.array_equal(decode_png(pngs[i]), grid),
+                  f"request {i}'s PNG is not the {i}-th sequential draw")
+        else:
+            check(np.array_equal(direct, images), "the sample call's images are not the "
+                  "matching sequential draw's")
+    log(f"  server (bf16 K2, batch {SERVE_BATCH}, e60): {SERVE_REQUESTS} /generate requests "
+        f"over loopback in {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms (host clock), "
+        f"each PNG the matching sequential draw of generate.generate bitwise, then a "
+        f"sample call's fp32 images bitwise; /healthz {health}, /stats {stats}, 400 and "
+        f"404; {batches} batches drawn (warm-up and speculation included): "
+        f"{format_counts(counts)} [{card}]")
+    return (counts[0], counts[4]), gen
+
+
+def serve_bench(serve, card: str) -> dict:
+    """``bench(8)`` at batch 64 and 256 in each dtype, the launches held."""
+    out = {}
+    for name in SERVE_DTYPES:
+        for batch in SERVE_BENCH_BATCHES:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            gen = serve.Generator(str(E60), batch, T, 128, dtype=name, device="cuda")
+            t1 = time.perf_counter()
+            row = gen.bench(SERVE_BENCH_REQUESTS, SERVE_TEMPERATURE)
+            row["seconds"] = {"generator": t1 - t0, "bench": time.perf_counter() - t1}
+            # the warm-up, the priming request, the requests, the last speculation
+            batches = 1 + 1 + SERVE_BENCH_REQUESTS + 1
+            counts = expect_launches(f"bench {name} {batch}", k1=3 * batches, k2=49 * batches)
+            row["launches"] = {"K1": counts[0], "K2": counts[4]}
+            out[f"{name} {batch}"] = row
+            log(f"  bench({SERVE_BENCH_REQUESTS}) {name} at {batch}: p50 {row['p50_s']} s, "
+                f"p90 {row['p90_s']} s, min {row['min_s']} s, max {row['max_s']} s, "
+                f"{row['images_per_sec']} images/s (host clock, images on the host); "
+                f"{format_counts(counts)}; the Generator built in "
+                f"{row['seconds']['generator']:.2f} s (its warm-up batch included), bench "
+                f"{row['seconds']['bench']:.2f} s [{card}]")
+            del gen
+    return out
+
+
+def netlist_round_trip(vq, den, card: str) -> dict:
+    """The e60 VQ-VAE's and denoiser's netlists written and read (host ms),
+    the modules reloaded from them on the card; one request with injected
+    noise on both pairs: codes and images bitwise equal."""
+    dcfg, vcfg = den.cfg, vq.cfg
+    ms = {}
+    with tempfile.TemporaryDirectory() as root:
+        trees = {}
+        for name, module, variables, p in (
+                ("svae", vq, weights.vqvae_variables, vcfg.lif.to_params()),
+                ("denoiser", den, weights.denoiser_variables, dcfg.lif.to_params())):
+            t0 = time.perf_counter()
+            deploy.export_netlist(variables(module), os.path.join(root, name),
+                                  neuron_params=p, meta={"model": name, "T": T})
+            t1 = time.perf_counter()
+            trees[name], manifest = deploy.import_netlist(os.path.join(root, name))
+            ms[name] = {"write_ms": (t1 - t0) * 1e3,
+                        "read_ms": (time.perf_counter() - t1) * 1e3,
+                        "tensors": len(manifest["tensors"]),
+                        "npz_bytes": os.path.getsize(os.path.join(root, name + ".npz"))}
+    vq2 = weights.load_vqvae(trees["svae"]["params"], trees["svae"]["batch_stats"], vcfg,
+                             device="cuda")
+    den2 = weights.load_denoiser(trees["denoiser"]["params"],
+                                 trees["denoiser"]["batch_stats"], dcfg, device="cuda")
+    steps = len(diffusion.schedule(dcfg)[0])
+    noise = list(diffusion.draw_noise(dcfg, SERVE_BATCH, steps, torch.Generator(
+        device="cuda").manual_seed(NETLIST_NOISE_SEED), "cuda"))
+    reset_launch_counts()
+    runs = [generate_images(d, v, dcfg, SERVE_BATCH, temperature=SERVE_TEMPERATURE,
+                            noise=noise, device="cuda", fused=True, dtype=torch.bfloat16)
+            for d, v in ((den, vq), (den2, vq2))]
+    counts = expect_launches("the netlist request", k1=6, k2=98)
+    (codes, images), (codes2, images2) = runs
+    check_outputs(codes, images, SERVE_BATCH, dcfg)
+    check(torch.equal(codes, codes2) and torch.equal(images, images2),
+          "the modules reloaded from the netlist give other codes or images")
+    log(f"  netlist of the e60 weights: " + "; ".join(
+        f"{n} {r['tensors']} tensors, {r['npz_bytes']} npz bytes, written in "
+        f"{r['write_ms']:.1f} ms, read in {r['read_ms']:.1f} ms" for n, r in ms.items())
+        + f" (host clock, the write from the card's modules); reloaded on the card, one "
+        f"request of {SERVE_BATCH} on the same noise: codes and images bitwise the "
+        f"originals'; {format_counts(counts)} [{card}]")
+    return {"files": ms, "launches": {"K1": counts[0], "K2": counts[4]}}
+
+
+def lynxi_on_card(card: str) -> dict:
+    """``lynxi_infer_torch.run`` at its defaults on the card: exact K1
+    launches, argmax agreement 1.0."""
+    lynxi = load_example("lynxi_infer_torch")
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        res = lynxi.run(out=os.path.join(root, "fmnist_vgg"), device="cuda")
+        seconds = time.perf_counter() - t0
+    steps = res.pop("steps")
+    # each step forward and backward through both LIF layers, then the eval forward
+    counts = expect_launches("lynxi_infer_torch", k1=LYNXI_LIF_LAYERS * (steps + 1),
+                             k1_bwd=LYNXI_LIF_LAYERS * steps)
+    check(res["agreement"] == 1.0, f"Lynxi argmax agreement {res['agreement']}")
+    log(f"  lynxi_infer_torch at its defaults: {steps} training steps, argmax agreement "
+        f"{res['agreement']}, max |d logit| {res['max_abs_logit_diff']:.3g} (the framework's "
+        f"K1 and cuDNN against the manifest's PyTorch executor), train accuracy "
+        f"{res['train_accuracy']:.3f}, exported model's test accuracy "
+        f"{res['test_accuracy']:.3f}; {seconds:.2f} s (host clock); {format_counts(counts)} "
+        f"[{card}]")
+    return {"steps": steps, "agreement": res["agreement"],
+            "max_abs_logit_diff": res["max_abs_logit_diff"], "seconds": seconds,
+            "launches": {"K1": counts[0], "K1 bwd": counts[1]}}
+
+
+def bitpack_on_card(vq, codes: torch.Tensor, card: str) -> dict:
+    """One decode's spike train (the re-spike feeding the decoder) packed
+    and unpacked on the card: bitwise, and the bytes the CPU packs."""
+    with torch.no_grad():
+        q = vq.vq_layer.quantize(codes.long()).permute(0, 3, 1, 2)
+        spikes = vq.vq_layer.respike(q.contiguous())
+    packed, shape = bitpack.pack_spikes(spikes)
+    back = bitpack.unpack_spikes(packed, shape, spikes.dtype)
+    rate = float(spikes.mean())
+    check(packed.is_cuda and packed.dtype == torch.uint8, "packed off the card")
+    check(0.0 < rate < 1.0, f"spike rate {rate}")
+    check(torch.equal(back, spikes), "unpacked spikes differ")
+    check(torch.equal(packed.cpu(), bitpack.pack_spikes(spikes.cpu())[0]),
+          "the card packs other bytes than the CPU")
+    log(f"  bitpack of one decode's spike train {tuple(shape)} (rate {rate:.4f}): "
+        f"{spikes.numel() * spikes.element_size()} bytes -> {packed.numel()}, unpacked "
+        f"bitwise, the CPU's bytes [{card}]")
+    return {"shape": list(shape), "packed_bytes": packed.numel()}
+
+
+def serve_launches(served: dict, kernel: str, dtype: Optional[str] = None) -> dict:
+    """A kernel's launches in each run of phase serve_export (K2: the runs
+    of sampler ``dtype``)."""
+    k1, k2 = served["server_launches"]
+    out = {"server": k1 if kernel == "K1" else k2} if dtype in (None, "bf16") else {}
+    if dtype in (None, "bf16"):
+        out["netlist"] = served["netlist"]["launches"][kernel]
+    if kernel == "K1":
+        out["lynxi"] = served["lynxi"]["launches"]["K1"]
+    out.update({f"bench {run}": row["launches"][kernel] for run, row in served["bench"].items()
+                if dtype is None or run.split()[0] == dtype})
+    return out
+
+
+def phase_serve_export(card: str) -> dict:
+    """The server, its bench, the netlist, Lynxi and bitpack on the card."""
+    t = [time.perf_counter()]
+    serve = load_example("serve_torch")
+    launches, gen = serve_requests(serve, card)
+    t.append(time.perf_counter())
+    net = netlist_round_trip(gen.vqvae, gen.denoiser, card)
+    codes = torch.randint(0, 128, (SERVE_BATCH, 7, 7), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(3))
+    packed = bitpack_on_card(gen.vqvae, codes, card)
+    del gen
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    lynxi = lynxi_on_card(card)
+    t.append(time.perf_counter())
+    bench = serve_bench(serve, card)
+    t.append(time.perf_counter())
+    seconds = dict(zip(("server", "netlist_bitpack", "lynxi", "bench"), np.diff(t).tolist()))
+    log("  serve_export seconds (host clock): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()))
+    return {"server_launches": launches, "bench": bench, "netlist": net, "lynxi": lynxi,
+            "bitpack": packed, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -4704,6 +5031,9 @@ def main() -> int:
             log("  cudnn.allow_tf32=False cuda.matmul.allow_tf32=False "
                 "cudnn.deterministic=True cudnn.benchmark=False")
         zoo_pool = zoo_worker()
+        # phase trained_weights' CPU recon, in the worker from now on
+        trained_cpu = zoo_pool.submit(cpu_recon, "MNIST/snn-vq-vae", TRAINED_IMAGES)
+        side = SideLane(smi)
         with Phase("build"):
             for built in _build.build([lif_op.SOURCE, lif_op.SOURCE_BWD, fd.SOURCE,
                                        bnl.SOURCE, sc.SOURCE]):
@@ -4750,9 +5080,9 @@ def main() -> int:
             k3_s1 = phase_k3(gen, flush, stage1_lif_shapes(), STAGE1_PLAIN_REPS,
                              "stage-1 training step")
             del flush
-        # phases metrics_extra, cli_vq_vae and cli_datasets run beside the
-        # main sequence from here, and phase tensor_parallel's ranks start up
-        side = SideLane(smi)
+        # the side lane's phases run beside the main sequence from here, and
+        # phase tensor_parallel's ranks start up
+        side.start()
         stage1_inputs = stage1_setup(VQVAEConfig())
         tp_run = TensorParallelRun(stage1_inputs, smi)
         with Phase("generation"):
@@ -4779,27 +5109,32 @@ def main() -> int:
             train = phase_train(dcfg, codes, smi)
         with Phase("trained_weights"):
             torch.cuda.empty_cache()
-            trained = phase_trained_weights(smi)
+            trained = phase_trained_weights(smi, trained_cpu)
         with Phase("syops"):
             torch.cuda.empty_cache()
             profiled = phase_syops(smi)
         with Phase("cli"):
             cli_runs = phase_cli(smi)
-        with Phase("cli_snn_vae"):
-            torch.cuda.empty_cache()
-            snn = phase_cli_snn_vae(smi)
-            snn_runs = {"cli_train": snn["train"], "cli_eval": snn["eval"],
-                        **{f"sample {b}": row for b, row in snn["sample"].items()},
-                        **{f"{b} {n}": row for b, rows in snn["steps"].items()
-                           for n, row in rows.items()}}
         with Phase("zoo"):
             # its CPU side runs in the nice'd worker beside the later phases,
             # where this process waits for the side lane and the ranks
             torch.cuda.empty_cache()
             zoo_pending = phase_zoo(smi, zoo_pool)
+        with Phase("serve_export"):
+            # phase data_parallel's ranks take their cue now and phase
+            # tensor_parallel's when those are done: their steps run beside
+            # this phase
+            dp_run.cue(cli_runs["train"]["tree"])
+            dp_run.ranks.add_done_callback(lambda _: tp_run.cue())
+            torch.cuda.empty_cache()
+            served = phase_serve_export(smi)
         with Phase("side_lane"):
             lane = side.finish()
-            vq, datasets = lane["vq"], lane["datasets"]
+            vq, datasets, snn = lane["vq"], lane["datasets"], lane["snn"]
+            snn_runs = {"cli_train": snn["train"], "cli_eval": snn["eval"],
+                        **{f"sample {b}": row for b, row in snn["sample"].items()},
+                        **{f"{b} {n}": row for b, rows in snn["steps"].items()
+                           for n, row in rows.items()}}
             vq_runs = {"cli_train": vq["train"], "cli_eval": vq["eval"]}
             dataset_runs = {"cifar10_train": datasets["train"], "cifar10_eval": datasets["eval"],
                             **{f"{n} eval": row for n, row in datasets["evals"].items()},
@@ -4853,6 +5188,9 @@ def main() -> int:
         # phase zoo: 8 / 9 / 10 / 0 a training step and an eval forward
         # (SpikingVGG, SpikingResNet, SEW-ResNet, PLIFNet), in 4 steps + 1
         "launches_zoo": zoo_launches(zoo_run, 0),
+        # phase serve_export: 3 a served batch (the decode), 6 in the netlist
+        # request pair, 2 a Lynxi VGG step and its eval forward
+        "launches_serve_export": serve_launches(served, "K1"),
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -4868,6 +5206,8 @@ def main() -> int:
         "launches_data_parallel": dp_launches(dp, 1),
         "launches_tensor_parallel": tp_launches(tp, 1),
         "launches_zoo": zoo_launches(zoo_run, 1),
+        # phase serve_export: 2 a training step of lynxi_infer_torch's VGG
+        "launches_serve_export": {"lynxi": served["lynxi"]["launches"]["K1 bwd"]},
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],
@@ -4896,6 +5236,9 @@ def main() -> int:
             "launches_data_parallel": {run: n for run, n in dp_launches(dp, 4).items()
                                        if (run == "sampler") == (name == "bf16")
                                        and (run == "cli") <= (name == "fp32")},
+            # phase serve_export: 49 a served batch, warm-up and speculation
+            # included (the server and the netlist request bf16; bench each)
+            "launches_serve_export": serve_launches(served, "K2", name),
             # on the vq-vae baseline's denoiser at its eval's chunk of 512
             "max_abs_err_trained_vq_vae": vq["k2_max_abs_err"][name],
             # on CIFAR10's denoiser at its eval's chunk of 512

@@ -7,6 +7,8 @@ instead of running on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,16 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"the port runs on 'cuda' or 'cpu', not {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 convolutions and matrix products without TF32, whatever the
+    caller's global setting (cuDNN's default is TF32 on)."""
+    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old

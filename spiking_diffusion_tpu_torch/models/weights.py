@@ -11,6 +11,12 @@ from ``train/checkpoint.py`` ``load_variables``). The layout rules:
 * BatchNorm: ``scale``/``bias``/``mean``/``var`` as they are.
 * Codebook: (K, D) as it is; the readout blend ``alpha`` a 0-d scalar.
 
+The way back, a port module -> flax variables (``vqvae_variables``,
+``denoiser_variables``, ``zoo_variables``), inverts each rule: the
+trees have the keys, shapes and dtypes of the JAX package's
+``model.init`` variables (``params`` and ``batch_stats``), the bytes of
+the tree the module was loaded from.
+
 Models: the spiking VQ-VAE (``vqvae_*``), the denoiser (``denoiser_*``),
 the two baselines of the CLI's ``--model``, the ANN VQ-VAE
 (``ann_vqvae_*``, no BatchNorm) and the SNN-VAE (``snn_vae_*``, the
@@ -190,6 +196,93 @@ def zoo_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, np.ndarray]:
         return sd
 
     return walk(params, batch_stats, "")
+
+
+# --- the way back: a port module -> flax variables ----------------------------
+
+
+def flax_conv_kernel(weight) -> np.ndarray:
+    """torch Conv (Cout, Cin, H, W) -> flax kernel (H, W, Cin, Cout)."""
+    return np.ascontiguousarray(np.transpose(np.asarray(weight, np.float32), (2, 3, 1, 0)))
+
+
+def flax_deconv_kernel(weight) -> np.ndarray:
+    """torch ConvTranspose (Cin, Cout, H, W), flipped on the way in ->
+    flax kernel (H, W, Cin, Cout), flipped back."""
+    k = np.asarray(weight, np.float32)[:, :, ::-1, ::-1]
+    return np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1)))
+
+
+def flax_dense_kernel(weight) -> np.ndarray:
+    """``nn.Linear`` (out, in) -> flax Dense kernel (in, out)."""
+    return np.ascontiguousarray(np.asarray(weight, np.float32).T)
+
+
+def _numpy_state(module: torch.nn.Module) -> Dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+
+
+def _conv_node(sd: Tree, prefix: str, deconv: bool = False) -> Dict[str, np.ndarray]:
+    to_flax = flax_deconv_kernel if deconv else flax_conv_kernel
+    node = {"kernel": to_flax(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = np.asarray(sd[f"{prefix}.bias"], np.float32)
+    return node
+
+
+def _dense_node(sd: Tree, prefix: str) -> Dict[str, np.ndarray]:
+    node = {"kernel": flax_dense_kernel(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        node["bias"] = np.asarray(sd[f"{prefix}.bias"], np.float32)
+    return node
+
+
+def _bn_nodes(sd: Tree, prefix: str) -> Tuple[Dict, Dict]:
+    """A BN's flax (params, batch_stats) nodes, each under ``BatchNorm_0``."""
+    def get(k):
+        return np.asarray(sd[f"{prefix}.{k}"], np.float32)
+
+    return ({"BatchNorm_0": {"scale": get("scale"), "bias": get("bias")}},
+            {"BatchNorm_0": {"mean": get("mean"), "var": get("var")}})
+
+
+def denoiser_variables(model: SpikingDenoiser) -> Dict[str, Dict]:
+    """The port's denoiser -> flax ``SpikingDenoiser`` variables
+    (numpy): the inverse of :func:`denoiser_state_dict`."""
+    sd = _numpy_state(model)
+    n = len(model.cfg.denoiser_channels)
+    params, stats = {}, {}
+    for i in range(n):
+        params[f"SeqConv_{i}"] = {"Conv_0": _conv_node(sd, f"convs.{i}")}
+        params[f"SeqBatchNorm_{i}"], stats[f"SeqBatchNorm_{i}"] = _bn_nodes(sd, f"bns.{i}")
+    params[f"SeqConv_{n}"] = {"Conv_0": _conv_node(sd, "readout")}
+    return {"params": params, "batch_stats": stats}
+
+
+def vqvae_variables(model: SNNVQVAE) -> Dict[str, Dict]:
+    """The port's spiking VQ-VAE -> flax ``SNNVQVAE`` variables (numpy):
+    the inverse of :func:`vqvae_state_dict`, ``alpha`` 0-d."""
+    sd = _numpy_state(model)
+    enc, enc_stats = {}, {}
+    for i in range(3):
+        enc[f"SeqConv_{i}"] = {"Conv_0": _conv_node(sd, f"encoder.convs.{i}")}
+        enc[f"SeqBatchNorm_{i}"], enc_stats[f"SeqBatchNorm_{i}"] = _bn_nodes(
+            sd, f"encoder.bns.{i}")
+    pbn, pbn_stats = _bn_nodes(sd, "vq_layer.poisson_bn")
+    vq = {"embeddings": np.asarray(sd["vq_layer.embeddings"], np.float32),
+          "alpha": np.asarray(sd["vq_layer.alpha"], np.float32).reshape(()),
+          "poisson_conv": {"Conv_0": _conv_node(sd, "vq_layer.poisson_conv")},
+          "poisson_bn": pbn}
+    dec, dec_stats = {}, {}
+    for j in range(3):
+        dec[f"SeqConvTranspose_{j}"] = {
+            "ConvTranspose_0": _conv_node(sd, f"decoder.deconvs.{j}", deconv=True)}
+        if j < 2:
+            dec[f"SeqBatchNorm_{j}"], dec_stats[f"SeqBatchNorm_{j}"] = _bn_nodes(
+                sd, f"decoder.bns.{j}")
+    return {"params": {"encoder": enc, "vq_layer": vq, "decoder": dec},
+            "batch_stats": {"encoder": enc_stats, "vq_layer": {"poisson_bn": pbn_stats},
+                            "decoder": dec_stats}}
 
 
 # flax scope -> the port's attribute, in the SNN library's layers
@@ -456,29 +549,54 @@ def _put(tree: Dict, path: list, value) -> None:
     tree[path[-1]] = value
 
 
+def _zoo_tree(model: torch.nn.Module, conv, bn, dense) -> Tuple[Dict, Dict]:
+    """A zoo model's flax-layout (params, batch_stats): each conv's node
+    from ``conv(name, module)``, each BN's (params, stats) nodes from
+    ``bn``, each linear's from ``dense``, in module order; PLIF's ``w``
+    as the module holds it."""
+    params, stats = {}, {}
+    for name, module in model.named_modules():
+        if isinstance(module, SeqConv):
+            _put(params, _flax_path(name) + ["Conv_0"], conv(name, module))
+        elif isinstance(module, SeqBatchNorm):
+            bn_params, bn_stats = bn(name, module)
+            _put(params, _flax_path(name), bn_params)
+            _put(stats, _flax_path(name), bn_stats)
+        elif isinstance(module, SeqLinear):
+            _put(params, _flax_path(name) + ["Dense_0"], dense(name, module))
+    for name, p in model.named_parameters(recurse=False):
+        params[name] = np.asarray(p.detach().cpu().numpy(), np.float32)
+    return params, stats
+
+
 def init_zoo_variables(kind: str, generator: torch.Generator,
                        **kwargs) -> Tuple[Dict, Dict]:
     """Random flax-layout (params, batch_stats) of a zoo model of ``kind``
     (``load_zoo_model``'s kinds and ``kwargs``): the JAX package's
     initialisers (kaiming-uniform kernels, uniform +-1/sqrt(fan_in)
     biases, BN at identity, PLIF's w at -log(init_tau - 1))."""
-    model = ZOO_KINDS[kind](**kwargs)
-    params, stats = {}, {}
-    for name, module in model.named_modules():
-        if isinstance(module, SeqConv):
-            cout, cin, kh, kw = module.weight.shape
-            fan_in = cin * kh * kw
-            node = {"kernel": _uniform(generator, (kh, kw, cin, cout), math.sqrt(1.0 / fan_in))}
-            if module.bias is not None:
-                node["bias"] = _uniform(generator, (cout,), 1.0 / math.sqrt(fan_in))
-            _put(params, _flax_path(name) + ["Conv_0"], node)
-        elif isinstance(module, SeqBatchNorm):
-            bn_params, bn_stats = _bn_vars(module.scale.shape[0])
-            _put(params, _flax_path(name), bn_params)
-            _put(stats, _flax_path(name), bn_stats)
-        elif isinstance(module, SeqLinear):
-            out, fan_in = module.weight.shape
-            _put(params, _flax_path(name) + ["Dense_0"], _dense_vars(generator, fan_in, out, fan_in))
-    for name, p in model.named_parameters(recurse=False):
-        params[name] = np.asarray(p.detach().numpy(), np.float32)
-    return params, stats
+
+    def conv(_name, module):
+        cout, cin, kh, kw = module.weight.shape
+        fan_in = cin * kh * kw
+        node = {"kernel": _uniform(generator, (kh, kw, cin, cout), math.sqrt(1.0 / fan_in))}
+        if module.bias is not None:
+            node["bias"] = _uniform(generator, (cout,), 1.0 / math.sqrt(fan_in))
+        return node
+
+    def dense(_name, module):
+        out, fan_in = module.weight.shape
+        return _dense_vars(generator, fan_in, out, fan_in)
+
+    return _zoo_tree(ZOO_KINDS[kind](**kwargs), conv,
+                     lambda _name, module: _bn_vars(module.scale.shape[0]), dense)
+
+
+def zoo_variables(model: torch.nn.Module) -> Dict[str, Dict]:
+    """A port zoo model -> its flax variables (numpy): the inverse of
+    :func:`zoo_state_dict`."""
+    sd = _numpy_state(model)
+    params, stats = _zoo_tree(model, lambda name, _m: _conv_node(sd, name),
+                              lambda name, _m: _bn_nodes(sd, name),
+                              lambda name, _m: _dense_node(sd, name))
+    return {"params": params, "batch_stats": stats}

@@ -39,7 +39,6 @@ scan over t runs in the GEMM's epilogue.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import os
@@ -51,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from spiking_diffusion_tpu_torch.config import DiffusionConfig
+from spiking_diffusion_tpu_torch.device import full_fp32
 from spiking_diffusion_tpu_torch.models.diffusion import DenoiseFn
 from spiking_diffusion_tpu_torch.ops import _build
 from spiking_diffusion_tpu_torch.ops.spike_conv import bf16_planes, padded_channels
@@ -170,19 +170,6 @@ class FoldedDenoiser:
     dtype: torch.dtype
 
 
-@contextlib.contextmanager
-def _full_fp32():
-    """fp32 convolutions and matrix products without TF32, whatever the
-    caller's global setting (cuDNN's default is TF32 on)."""
-    old = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
-
-
 def quantize(w: torch.Tensor, scales: str = "row",
              clip_pct: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 of a (3, 3 * Cin, Cout) weight, JAX's quantizer.
@@ -265,7 +252,7 @@ def first_preactivation(tokens: torch.Tensor, t: torch.Tensor,
     """
     x = tokens.float().unsqueeze(1)
     x = torch.cat([x, t.float().reshape(-1, 1, 1, 1).expand_as(x)], dim=1)
-    with _full_fp32():
+    with full_fp32():
         a1 = F.conv2d(x, k1, None, 1, 1) + b1.reshape(1, -1, 1, 1)
     n, c = a1.shape[:2]
     return a1.reshape(n, c, -1).transpose(1, 2).contiguous()
@@ -361,7 +348,7 @@ def fused_denoise_reference(a1: torch.Tensor, folded: FoldedDenoiser,
                      device=a1.device) for c in chans]
     acc = torch.zeros((n * hw2, folded.weights[-1].shape[2]),
                       dtype=torch.float32, device=a1.device)
-    with _full_fp32():
+    with full_fp32():
         for _ in range(cfg.num_steps):
             vs[0], s1 = _lif(vs[0], x1, p, nolif)
             x = s1

@@ -1,5 +1,6 @@
 """Image grids as PNG files: the per-epoch recon grids (originals and
-reconstructions interleaved by row) and the sample grids (4 x 8).
+reconstructions interleaved by row) and the sample grids (4 x 8); and a
+PNG's bytes (``png_bytes``), which the server sends.
 
 The port's copy of ``spiking_diffusion_tpu/utils/grids.py`` with the same
 pixels. The PNG is written here with ``zlib`` and ``struct`` (signature,
@@ -49,9 +50,9 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
 
 
-def write_png(path: str, pixels: np.ndarray) -> str:
-    """Write a uint8 (H, W) greyscale or (H, W, 3) RGB array as a PNG:
-    every row with filter byte 0, the rows in one zlib stream."""
+def png_bytes(pixels: np.ndarray) -> bytes:
+    """A uint8 (H, W) greyscale or (H, W, 3) RGB array as a PNG file's
+    bytes: every row with filter byte 0, the rows in one zlib stream."""
     arr = np.ascontiguousarray(pixels, np.uint8)
     if arr.ndim not in PNG_COLOR_TYPES or (arr.ndim == 3 and arr.shape[2] != 3):
         raise ValueError(f"a PNG holds (H, W) or (H, W, 3) pixels, not {arr.shape}")
@@ -59,10 +60,16 @@ def write_png(path: str, pixels: np.ndarray) -> str:
     rows = arr.reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     header = struct.pack(">IIBBBBB", w, h, 8, PNG_COLOR_TYPES[arr.ndim], 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, pixels: np.ndarray) -> str:
+    """Write :func:`png_bytes` of ``pixels`` to ``path``."""
+    data = png_bytes(pixels)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(raw, 6)) + _chunk(b"IEND", b""))
+        f.write(data)
     return path
 
 

@@ -7,16 +7,22 @@
   fused sampler's, the stage-1 and stage-2 trainers',
   ``extract_code_indices``'s, the CLI's ``main``, the LeNet feature
   space's, the baselines' loaders, InceptionV3's, clean-fid's, the
-  freeze's and the classifier zoo's loader and trainer too): with no card
-  they raise instead of running on the CPU.
+  freeze's, the classifier zoo's loader and trainer, the server's
+  ``Generator``, ``lynxi_reference_forward`` and the ``--device`` of the
+  four ``examples/*_torch.py`` scripts too): with no card they raise
+  instead of running on the CPU.
   So do ``parallel.make_mesh``, ``parallel.make_mesh_2d`` and
   ``parallel.launch``: a rank runs on the card unless the CPU is named (the
   DP trainers and sampler on a rank: tests/test_torch_parallel.py; the TP
   step builders: tests/test_torch_tensor_parallel.py).
+* The four ``examples/*_torch.py`` scripts load neither either, and
+  ``models/lava_export`` imports without ``h5py`` (the card's machine has
+  none).
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
 
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -29,7 +35,7 @@ import torch
 from spiking_diffusion_tpu_torch import cli, generate, parallel
 from spiking_diffusion_tpu_torch.config import DiffusionConfig, SNNVAEConfig, VQVAEConfig
 from spiking_diffusion_tpu_torch.metrics import cleanfid, features, frozen, inception
-from spiking_diffusion_tpu_torch.models import diffusion, weights, zoo
+from spiking_diffusion_tpu_torch.models import deploy, diffusion, weights, zoo
 from spiking_diffusion_tpu_torch.train import stage1, stage2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,14 +55,38 @@ for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage
              "snn.neuron", "snn.encoding", "snn.functional", "snn.temporal",
              "snn.quantize", "snn.rnn", "snn.learning", "snn.fptt", "snn.tempotron",
              "models.zoo", "models.ann2snn", "models.recurrent", "models.attention",
-             "models.dropconnect"):
+             "models.dropconnect", "models.deploy", "models.lava_export", "ops.bitpack"):
     assert pkg.__name__ + "." + name in names, name
+import importlib.util
+for name in EXAMPLES:
+    spec = importlib.util.spec_from_file_location(name, "examples/" + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "spiking_diffusion_tpu"
              or k.startswith("spiking_diffusion_tpu."))
 print(len(names), "modules;", "leaked:", bad)
 sys.exit(1 if bad else 0)
 """
+
+
+EXAMPLES = ("serve_torch", "generate_torch", "deploy_netx_torch", "lynxi_infer_torch")
+NO_H5PY = """
+import sys
+sys.modules["h5py"] = None  # importing it raises
+from spiking_diffusion_tpu_torch.models import lava_export
+try:
+    lava_export.export_netx_hdf5("never.net", [])
+except ImportError:
+    print("needs h5py only to write")
+"""
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_isolation", os.path.join(REPO, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 @pytest.fixture(autouse=True)
@@ -72,7 +102,7 @@ def _run(args, cwd, **env):
 
 
 def test_port_imports_no_jax():
-    out = _run(["-c", IMPORT_ALL], REPO)
+    out = _run(["-c", f"EXAMPLES = {EXAMPLES!r}\n" + IMPORT_ALL], REPO)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaked: []" in out.stdout
     assert int(out.stdout.split()[0]) >= 25  # every module was imported
@@ -198,6 +228,29 @@ def test_zoo_defaults_to_cuda(monkeypatch):
     images = np.zeros((4, 4, 4, 1), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         zoo.train_classifier(model, images, np.zeros((4,), np.int32), batch_size=2)
+
+
+def test_lava_export_imports_without_h5py():
+    out = _run(["-c", NO_H5PY], REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "needs h5py only to write" in out.stdout
+
+
+def test_serving_and_export_default_to_cuda(monkeypatch, tmp_path):
+    """The server's Generator, the Lynxi executor and the four scripts run
+    on the card unless the CPU is named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    serve = _example("serve_torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.Generator(str(tmp_path), 4, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deploy.lynxi_reference_forward("never.json", "never.npz", np.zeros((1, 4, 4, 1)))
+    ckpt = ["--checkpoint", str(tmp_path)]
+    for name, argv in (("serve_torch", ckpt + ["--bench", "1"]), ("generate_torch", ckpt),
+                       ("deploy_netx_torch", ckpt), ("lynxi_infer_torch", [])):
+        monkeypatch.setattr(sys, "argv", [name] + argv)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _example(name).main()
 
 
 def test_chip_smoke_fails_without_card():
