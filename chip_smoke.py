@@ -357,14 +357,39 @@ Phases, each between a flushed ``phase <name> start`` / ``done in <s>`` line:
    ``lynxi_infer_torch.run`` at its defaults: exactly 2 K1 forward and
    backward launches a training step (and 2 in the eval forward),
    argmax agreement 1.0 with the exported manifest's executor. Then
-   ``bench(8)`` at batch 64 and 256 in fp32, bf16 and int8, the launches
-   held (11 batches each), p50 / p90 / images/s logged.
+   ``bench(4)`` at batch 64 and 256 in fp32, bf16 and int8, the launches
+   held (7 batches each), p50 / p90 / images/s logged (4 requests, 8
+   before phase data_tools came: the figures beside the ranks' steps are
+   no serving figures; those come from ``examples/serve_torch.py --bench
+   8`` alone).
+
+20. data_tools (after serve_export, before the side lane's join): the
+   event-camera classifier ``examples/dvs_classify_torch.py`` at its
+   defaults through its ``main`` (4 classes x 128 seeded synthetic streams
+   integrated by the native C++ integrator into 16x16x2 frames, T = 8,
+   ``SpikingVGG((16, "M", 32, "M"))``, 5 epochs of batch 64, then the
+   prediction of 128 test samples), the launch counts reset just before:
+   exactly 2 K1 forward and backward launches a training step (40) and 2
+   forwards in the prediction (DVS_LAUNCHES); the loss of the last epoch
+   under the first's; test accuracy over 0.5 (chance 0.25); ms per step
+   (CUDA events). Its first step's CPU side (each LIF layer passing the
+   card's spikes on) runs in the zoo's worker, held in phase
+   data_tools_check at the end at stage 1's card-against-CPU bounds. The
+   native integrator bitwise its plain numpy version over all 640 streams
+   of that run in both ``split_by`` modes, host ms per sample of each;
+   ``--dataset nmnist`` on a tree ``NMNIST.synthesize`` writes, its frame
+   cache read again bitwise the frames integrated from the events;
+   ``padded_sequence_mask`` on a CUDA lengths tensor. In the side lane,
+   after cli_snn_vae, phase data_tools_examples runs the twelve other
+   examples of the data and tools path on the card at the tiny flags of
+   ``tests/test_torch_examples.py`` (LANE_EXAMPLES), each one's last line
+   printed; a failure fails the run.
 
 Two lanes share the card and the host after phase kernels, so that the run
-keeps under five minutes: phases metrics_extra, cli_vq_vae, cli_datasets
-and cli_snn_vae (which share no state with the rest) run in a spawned
-process of their own (``SideLane``), its log printed whole where the main
-sequence joins it (phase side_lane, after serve_export); the CPU's side of
+keeps under five minutes: phases metrics_extra, cli_vq_vae, cli_datasets,
+cli_snn_vae and data_tools_examples (which share no state with the rest)
+run in a spawned process of their own (``SideLane``), its log printed
+whole where the main sequence joins it (phase side_lane, after serve_export); the CPU's side of
 the datasets' recon runs from the lane's start in HOST_WORKERS worker
 processes at a lower priority, and phase trained_weights' CPU recon from
 the run's start in the main sequence's worker (the zoo's). Phase
@@ -441,7 +466,7 @@ from spiking_diffusion_tpu_torch.profiling import benchmark, monitor, syops, tra
 from spiking_diffusion_tpu_torch.snn import encoding, neuron, surrogate
 from spiking_diffusion_tpu_torch.snn.neuron import NeuronParams
 from spiking_diffusion_tpu_torch.train import stage1, stage2
-from spiking_diffusion_tpu_torch.train.state import create_train_state
+from spiking_diffusion_tpu_torch.train.state import TrainState, create_train_state
 from spiking_diffusion_tpu_torch.utils.grids import _tile, _to_uint8
 
 BUDGET_S = 900  # the whole run, the build included
@@ -3437,25 +3462,54 @@ def zoo_worker() -> ProcessPoolExecutor:
     return pool
 
 
-def zoo_cpu_first_step(name: str, batch: tuple, card_trains: list) -> tuple:
-    """Model ``name``'s first training step on the CPU, in the zoo's worker
-    process, each LIF and PLIF layer passing on the card's spike train
-    (``card_trains``, bool arrays) in place of its own, with its own
-    gradient: (the step's record, its own spike trains as bool arrays,
-    seconds), as numpy."""
-    t0 = time.perf_counter()
-    state = zoo_state(name, "cpu")
-    images, labels = (torch.from_numpy(a) for a in batch)
+def forced_cpu_step(state, step, card_trains: list, t0: float) -> tuple:
+    """``step()``, a training step of ``state``'s model on the CPU, with each
+    LIF and PLIF layer passing on the card's spike train (``card_trains``,
+    bool arrays) in place of its own, with its own gradient: (the step's
+    record, its own spike trains as bool arrays, seconds since ``t0``), as
+    numpy."""
     with zoo_spike_tap():
         _TAP.trains, _TAP.force = [], [torch.from_numpy(a).float() for a in card_trains]
         try:
-            loss = zoo_step(state, (images, labels))["loss"]
+            loss = step()
             own = [t.numpy().astype(bool) for t in _TAP.trains]
         finally:
             _TAP.trains = _TAP.force = None
     loss, grads, stats = step_record(state, loss)
     return ((loss, {k: v.numpy() for k, v in grads.items()},
              {k: v.numpy() for k, v in stats.items()}), own, time.perf_counter() - t0)
+
+
+def zoo_cpu_first_step(name: str, batch: tuple, card_trains: list) -> tuple:
+    """Model ``name``'s first training step on the CPU, in the zoo's worker
+    process, through ``forced_cpu_step``."""
+    t0 = time.perf_counter()
+    state = zoo_state(name, "cpu")
+    images, labels = (torch.from_numpy(a) for a in batch)
+    return forced_cpu_step(state, lambda: zoo_step(state, (images, labels))["loss"],
+                           card_trains, t0)
+
+
+def hold_first_step(what: str, record, trains: list, cpu: tuple) -> dict:
+    """A first training step on the card (``record``, its spike trains
+    ``trains``) held against the CPU's (``forced_cpu_step``'s return): each
+    layer's own spikes, from the card's spikes before it, differ from the
+    card's in at most STAGE1_FLIP_SHARE of them; the loss, gradients and BN
+    statistics at stage 1's card-against-CPU bounds (STAGE1_CPU_*)."""
+    (loss, grads, stats), cpu_trains, seconds = cpu
+    cpu_record = (loss, {k: torch.from_numpy(v) for k, v in grads.items()},
+                  {k: torch.from_numpy(v) for k, v in stats.items()})
+    flips = [int((a != b).sum()) for a, b in zip(trains, cpu_trains)]
+    total = sum(b.size for b in cpu_trains)
+    log(f"  {what}: spikes of its {len(cpu_trains)} spiking layers that differ between "
+        f"the card and the CPU (each from the card's spikes before it): "
+        f"{', '.join(map(str, flips))} of {total}; the CPU step {seconds:.1f} s")
+    check(len(trains) == len(cpu_trains) and sum(flips) <= STAGE1_FLIP_SHARE * total,
+          f"{what}: spikes differ from the CPU's")
+    row = compare_steps(f"the CPU ({what})", record, cpu_record, False, STAGE1_CPU_LOSS_ATOL,
+                        STATS_TOL, STAGE1_CPU_GRAD_TOL)
+    row["spikes_differing"] = flips
+    return row
 
 
 def ann2snn_cpu() -> tuple:
@@ -3596,31 +3650,15 @@ def phase_zoo(card: str, pool: ProcessPoolExecutor) -> dict:
 
 
 def finish_zoo(run: dict, card: str) -> dict:
-    """Phase zoo held against its CPU side. The CPU's first step of each
-    model takes the card's spikes downstream of each LIF and PLIF layer: a
-    spike flipped at threshold by a sum in another order would otherwise
-    move the next BN's batch statistics and so flip more, layer after
-    layer (the residual nets: from 1 flip at the stem to 1.1 % of the last
-    block's spikes). Each layer's own spikes, from the card's spikes before
-    it, may differ from the card's in at most STAGE1_FLIP_SHARE of them;
-    the loss, gradients and BN statistics are held at stage 1's
-    card-against-CPU bounds (STAGE1_CPU_*)."""
+    """Phase zoo held against its CPU side (``hold_first_step``). The CPU's
+    first step of each model takes the card's spikes downstream of each LIF
+    and PLIF layer: a spike flipped at threshold by a sum in another order
+    would otherwise move the next BN's batch statistics and so flip more,
+    layer after layer (the residual nets: from 1 flip at the stem to 1.1 %
+    of the last block's spikes)."""
     for name, row in run["models"].items():
-        (loss, grads, stats), cpu_trains, seconds = run["cpu"][name].result(timeout=HOST_WAIT_S)
-        cpu_record = (loss, {k: torch.from_numpy(v) for k, v in grads.items()},
-                      {k: torch.from_numpy(v) for k, v in stats.items()})
-        trains = row.pop("trains")
-        flips = [int((a != b).sum()) for a, b in zip(trains, cpu_trains)]
-        total = sum(b.size for b in cpu_trains)
-        log(f"  {name}: spikes of its {len(cpu_trains)} spiking layers that differ between "
-            f"the card and the CPU (each from the card's spikes before it): "
-            f"{', '.join(map(str, flips))} of {total}; the CPU step {seconds:.1f} s")
-        check(len(trains) == len(cpu_trains) and sum(flips) <= STAGE1_FLIP_SHARE * total,
-              f"{name}: spikes differ from the CPU's")
-        row["vs_cpu"] = compare_steps(f"the CPU ({name})", row.pop("first"), cpu_record,
-                                      False, STAGE1_CPU_LOSS_ATOL, STATS_TOL,
-                                      STAGE1_CPU_GRAD_TOL)
-        row["vs_cpu"]["spikes_differing"] = flips
+        row["vs_cpu"] = hold_first_step(name, row.pop("first"), row.pop("trains"),
+                                        run["cpu"][name].result(timeout=HOST_WAIT_S))
     gpu, cpu = run["ann2snn"]
     return {"models": run["models"], "routes": run["routes"],
             "ann2snn": zoo_ann2snn(gpu, cpu.result(timeout=HOST_WAIT_S), card)}
@@ -3873,10 +3911,54 @@ def phase_cli_datasets(card: str, cpu: dict) -> dict:
 # --- the side lane: phases metrics_extra, cli_vq_vae, cli_datasets -----------
 
 
+# the other examples of the data and tools path, at the tiny flags of
+# tests/test_torch_examples.py (dvs_classify_torch runs in phase data_tools)
+LANE_EXAMPLES = {
+    "classify_mnist_torch": ["--epochs", "1", "--num_steps", "2", "--channels", "4"],
+    "speechcommands_kws_torch": ["--epochs", "1", "--channels", "2", "--batch_size", "2",
+                                 "--steps_per_epoch", "1"],
+    "ann2snn_cnn_mnist_torch": ["--epochs", "1", "--steps", "4", "--calib_size", "32",
+                                "--eval_size", "32"],
+    "tempotron_mnist_torch": ["--epochs", "1", "--train_size", "128", "--test_size", "64",
+                              "-m", "4", "-T", "8", "--batch_size", "32"],
+    "stdp_trace_torch": ["--T", "32"],
+    "fptt_online_torch": ["--epochs", "2"],
+    "rsnn_sequential_fmnist_torch": ["--epochs", "1", "--n_train", "64", "--n_test", "32",
+                                     "--hidden", "8"],
+    "spiking_lstm_mnist_torch": ["--epochs", "1", "--n_train", "64", "--n_test", "32",
+                                 "--hidden", "8"],
+    "spiking_lstm_text_torch": ["--iters", "5", "--hidden", "8", "--batch_size", "8"],
+    "rl_cartpole_dqn_torch": ["--episodes", "6"],
+    "rl_cartpole_a2c_torch": ["--updates", "4", "--eval_every", "2"],
+    "rl_cartpole_ppo_torch": ["--rollouts", "2", "--n_steps", "8", "--ppo_epochs", "1",
+                              "--minibatch", "16", "--hidden", "16", "--eval_every", "99"],
+}
+
+
+def phase_data_tools_examples(card: str) -> dict:
+    """Each of LANE_EXAMPLES' ``main`` on the card at its tiny flags, in the
+    side lane: its last printed line and its seconds; a failure is not
+    caught."""
+    rows = {}
+    for name, argv in LANE_EXAMPLES.items():
+        module = load_example(name)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        check(bool(lines), f"{name} printed nothing")
+        log(f"  {name} {' '.join(argv)}: {lines[-1]} ({seconds:.2f} s, host clock) [{card}]")
+        rows[name] = {"last_line": lines[-1], "seconds": seconds}
+    return rows
+
+
 def side_lane(card: str, conn, go) -> None:
-    """Phases metrics_extra, cli_vq_vae, cli_datasets and cli_snn_vae,
-    which share no state with the main sequence, in a process of their own
-    beside it, from ``go`` on; the CPU's side of the datasets' recon runs in
+    """Phases metrics_extra, cli_vq_vae, cli_datasets, cli_snn_vae and
+    data_tools_examples, which share no state with the main sequence, in a
+    process of their own beside it, from ``go`` on; the CPU's side of the datasets' recon runs in
     its pool from then. Sends {"log": all it printed, "results", "error": a
     traceback or None} through ``conn``; the main process prints the log
     when it joins, so that each phase's lines stay together."""
@@ -3903,6 +3985,9 @@ def side_lane(card: str, conn, go) -> None:
             with Phase("cli_snn_vae"):
                 torch.cuda.empty_cache()
                 results["snn"] = phase_cli_snn_vae(card)
+            with Phase("data_tools_examples"):
+                torch.cuda.empty_cache()
+                results["examples"] = phase_data_tools_examples(card)
             out["results"] = results
         except Exception:
             out["error"] = traceback.format_exc()
@@ -4751,7 +4836,7 @@ EXAMPLES = Path(__file__).resolve().parent / "examples"
 SERVE_BATCH = 64
 SERVE_REQUESTS = 3  # over loopback, then one call of Generator.sample
 SERVE_TEMPERATURE = 0.65
-SERVE_BENCH_REQUESTS = 8
+SERVE_BENCH_REQUESTS = 4  # was 8; cut to make room for phase data_tools
 SERVE_BENCH_BATCHES = (64, 256)
 SERVE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
 NETLIST_NOISE_SEED = 13
@@ -4860,7 +4945,8 @@ def serve_requests(serve, card: str) -> tuple:
 
 
 def serve_bench(serve, card: str) -> dict:
-    """``bench(8)`` at batch 64 and 256 in each dtype, the launches held."""
+    """``bench(SERVE_BENCH_REQUESTS)`` at batch 64 and 256 in each dtype,
+    the launches held."""
     out = {}
     for name in SERVE_DTYPES:
         for batch in SERVE_BENCH_BATCHES:
@@ -5013,6 +5099,198 @@ def phase_serve_export(card: str) -> dict:
             "bitpack": packed, "seconds": seconds}
 
 
+# --- phase data_tools: the event-camera classifier and the data path ---------
+
+DVS_LIF_LAYERS = 2  # dvs_classify_torch's SpikingVGG((16, "M", 32, "M")): two conv + BN + LIF
+DVS_TRAIN_SAMPLES = 4 * 128  # its defaults: 4 classes x 128 samples
+DVS_STEPS = 5 * (DVS_TRAIN_SAMPLES // 64)  # 5 epochs of 8 batches of 64
+# one K1 forward and backward per LIF layer a training step, one forward
+# per layer in the prediction pass over the 128 test samples
+DVS_LAUNCHES = (DVS_LIF_LAYERS * (DVS_STEPS + 1), DVS_LIF_LAYERS * DVS_STEPS, 0, 0, 0, 0, 0)
+DVS_MIN_ACCURACY = 0.5  # chance is 0.25
+DVS_EVENT_SETS = ((128, 0), (32, 1))  # (per class, seed): the training and test streams
+
+
+def dvs_cpu_first_step(batch: tuple, card_trains: list) -> tuple:
+    """dvs_classify_torch's first training step on the CPU, in the zoo's
+    worker process, through ``forced_cpu_step``."""
+    t0 = time.perf_counter()
+    dvs = load_example("dvs_classify_torch")
+    x, y = (torch.from_numpy(a) for a in batch)
+    state = TrainState(*dvs.build_model(dvs.CLASSES, tuple(x.shape[2:]), "cpu"))
+    return forced_cpu_step(state, lambda: dvs.train_step(state.model, state.optimizer, x, y),
+                           card_trains, t0)
+
+
+def dvs_run(dvs, card: str) -> dict:
+    """``dvs_classify_torch.main`` at its defaults on the card, the launch
+    counts reset just before; its first step recorded (the record, its
+    batch, its spike trains), each step timed by CUDA events."""
+    first, events = {}, []
+    plain_step = dvs.train_step
+
+    def step(model, optimizer, x, y):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        if first:
+            loss = plain_step(model, optimizer, x, y)
+        else:
+            _TAP.trains = trains = []
+            try:
+                loss = plain_step(model, optimizer, x, y)
+            finally:
+                _TAP.trains = None
+            first.update(record=step_record(TrainState(model, optimizer), loss),
+                         batch=(x.cpu().numpy(), y.cpu().numpy()),
+                         trains=[t.numpy().astype(bool) for t in trains])
+        ev[1].record()
+        events.append(ev)
+        return loss
+
+    dvs.train_step = step
+    try:
+        with zoo_spike_tap():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = dvs.main([])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+    finally:
+        dvs.train_step = plain_step
+    ms = [a.elapsed_time(b) for a, b in events]
+    median = statistics.median(ms[1:])
+    log(f"  dvs_classify_torch at its defaults ({res['train_shape'][0]} samples of "
+        f"{tuple(res['train_shape'][1:])} frames, {res['steps']} steps of batch 64, then the "
+        f"prediction of 128): launches {format_counts(counts)}; losses "
+        f"{', '.join(f'{v:.4f}' for v in res['losses'])}; test accuracy {res['accuracy']:.3f} "
+        f"(chance 0.25); ms per training step {median:.3f} (median of steps 2-{len(ms)}, CUDA "
+        f"events; the first {ms[0]:.2f}); the run {seconds:.2f} s (host clock) [{card}]")
+    check(counts == DVS_LAUNCHES, f"dvs_classify_torch: launches {counts}, expected "
+          f"{DVS_LAUNCHES}")
+    check(res["steps"] == DVS_STEPS and len(ms) == DVS_STEPS, f"dvs: {res['steps']} steps")
+    check(all(math.isfinite(v) for v in res["losses"]) and res["losses"][-1] < res["losses"][0],
+          f"dvs_classify_torch: the loss did not fall: {res['losses']}")
+    check(res["accuracy"] > DVS_MIN_ACCURACY,
+          f"dvs_classify_torch: test accuracy {res['accuracy']:.3f} <= {DVS_MIN_ACCURACY}")
+    return {"launches": counts, "losses": res["losses"], "accuracy": res["accuracy"],
+            "ms": ms, "ms_median": median, "seconds": seconds, "first": first}
+
+
+def dvs_integrator_check(dvs, card: str) -> dict:
+    """The native integrator against its plain numpy version over every
+    stream of dvs_classify_torch's run (training and test sets), in both
+    ``split_by`` modes: bitwise; host ms per sample of each."""
+    from spiking_diffusion_tpu_torch.data.events import integrate_events_to_frames
+
+    streams = [ev for n, seed in DVS_EVENT_SETS for ev in dvs.make_events(n, seed)[0]]
+    rows = {}
+    for split in ("time", "number"):
+        seconds = {True: 0.0, False: 0.0}
+        for ev in streams:
+            out = {}
+            for native in (True, False):
+                t0 = time.perf_counter()
+                out[native] = integrate_events_to_frames(ev, dvs.H, dvs.W, dvs.T_FRAMES, split,
+                                                         use_native=native)
+                seconds[native] += time.perf_counter() - t0
+            check(out[True].dtype == out[False].dtype and np.array_equal(out[True], out[False]),
+                  f"native integrator differs from numpy ({split})")
+        rows[split] = {"native_ms": seconds[True] * 1e3 / len(streams),
+                       "plain_ms": seconds[False] * 1e3 / len(streams)}
+    log(f"  native integrator bitwise its plain numpy version on all {len(streams)} streams "
+        f"(200 events each) in both modes; host ms per sample, native / plain: " + "; ".join(
+            f"{s} {r['native_ms']:.4f} / {r['plain_ms']:.4f}" for s, r in rows.items())
+        + f" [host of {card}]")
+    return {"samples": len(streams), **rows}
+
+
+def dvs_folder_check(dvs, card: str) -> dict:
+    """``--dataset nmnist`` on a tree ``NMNIST.synthesize`` writes: the run,
+    then its frame cache read again, bitwise the frames integrated from the
+    events (the cache's first pass)."""
+    from spiking_diffusion_tpu_torch.data import neuromorphic as nm
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        res = dvs.main(["--dataset", "nmnist", "--root", root])
+        seconds = time.perf_counter() - t0
+        base = os.path.join(root, "nmnist")
+        cache = os.path.join(base, "frames_number_8_split_by_number")
+        check(os.path.isdir(cache), f"no frame cache at {cache}")
+        n = 0
+        for train in (True, False):
+            kw = dict(data_type="frame", frames_number=dvs.T_FRAMES, split_by="number")
+            again = nm.NMNIST(base, train=train, **kw)
+            events = nm.NMNIST(base, train=train)
+            check([p for p, _ in again.samples] == [
+                p.replace(os.path.join(base, "events_np"), cache) for p, _ in events.samples],
+                "the frame cache's samples are not the events'")
+            for i in range(len(events)):
+                want = nm.integrate_by_fixed_frames(events[i][0], "number", dvs.T_FRAMES,
+                                                    *nm.NMNIST.get_H_W())
+                check(np.array_equal(again[i][0], want) and again[i][1] == events[i][1],
+                      f"cached frames of {events.samples[i][0]} differ")
+                n += 1
+    log(f"  --dataset nmnist on a synthesized tree: {res['train_shape'][0]} training samples "
+        f"of {tuple(res['train_shape'][1:])}, {res['classes']} classes, losses "
+        f"{', '.join(f'{v:.4f}' for v in res['losses'])}, accuracy {res['accuracy']:.3f}, "
+        f"{seconds:.2f} s; its {n} cached frame sets, read again, bitwise the integrated "
+        f"events [{card}]")
+    return {"accuracy": res["accuracy"], "losses": res["losses"], "cached": n,
+            "seconds": seconds}
+
+
+def mask_check() -> dict:
+    """``padded_sequence_mask`` on a CUDA lengths tensor: a bool (T, N)
+    tensor on the card, equal to the CPU's."""
+    from spiking_diffusion_tpu_torch.data.neuromorphic import padded_sequence_mask
+
+    lengths = torch.tensor([5, 1, 0, 3, 7], device="cuda")
+    mask = padded_sequence_mask(lengths)
+    want = padded_sequence_mask(lengths.cpu().numpy())
+    check(mask.device.type == "cuda" and mask.dtype == torch.bool
+          and tuple(mask.shape) == (7, 5) and torch.equal(mask.cpu(), want),
+          f"padded_sequence_mask on the card: {mask}")
+    log(f"  padded_sequence_mask on a CUDA lengths tensor: {tuple(mask.shape)} bool on "
+        f"{mask.device}, equal to the CPU's")
+    return {"shape": list(mask.shape)}
+
+
+def phase_data_tools(card: str, pool: ProcessPoolExecutor) -> dict:
+    """dvs_classify_torch on the card (exact K1 launches, the loss falling,
+    accuracy over DVS_MIN_ACCURACY; its first step's CPU side submitted to
+    ``pool``), the native integrator, the folder path and the mask."""
+    t = [time.perf_counter()]
+    dvs = load_example("dvs_classify_torch")
+    run = dvs_run(dvs, card)
+    first = run.pop("first")
+    run["cpu"] = pool.submit(dvs_cpu_first_step, first["batch"], first["trains"])
+    run["record"], run["trains"] = first["record"], first["trains"]
+    t.append(time.perf_counter())
+    run["integrator"] = dvs_integrator_check(dvs, card)
+    t.append(time.perf_counter())
+    run["folder"] = dvs_folder_check(dvs, card)
+    t.append(time.perf_counter())
+    run["mask"] = mask_check()
+    t.append(time.perf_counter())
+    run["seconds"] = dict(zip(("dvs_run", "integrator", "folder", "mask"), np.diff(t).tolist()))
+    log("  data_tools seconds (host clock): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in run["seconds"].items()))
+    return run
+
+
+def finish_data_tools(run: dict) -> dict:
+    """dvs_classify_torch's first step on the card held against the CPU's,
+    as phase zoo's (``hold_first_step``)."""
+    trains = run.pop("trains")
+    check(len(trains) == DVS_LIF_LAYERS, f"dvs: {len(trains)} spike trains recorded")
+    run["vs_cpu"] = hold_first_step("dvs_classify_torch", run.pop("record"), trains,
+                                    run.pop("cpu").result(timeout=HOST_WAIT_S))
+    return run
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
@@ -5128,6 +5406,10 @@ def main() -> int:
             dp_run.ranks.add_done_callback(lambda _: tp_run.cue())
             torch.cuda.empty_cache()
             served = phase_serve_export(smi)
+        with Phase("data_tools"):
+            # the dvs example's CPU first step runs in the zoo's worker
+            torch.cuda.empty_cache()
+            data_pending = phase_data_tools(smi, zoo_pool)
         with Phase("side_lane"):
             lane = side.finish()
             vq, datasets, snn = lane["vq"], lane["datasets"], lane["snn"]
@@ -5145,6 +5427,8 @@ def main() -> int:
             tp = tp_run.finish()
         with Phase("zoo_check"):
             zoo_run = finish_zoo(zoo_pending, smi)
+        with Phase("data_tools_check"):
+            data_tools = finish_data_tools(data_pending)
         log(f"total {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -5191,6 +5475,9 @@ def main() -> int:
         # phase serve_export: 3 a served batch (the decode), 6 in the netlist
         # request pair, 2 a Lynxi VGG step and its eval forward
         "launches_serve_export": serve_launches(served, "K1"),
+        # phase data_tools: dvs_classify_torch at its defaults, 2 a training
+        # step (40 steps) and 2 in the prediction pass
+        "launches_data_tools": data_tools["launches"][0],
         "shapes": k1["rows"],
         # times of the 6 launches of one layerwise stage-1 step at batch 256
         "stage1": stage1_times(k1_s1, "fwd"),
@@ -5208,6 +5495,8 @@ def main() -> int:
         "launches_zoo": zoo_launches(zoo_run, 1),
         # phase serve_export: 2 a training step of lynxi_infer_torch's VGG
         "launches_serve_export": {"lynxi": served["lynxi"]["launches"]["K1 bwd"]},
+        # phase data_tools: 2 a dvs_classify_torch training step (40 steps)
+        "launches_data_tools": data_tools["launches"][1],
         "max_abs_err": max(k1_bwd["max_abs_err"], k1_s1["bwd_err"], snn["k1_max_abs_err"]),
         # times of the 5 launches of one layerwise training step at batch 256
         "ms": k1_bwd["ms"], "plain_ms": k1_bwd["plain_ms"], "bound_ms": k1_bwd["bound_ms"],

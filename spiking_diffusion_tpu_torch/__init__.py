@@ -20,3 +20,9 @@ encoder, quantizer and decoder train with every LIF layer on K1 forward
 and backward, or every BN-apply + LIF on K3 ('bnlif'), in fp32 or bf16;
 ``extract_code_indices`` makes the code grids that stage 2 trains on.
 """
+
+__version__ = "0.1.0"
+
+from spiking_diffusion_tpu_torch import config as config  # noqa: E402
+
+__all__ = ["config", "__version__"]

@@ -38,7 +38,8 @@ def _apply_layer(spec, params, x: torch.Tensor) -> torch.Tensor:
     if kind == "dense":
         return F.linear(x, params["weight"], params.get("bias"))
     if kind == "relu":
-        return torch.clamp(x, min=0.0)
+        # jnp.maximum's gradient: half to each side at x == 0 (clamp passes it whole)
+        return torch.maximum(x, x.new_zeros(()))
     if kind == "pool":
         return F.avg_pool2d(x, spec[1])
     if kind == "flatten":

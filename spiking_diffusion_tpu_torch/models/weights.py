@@ -318,6 +318,29 @@ def library_state_dict(params: Tree, batch_stats: Optional[Tree] = None) -> Dict
     return {k.lstrip("."): v for k, v in walk(params, batch_stats or {}, "").items()}
 
 
+def scoped_state_dict(params: Tree, scopes: Mapping[str, str]) -> Dict[str, np.ndarray]:
+    """flax variables of a model made of named scopes (flax ``Dense``
+    heads, SNN library layers) -> the port's state dict: scope ``s``
+    becomes the module's attribute ``scopes[s]``, its tree carried by
+    :func:`library_state_dict` (the examples' LSTM and recurrent nets:
+    ``{"SpikingRNN_0": "rnn", "Dense_0": "head"}``)."""
+    return {f"{attr}.{k}": v for scope, attr in scopes.items()
+            for k, v in library_state_dict(params[scope]).items()}
+
+
+def mlp_state_dict(params: Tree, layers: Mapping[str, Tuple[str, str]]) -> Dict[str, np.ndarray]:
+    """A hand-written MLP's parameter dict (kernels (in, out), biases) ->
+    the state dict of its ``nn.Linear`` layers: layer ``name`` takes
+    ``params[layers[name][0]]`` transposed as its weight and
+    ``params[layers[name][1]]`` as its bias (the CartPole examples'
+    ``{"w1", "b1", "w2", "b2"}``)."""
+    sd = {}
+    for name, (kernel, bias) in layers.items():
+        sd[f"{name}.weight"] = dense_weight(params[kernel])
+        sd[f"{name}.bias"] = np.asarray(params[bias], np.float32)
+    return sd
+
+
 ZOO_KINDS = {"vgg": zoo.SpikingVGG, "resnet": zoo.SpikingResNet, "sew": zoo.SEWResNet,
              "plif": zoo.PLIFNet}
 

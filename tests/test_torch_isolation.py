@@ -15,9 +15,12 @@
   ``parallel.launch``: a rank runs on the card unless the CPU is named (the
   DP trainers and sampler on a rank: tests/test_torch_parallel.py; the TP
   step builders: tests/test_torch_tensor_parallel.py).
-* The four ``examples/*_torch.py`` scripts load neither either, and
-  ``models/lava_export`` imports without ``h5py`` (the card's machine has
-  none).
+* The ``examples/*_torch.py`` scripts load neither either (the four of
+  serving and export, and the thirteen of the data and tools path, each of
+  whose ``main`` runs on the card unless ``--device cpu`` is passed), and
+  ``models/lava_export``, ``data/neuromorphic``, ``utils/visualizing`` and
+  every example import without ``h5py`` and ``matplotlib`` (the card's
+  machine has neither).
 * ``chip_smoke.py`` exits non-zero, without its result line, when there is
   no CUDA device or when it stands alone without the port.
 """
@@ -55,7 +58,9 @@ for name in ("cli", "metrics.features", "metrics.frozen", "metrics.mode_coverage
              "snn.neuron", "snn.encoding", "snn.functional", "snn.temporal",
              "snn.quantize", "snn.rnn", "snn.learning", "snn.fptt", "snn.tempotron",
              "models.zoo", "models.ann2snn", "models.recurrent", "models.attention",
-             "models.dropconnect", "models.deploy", "models.lava_export", "ops.bitpack"):
+             "models.dropconnect", "models.deploy", "models.lava_export", "ops.bitpack",
+             "native", "data.events", "data.neuromorphic", "data.transforms", "data.audio",
+             "utils.visualizing"):
     assert pkg.__name__ + "." + name in names, name
 import importlib.util
 for name in EXAMPLES:
@@ -70,14 +75,36 @@ sys.exit(1 if bad else 0)
 
 
 EXAMPLES = ("serve_torch", "generate_torch", "deploy_netx_torch", "lynxi_infer_torch")
+# the data and tools path: each runs on the card unless --device cpu
+DATA_EXAMPLES = ("dvs_classify_torch", "classify_mnist_torch", "speechcommands_kws_torch",
+                 "ann2snn_cnn_mnist_torch", "tempotron_mnist_torch", "stdp_trace_torch",
+                 "fptt_online_torch", "rsnn_sequential_fmnist_torch",
+                 "spiking_lstm_mnist_torch", "spiking_lstm_text_torch",
+                 "rl_cartpole_dqn_torch", "rl_cartpole_a2c_torch", "rl_cartpole_ppo_torch")
 NO_H5PY = """
 import sys
 sys.modules["h5py"] = None  # importing it raises
+sys.modules["matplotlib"] = None
 from spiking_diffusion_tpu_torch.models import lava_export
 try:
     lava_export.export_netx_hdf5("never.net", [])
 except ImportError:
     print("needs h5py only to write")
+from spiking_diffusion_tpu_torch.data import neuromorphic
+from spiking_diffusion_tpu_torch.utils import visualizing
+try:
+    neuromorphic.SpikingHeidelbergDigits("never")
+except ImportError:
+    print("SHD needs h5py only to read")
+try:
+    visualizing.plot_1d_spikes([[0.0]])
+except ImportError:
+    print("plots need matplotlib only to draw")
+import importlib.util
+for name in EXAMPLES:
+    spec = importlib.util.spec_from_file_location(name, "examples/" + name + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("examples import")
 """
 
 
@@ -102,7 +129,7 @@ def _run(args, cwd, **env):
 
 
 def test_port_imports_no_jax():
-    out = _run(["-c", f"EXAMPLES = {EXAMPLES!r}\n" + IMPORT_ALL], REPO)
+    out = _run(["-c", f"EXAMPLES = {EXAMPLES + DATA_EXAMPLES!r}\n" + IMPORT_ALL], REPO)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "leaked: []" in out.stdout
     assert int(out.stdout.split()[0]) >= 25  # every module was imported
@@ -231,9 +258,24 @@ def test_zoo_defaults_to_cuda(monkeypatch):
 
 
 def test_lava_export_imports_without_h5py():
-    out = _run(["-c", NO_H5PY], REPO)
+    """Without h5py and matplotlib (the card's machine has neither) the
+    port and every example import; only writing netx, reading SHD / SSC
+    and drawing a plot need them."""
+    out = _run(["-c", f"EXAMPLES = {EXAMPLES + DATA_EXAMPLES!r}\n" + NO_H5PY], REPO)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "needs h5py only to write" in out.stdout
+    for line in ("needs h5py only to write", "SHD needs h5py only to read",
+                 "plots need matplotlib only to draw", "examples import"):
+        assert line in out.stdout
+
+
+@pytest.mark.parametrize("name", DATA_EXAMPLES)
+def test_data_examples_default_to_cuda(name, monkeypatch):
+    """Each example of the data and tools path runs on the card unless
+    ``--device cpu`` is passed: with no card its ``main`` raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _example(name).main([])
+
 
 
 def test_serving_and_export_default_to_cuda(monkeypatch, tmp_path):
